@@ -1,0 +1,68 @@
+"""Builds the hand-written CUDA kernels of xerus_tpu_torch on first use.
+
+Each kernel source in ``csrc/`` has a plain C interface and is compiled by
+``nvcc`` into its own shared library, loaded with ctypes.  Libraries go
+into ``xerus_tpu_torch/_build/`` under a name that carries a hash of the
+source and the flags, so an edited source is rebuilt and an unchanged one
+is reused.  A missing ``nvcc`` or a failed compile raises: there is no
+fallback to a plain version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+_PKG = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+
+# sm_90a keeps wgmma/setmaxnreg available to later kernels; -fmad=false
+# keeps nvcc from contracting a multiply and an add into an FMA, which
+# the error-free transformations must never see
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v"]
+
+_loaded = {}
+# seconds and compiler output of the builds made by this process
+build_log = {}
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels of xerus_tpu_torch "
+                       "are built from csrc/ on the machine with the card")
+
+
+def load_kernel_library(name: str) -> ctypes.CDLL:
+    """Compile ``csrc/<name>.cu`` (once per content) and load it."""
+    if name in _loaded:
+        return _loaded[name]
+    src = os.path.join(CSRC, name + ".cu")
+    with open(src, "rb") as fh:
+        digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode()
+                                ).hexdigest()[:12]
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    lib_path = os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
+    if not os.path.exists(lib_path):
+        tmp = f"{lib_path}.{os.getpid()}.tmp"
+        t0 = time.perf_counter()
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed to build {src} "
+                               f"(rc {proc.returncode}):\n{proc.stderr}")
+        os.replace(tmp, lib_path)
+        build_log[name] = {"seconds": time.perf_counter() - t0,
+                           "ptxas": proc.stderr.strip()}
+    lib = ctypes.CDLL(lib_path)
+    _loaded[name] = lib
+    return lib
