@@ -4,13 +4,23 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout.  It builds every CUDA kernel of the
-port's main path from ``xerus_tpu_torch/csrc`` with nvcc, holds each kernel
-against its plain PyTorch version and float64 on the card, then drives the
-main path once at full width: the d=32, rank-30 QTT Poisson mixed-precision
-ALS solve (f32 half-sweeps to the f32 plateau, then two double-word
-half-sweeps), the instance of ``bench.py``'s north-star row.  It checks the
-host-f64 residual, that the solve went through the kernels (launch counts),
-and that a small solve on the card agrees with the same solve on the CPU.
+port's main paths from ``xerus_tpu_torch/csrc`` with nvcc (one nvcc per
+source, all started together), holds each kernel against its plain PyTorch
+version and float64 on the card, then drives the two main paths once at
+full width:
+
+- the d=32, rank-30 QTT Poisson mixed-precision ALS solve (f32
+  half-sweeps to the f32 plateau, then two double-word half-sweeps), the
+  instance of ``bench.py``'s north-star row; kernel K1 (df_matvec);
+- TT rounding of ``bench.py``'s workload-1 instance (d=32, n=2, rank 256
+  -> 128) and its numerically rank-96 "cliff" variant, deterministic
+  (gemm_exact and svd truncation) and randomized (cholqr1); kernel K2
+  (gemm_exact).
+
+It checks the host-f64 residual of the solve and the f32-vs-f64 log-norm
+of every rounding, that each path went through its kernel (launch counts,
+zeroed just before the path and read just after), and that a small solve
+and a small rounding on the card agree with the same on the CPU.
 
 Every phase raises on failure and nothing is caught, so the exit code is 0
 only if every phase passed.  Without a CUDA card, or without the package
@@ -39,6 +49,39 @@ RESIDUAL_BAR = 1e-10
 EXPECTED_K1_LAUNCHES = 22 * 3 * DF_SWEEPS
 K1_SHAPES = [(1800, 1800), (1030, 997), (130, 190)]
 K1_REL_TOL = 1e-12
+
+KERNELS = ("df_matvec", "gemm_exact")
+
+# rounding: bench.py workload 1
+ROUND_D, ROUND_N, ROUND_RANK, ROUND_TARGET, OVERSAMPLE = 32, 2, 256, 128, 8
+# trunc-mode bonds of the static schedule: sites 8..24, each (256, 256),
+# keep 128 in a 128 bucket; the ramp bonds take exact splits
+EXPECTED_K2_LAUNCHES = 17
+ROUND_F64_BAR = 2e-4      # f32-vs-f64 log-norm, svd and gemm_exact
+GE_VS_SVD_BAR = 1e-4      # gemm_exact log-norm vs the svd chain's
+RAND_VS_SVD_BAR = 1e-4    # randomized log-norm above the svd chain's
+# K2 against its plain version: (kind, B, M, keep, keep_cap); the
+# reference's three kinds (tests/test_pallas_lowering.py) and the slice's
+# bond shape
+K2_CASES = [("generic", 256, 512, 96, 128), ("cliff", 256, 512, 96, 128),
+            ("overranked", 256, 512, 96, 128), ("slice", 256, 256, 128, 128)]
+K2_ERR_TOL = 5e-6         # |truncation error kernel - plain|, f32
+K2_F64_RTOL = 1e-8        # f64 truncation error vs the SVD's
+
+
+def _wall_ms(fn, reps: int = 3) -> float:
+    """Median host wall time of ``fn`` in ms, synchronized before and after
+    each call: for plain versions that read flags to the host."""
+    import torch
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
 
 
 def _time_ms(fn, reps: int = 50, warmup: int = 5) -> float:
@@ -84,12 +127,16 @@ def phase_environment():
 
 
 def phase_build():
+    from concurrent.futures import ThreadPoolExecutor
     from xerus_tpu_torch import build
     t0 = time.perf_counter()
-    build.load_kernel_library("df_matvec")
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        list(pool.map(build.load_kernel_library, KERNELS))
     secs = time.perf_counter() - t0
-    print(f"build: df_matvec in {secs:.2f} s")
+    print(f"build: {', '.join(KERNELS)} in {secs:.2f} s (one nvcc each, "
+          f"in parallel)")
     for name, log in build.build_log.items():
+        print(f"  nvcc {name}: {log['seconds']:.2f} s")
         for line in log["ptxas"].splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
@@ -226,6 +273,244 @@ def phase_small_agreement(dev):
         raise AssertionError("card and CPU disagree on the small solve")
 
 
+def _k2_input(kind, B, M, keep, seed):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    if kind == "generic":
+        return rng.standard_normal((B, M)) * rng.uniform(0.1, 1.0,
+                                                         size=(B, 1))
+    if kind == "cliff":
+        U, _ = np.linalg.qr(rng.standard_normal((B, B)))
+        V, _ = np.linalg.qr(rng.standard_normal((M, B)))
+        s = np.concatenate([np.linspace(10.0, 1.0, keep),
+                            np.full(B - keep, 1e-6)])
+        return (U * s) @ V.T
+    if kind == "overranked":
+        return rng.standard_normal((B, 7)) @ rng.standard_normal((7, M))
+    return rng.standard_normal((B, M))
+
+
+def _k2_run(cur, keep, cap, kernel):
+    """One truncation by K2 or by its plain version; (vt, flags)."""
+    import torch
+    from xerus_tpu_torch.ops import gemm_exact as ge
+    mask = (torch.arange(cap, device=cur.device) < keep).to(cur.dtype)
+    if kernel:
+        vt0, vt_bal, flags = ge.gemm_exact_kernel(cur, keep, cap)
+        okp, conv, it, ns, syncs = flags.tolist()
+        info = dict(okp=bool(okp), converged=bool(conv), outer=it, ns=ns,
+                    syncs=syncs)
+    else:
+        vt0, vt_bal, okp_t, conv_t, it = ge._gemm_exact_body(
+            cur, mask, *ge._gemm_exact_tuning(cur.dtype))
+        info = dict(okp=bool(okp_t), converged=bool(conv_t), outer=it)
+    return ge._finish_gemm_exact(vt0, vt_bal, info["okp"], mask), info
+
+
+def _trunc_err(cur, vt):
+    """||cur - cur vt^T vt||^2 / ||cur||^2 in float64."""
+    c, v = cur.double(), vt.double()
+    return float(((c - (c @ v.T) @ v).norm() ** 2 / c.norm() ** 2).item())
+
+
+def phase_k2(dev):
+    """K2 against its plain version on the card: the reference's three
+    kinds and the slice's bond shape in f32, one small f64 case against
+    the SVD; bitwise repeat launches; times at the slice's shape."""
+    import numpy as np
+    import torch
+    from xerus_tpu_torch.ops import gemm_exact as ge
+    max_abs = 0.0
+    timing = {}
+    for kind, B, M, keep, cap in K2_CASES:
+        cur = torch.tensor(_k2_input(kind, B, M, keep, SEED + B + M),
+                           dtype=torch.float32, device=dev)
+        vk, fk = _k2_run(cur, keep, cap, True)
+        vp, fp = _k2_run(cur, keep, cap, False)
+        ek, ep = _trunc_err(cur, vk), _trunc_err(cur, vp)
+        a = ge.gemm_exact_kernel(cur, keep, cap)
+        b = ge.gemm_exact_kernel(cur, keep, cap)
+        same = all(torch.equal(x, y) for x, y in zip(a, b))
+        diff = abs(ek - ep)
+        max_abs = max(max_abs, diff)
+        print(f"K2 gemm_exact {kind} ({B}, {M}) keep {keep} cap {cap} f32: "
+              f"trunc err kernel {ek:.9e} plain {ep:.9e} (|diff| {diff:.3e}, "
+              f"bar {K2_ERR_TOL:g}); kernel {fk}; plain {fp}; repeat "
+              f"launches bitwise equal: {same}")
+        if not (diff < K2_ERR_TOL and same and fk["converged"]
+                and fp["converged"]):
+            raise AssertionError(f"K2 {kind}: kernel and plain disagree, "
+                                 "did not certify, or repeat differs")
+        if kind == "slice":
+            timing["ms"] = _time_ms(lambda: ge.gemm_exact_kernel(cur, keep,
+                                                                 cap),
+                                    reps=20, warmup=2)
+            timing["plain_ms"] = _wall_ms(lambda: _k2_run(cur, keep, cap,
+                                                          False))
+            print(f"K2 gemm_exact slice ({B}, {M}) time: kernel "
+                  f"{timing['ms']:.3f} ms (CUDA events, median of 20 queued "
+                  f"launches after 2 warm-up launches), plain "
+                  f"{timing['plain_ms']:.3f} ms (host wall clock around "
+                  f"torch.cuda.synchronize(), median of 3; it reads its loop "
+                  f"conditions to the host)")
+    A = _k2_input("generic", 40, 24, 5, SEED)
+    s = np.linalg.svd(A, compute_uv=False)
+    e_svd = float(np.sum(s[5:] ** 2) / np.sum(s ** 2))
+    cur = torch.tensor(A, dtype=torch.float64, device=dev)
+    vk, fk = _k2_run(cur, 5, 8, True)
+    vp, fp = _k2_run(cur, 5, 8, False)
+    ek, ep = _trunc_err(cur, vk), _trunc_err(cur, vp)
+    print(f"K2 gemm_exact f64 (40, 24) keep 5 cap 8: trunc err kernel "
+          f"{ek:.15e} plain {ep:.15e} svd {e_svd:.15e} (rtol bar "
+          f"{K2_F64_RTOL:g}); kernel {fk}; plain {fp}")
+    if not (abs(ek - e_svd) <= K2_F64_RTOL * e_svd
+            and abs(ep - e_svd) <= K2_F64_RTOL * e_svd and fk["converged"]):
+        raise AssertionError("K2 f64 misses the SVD truncation error")
+    return max_abs, timing
+
+
+def _round(method, cores):
+    from xerus_tpu_torch.ops import round_kernels as rk
+    if method == "randomized":
+        return rk._round_randomized(cores, ROUND_TARGET, OVERSAMPLE,
+                                    qr_method="cholqr1")
+    return rk.tt_round_sweep_segmented(cores, ROUND_TARGET, method=method)
+
+
+def _to_host(cores):
+    return [c.double().cpu().numpy() for c in cores]
+
+
+def phase_small_rounding(dev):
+    """A small rounding (d=10, rank 16 -> 8, f32) on the card against the
+    same rounding on the CPU, where the plain versions run."""
+    import torch
+    from xerus_tpu_torch.convert import cores_to_torch
+    from xerus_tpu_torch.examples import (bench_round_instance,
+                                          host_tt_distance, host_tt_log_norm)
+    from xerus_tpu_torch.ops import round_kernels as rk
+    host = bench_round_instance(10, 2, 16, SEED)
+    for method in ("gemm_exact", "svd"):
+        g = _to_host(rk.tt_round_sweep_segmented(
+            list(cores_to_torch(host, dev)), 8, method=method))
+        c = _to_host(rk.tt_round_sweep_segmented(
+            list(cores_to_torch(host, torch.device("cpu"))), 8,
+            method=method))
+        lg, lc = host_tt_log_norm(g), host_tt_log_norm(c)
+        eg, ec = host_tt_distance(host, g), host_tt_distance(host, c)
+        print(f"small rounding d=10 rank 16->8 {method}: card vs CPU "
+              f"log-norm {lg:.9f} vs {lc:.9f}, truncation error {eg:.9e} vs "
+              f"{ec:.9e} (bars 1e-5 and 1e-3 relative)")
+        if not (abs(lg - lc) <= 1e-5 * abs(lc) and abs(eg - ec) <= 1e-3 * ec):
+            raise AssertionError(f"card and CPU disagree on the small "
+                                 f"{method} rounding")
+
+
+def phase_round_slice(dev):
+    """The rounding path at full width, counted and checked: gemm_exact
+    and svd on the random and the cliff instance, randomized cholqr1 on
+    the random one; one warm-up rounding each, then the counted one."""
+    import numpy as np
+    import torch
+    from xerus_tpu_torch.convert import cores_to_torch
+    from xerus_tpu_torch.examples import (bench_round_instance,
+                                          cliff_instance, cpu_round_sweep,
+                                          host_tt_log_norm)
+    from xerus_tpu_torch.ops import gemm_exact as ge
+    from xerus_tpu_torch.ops import round_kernels as rk
+    host = bench_round_instance(ROUND_D, ROUND_N, ROUND_RANK, SEED)
+    shapes = [c.shape for c in host]
+    flops = {"det": rk.round_flops(shapes, ROUND_TARGET),
+             "randomized": rk.randomized_round_flops(shapes, ROUND_TARGET,
+                                                     OVERSAMPLE)}
+    k2_launches = 0
+    for inst, cs in (("random", host), ("cliff", cliff_instance(host))):
+        t0 = time.perf_counter()
+        ref = host_tt_log_norm(cpu_round_sweep(cs, ROUND_TARGET))
+        print(f"round {inst}: f64 LAPACK chain log-norm {ref:.9f} "
+              f"({time.perf_counter() - t0:.2f} s on the host)")
+        cores = list(cores_to_torch(cs, dev))
+        lnorm = {}
+        methods = ("gemm_exact", "svd") + (("randomized",)
+                                           if inst == "random" else ())
+        for method in methods:
+            _round(method, cores)
+            torch.cuda.synchronize()
+            ge.reset_counters()
+            reads0 = rk.host_bool.reads
+            t0 = time.perf_counter()
+            out = _round(method, cores)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = ge.gemm_exact_kernel.launches
+            reads = rk.host_bool.reads - reads0
+            cnt = {k: getattr(ge.trunc_step_gemm_exact, k)
+                   for k in ("calls", "svd_fallbacks", "lq_finishes",
+                             "outer_iters", "ns_iters", "grid_syncs")}
+            t0 = time.perf_counter()
+            _round(method, cores)
+            torch.cuda.synchronize()
+            wall2 = time.perf_counter() - t0
+            h = _to_host(out)
+            if not all(np.all(np.isfinite(c)) for c in h):
+                raise AssertionError(f"round {inst} {method}: non-finite")
+            if max(c.shape[2] for c in h[:-1]) > ROUND_TARGET:
+                raise AssertionError(f"round {inst} {method}: rank above "
+                                     f"{ROUND_TARGET}")
+            lnorm[method] = host_tt_log_norm(h)
+            rel = abs(lnorm[method] - ref) / abs(ref)
+            fl = flops["randomized" if method == "randomized" else "det"]
+            print(f"round {inst} {method} d={ROUND_D} rank {ROUND_RANK}->"
+                  f"{ROUND_TARGET}: wall {wall:.4f} s / {wall2:.4f} s (two "
+                  f"runs after a warm-up), {fl / min(wall, wall2) / 1e12:.4f} "
+                  f"TFLOP/s by the analytic count, f32-vs-f64 log-norm rel "
+                  f"err {rel:.3e}, K2 launches {launches}, host flag reads "
+                  f"{reads} + {launches} K2 flag reads, gemm_exact {cnt}")
+            if method == "gemm_exact":
+                k2_launches += launches
+                if launches != EXPECTED_K2_LAUNCHES:
+                    raise AssertionError(
+                        f"K2 launched {launches} times in the {inst} "
+                        f"rounding, expected {EXPECTED_K2_LAUNCHES}")
+            if method != "randomized" and not rel <= ROUND_F64_BAR:
+                raise AssertionError(f"round {inst} {method}: log-norm rel "
+                                     f"err {rel:.3e} above {ROUND_F64_BAR:g}")
+        d_ge = abs(lnorm["gemm_exact"] - lnorm["svd"]) / abs(lnorm["svd"])
+        print(f"round {inst}: gemm_exact vs svd log-norm rel diff "
+              f"{d_ge:.3e} (bar {GE_VS_SVD_BAR:g})")
+        if not d_ge <= GE_VS_SVD_BAR:
+            raise AssertionError(f"round {inst}: gemm_exact and svd differ")
+        if "randomized" in lnorm:
+            above = (lnorm["randomized"] - lnorm["svd"]) / abs(lnorm["svd"])
+            print(f"round {inst}: randomized log-norm above svd's by "
+                  f"{above:.3e} relative (bar {RAND_VS_SVD_BAR:g})")
+            if not above <= RAND_VS_SVD_BAR:
+                raise AssertionError("randomized rounding log-norm above "
+                                     "the svd chain's")
+    return k2_launches
+
+
+def phase_round_breakdown(dev):
+    """Where a gemm_exact rounding's time goes: the Newton-Schulz QR sweep
+    alone, then the whole rounding."""
+    import torch
+    from xerus_tpu_torch.convert import cores_to_torch
+    from xerus_tpu_torch.examples import bench_round_instance
+    from xerus_tpu_torch.ops import round_kernels as rk
+    cores = list(cores_to_torch(bench_round_instance(
+        ROUND_D, ROUND_N, ROUND_RANK, SEED), dev))
+    for name, fn in (("ns QR sweep alone",
+                      lambda: rk._qr_sweep_segmented(cores, 3, "ns")),
+                     ("cholqr QR sweep alone (svd path)",
+                      lambda: rk._qr_sweep_segmented(cores, 3, "cholqr")),
+                     ("gemm_exact rounding",
+                      lambda: _round("gemm_exact", cores))):
+        reads0 = rk.host_bool.reads
+        ms = _wall_ms(fn)
+        print(f"breakdown: {name} {ms:.2f} ms wall (median of 3), "
+              f"{(rk.host_bool.reads - reads0) // 4} host reads per run")
+
+
 def main():
     sys.path.insert(0, HERE)
     phase_environment()
@@ -233,16 +518,25 @@ def main():
     import xerus_tpu_torch
     dev = xerus_tpu_torch.cuda_device()
     phase_build()
-    max_abs, timing = phase_kernels(dev)
+    k1_max_abs, k1_timing = phase_kernels(dev)
+    k2_max_abs, k2_timing = phase_k2(dev)
     phase_small_agreement(dev)
-    launches = phase_slice(dev)
+    phase_small_rounding(dev)
+    k1_launches = phase_slice(dev)
+    k2_launches = phase_round_slice(dev)
     phase_breakdown(dev)
-    print(json.dumps({"kernels": [{
-        "name": "df_matvec", "route": "cuda",
-        "source": "xerus_tpu_torch/csrc/df_matvec.cu",
-        "replaces": "xerus_tpu/ops/pallas_df.py:60",
-        "launches": launches, "max_abs_err": max_abs,
-        "ms": timing["ms"], "plain_ms": timing["plain_ms"]}]}))
+    phase_round_breakdown(dev)
+    print(json.dumps({"kernels": [
+        {"name": "df_matvec", "route": "cuda",
+         "source": "xerus_tpu_torch/csrc/df_matvec.cu",
+         "replaces": "xerus_tpu/ops/pallas_df.py:60",
+         "launches": k1_launches, "max_abs_err": k1_max_abs,
+         "ms": k1_timing["ms"], "plain_ms": k1_timing["plain_ms"]},
+        {"name": "gemm_exact", "route": "cuda",
+         "source": "xerus_tpu_torch/csrc/gemm_exact.cu",
+         "replaces": "xerus_tpu/ops/tt_kernels.py:1232",
+         "launches": k2_launches, "max_abs_err": k2_max_abs,
+         "ms": k2_timing["ms"], "plain_ms": k2_timing["plain_ms"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from xerus_tpu_torch.ops import df32
+from xerus_tpu_torch.ops import gemm_exact as ge
 from xerus_tpu_torch.ops.df_matvec import df_matvec, df_matvec_reference
 
 
@@ -60,3 +61,83 @@ def test_df_matvec_kernel_rejects_bad_input(cuda):
         df_matvec(A, A, x[:5], x[:5])
     with pytest.raises(ValueError, match="on cpu"):
         df_matvec(A, A, x.cpu(), x.cpu())
+
+
+def _k2_case(kind, B, M, keep, seed):
+    rng = np.random.default_rng(seed)
+    if kind == "generic":
+        return rng.standard_normal((B, M)) * rng.uniform(0.1, 1.0,
+                                                         size=(B, 1))
+    if kind == "cliff":
+        U, _ = np.linalg.qr(rng.standard_normal((B, B)))
+        V, _ = np.linalg.qr(rng.standard_normal((M, B)))
+        s = np.concatenate([np.linspace(10.0, 1.0, keep),
+                            np.full(B - keep, 1e-6)])
+        return (U * s) @ V.T
+    return rng.standard_normal((B, 7)) @ rng.standard_normal((7, M))
+
+
+def _k2_err(cur, vt):
+    c = cur.double().cpu().numpy()
+    v = vt.double().cpu().numpy()
+    return np.linalg.norm(c - (c @ v.T) @ v) ** 2 / np.linalg.norm(c) ** 2
+
+
+def _k2_vt(cur, keep, cap, use_kernel):
+    mask = (torch.arange(cap, device=cur.device) < keep).to(cur.dtype)
+    if use_kernel:
+        vt0, vt_bal, flags = ge.gemm_exact_kernel(cur, keep, cap)
+        okp, conv = flags.tolist()[:2]
+    else:
+        vt0, vt_bal, okp, conv, _ = ge._gemm_exact_body(
+            cur, mask, *ge._gemm_exact_tuning(cur.dtype))
+    return ge._finish_gemm_exact(vt0, vt_bal, bool(okp), mask), bool(conv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,B,M,keep,cap", [
+    ("generic", 256, 512, 96, 128), ("cliff", 256, 512, 96, 128),
+    ("overranked", 256, 512, 96, 128), ("generic", 256, 256, 128, 128),
+    ("generic", 40, 24, 5, 8)])
+def test_gemm_exact_kernel_matches_plain_f32(cuda, kind, B, M, keep, cap):
+    """K2 and its plain version on the card: truncation errors within
+    5e-6 (the reference's bar), both certified; two launches bitwise
+    equal."""
+    cur = torch.tensor(_k2_case(kind, B, M, keep, B + M),
+                       dtype=torch.float32, device=cuda)
+    launches0 = ge.gemm_exact_kernel.launches
+    vk, conv_k = _k2_vt(cur, keep, cap, True)
+    torch.cuda.synchronize()
+    assert ge.gemm_exact_kernel.launches == launches0 + 1
+    vp, conv_p = _k2_vt(cur, keep, cap, False)
+    assert conv_k and conv_p
+    assert abs(_k2_err(cur, vk) - _k2_err(cur, vp)) < 5e-6
+    a = ge.gemm_exact_kernel(cur, keep, cap)
+    b = ge.gemm_exact_kernel(cur, keep, cap)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+def test_gemm_exact_kernel_f64_matches_svd(cuda):
+    """f64 launches the double kernel; its truncation error equals the SVD
+    truncation's to rtol 1e-8."""
+    A = _k2_case("generic", 40, 24, 5, 3)
+    cur = torch.tensor(A, dtype=torch.float64, device=cuda)
+    vt, conv = _k2_vt(cur, 5, 8, True)
+    s = np.linalg.svd(A, compute_uv=False)
+    assert conv
+    np.testing.assert_allclose(_k2_err(cur, vt),
+                               np.sum(s[5:] ** 2) / np.sum(s ** 2), rtol=1e-8)
+
+
+@pytest.mark.cuda
+def test_gemm_exact_kernel_rejects_bad_input(cuda):
+    cur = torch.zeros((16, 24), device=cuda)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        ge.gemm_exact_kernel(cur.half(), 4, 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        ge.gemm_exact_kernel(cur[:, ::2], 4, 8)
+    with pytest.raises(ValueError, match="keep_cap"):
+        ge.gemm_exact_kernel(cur, 4, 32)
+    with pytest.raises(ValueError, match="cap"):
+        ge.gemm_exact_kernel(torch.zeros((12000, 1), device=cuda), 4, 8)

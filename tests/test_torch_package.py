@@ -46,6 +46,35 @@ def test_imports_without_jax():
     assert proc.stdout.strip() == "ok"
 
 
+def test_rounding_imports_without_jax():
+    """With jax made unimportable, the rounding modules import and round a
+    small TT by every method."""
+    code = (
+        "import sys; sys.modules['jax'] = None\n"
+        "import torch\n"
+        "from xerus_tpu_torch.convert import cores_to_torch\n"
+        "from xerus_tpu_torch.examples import bench_round_instance, "
+        "cpu_round_sweep, host_tt_log_norm\n"
+        "from xerus_tpu_torch.ops import gemm_exact, round_kernels as rk\n"
+        "host = bench_round_instance(8, 2, 8, 1)\n"
+        "cs = list(cores_to_torch(host, torch.device('cpu'), "
+        "torch.float64))\n"
+        "ref = host_tt_log_norm(cpu_round_sweep(host, 4))\n"
+        "for m in ('svd', 'gram', 'subspace', 'gemm_exact'):\n"
+        "    out = rk.tt_round_sweep_segmented(cs, 4, method=m)\n"
+        "    got = host_tt_log_norm([c.numpy() for c in out])\n"
+        "    assert abs(got - ref) < 1e-2 * abs(ref), (m, got, ref)\n"
+        "out = rk._round_randomized(cs, 4, 4, qr_method='cholqr1')\n"
+        "assert all(torch.isfinite(c).all() for c in out)\n"
+        "assert not any(m == 'jax' or m.startswith('jax.') or "
+        "m.startswith('xerus_tpu.') for m in sys.modules "
+        "if sys.modules[m] is not None)\n"
+        "print('ok')\n")
+    proc = _run(["-c", code])
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
 def test_precision_guard_is_applied():
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False

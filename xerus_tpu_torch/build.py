@@ -21,11 +21,13 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
-# sm_90a keeps wgmma/setmaxnreg available to later kernels; -fmad=false
-# keeps nvcc from contracting a multiply and an add into an FMA, which
-# the error-free transformations must never see
+# sm_90a keeps wgmma/setmaxnreg available to later kernels
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# flags of one kernel beside the common ones: df_matvec's error-free
+# transformations must never see a multiply and an add contracted into an
+# FMA (-fmad=false); the GEMM-only gemm_exact wants FFMA contraction
+KERNEL_FLAGS = {"df_matvec": ["-fmad=false"], "gemm_exact": []}
 
 _loaded = {}
 # seconds and compiler output of the builds made by this process
@@ -43,19 +45,21 @@ def _nvcc() -> str:
 
 
 def load_kernel_library(name: str) -> ctypes.CDLL:
-    """Compile ``csrc/<name>.cu`` (once per content) and load it."""
+    """Compile ``csrc/<name>.cu`` with its flags (once per content and
+    flags) and load it."""
     if name in _loaded:
         return _loaded[name]
     src = os.path.join(CSRC, name + ".cu")
+    flags = NVCC_FLAGS + KERNEL_FLAGS[name]
     with open(src, "rb") as fh:
-        digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode()
+        digest = hashlib.sha256(fh.read() + " ".join(flags).encode()
                                 ).hexdigest()[:12]
     os.makedirs(BUILD_DIR, exist_ok=True)
     lib_path = os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
     if not os.path.exists(lib_path):
         tmp = f"{lib_path}.{os.getpid()}.tmp"
         t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+        proc = subprocess.run([_nvcc(), *flags, "-o", tmp, src],
                               capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed to build {src} "
