@@ -15,10 +15,15 @@ full width:
 - TT rounding of ``bench.py``'s workload-1 instance (d=32, n=2, rank 256
   -> 128) and its numerically rank-96 "cliff" variant, deterministic
   (gemm_exact and svd truncation) and randomized (cholqr1); kernel K2
-  (gemm_exact).
+  (gemm_exact);
+- tensor completion: the d=10, n=4, rank-8 instance from 20,000 samples
+  (measure, rank-adaptive ADF solve, test, every entry of the recovered TT
+  and of the truth), benchmark workload 5 on the card and on the CPU, and
+  IHT; kernel K3 (tt_eval).
 
-It checks the host-f64 residual of the solve and the f32-vs-f64 log-norm
-of every rounding, that each path went through its kernel (launch counts,
+It checks the host-f64 residual of the solve, the f32-vs-f64 log-norm
+of every rounding and the completion's residuals against the JAX
+package's own numbers, that each path went through its kernel (launch counts,
 zeroed just before the path and read just after), and that a small solve
 and a small rounding on the card agree with the same on the CPU.
 
@@ -50,7 +55,7 @@ EXPECTED_K1_LAUNCHES = 22 * 3 * DF_SWEEPS
 K1_SHAPES = [(1800, 1800), (1030, 997), (130, 190)]
 K1_REL_TOL = 1e-12
 
-KERNELS = ("df_matvec", "gemm_exact")
+KERNELS = ("df_matvec", "gemm_exact", "tt_eval")
 
 # rounding: bench.py workload 1
 ROUND_D, ROUND_N, ROUND_RANK, ROUND_TARGET, OVERSAMPLE = 32, 2, 256, 128, 8
@@ -67,6 +72,23 @@ K2_CASES = [("generic", 256, 512, 96, 128), ("cliff", 256, 512, 96, 128),
             ("overranked", 256, 512, 96, 128), ("slice", 256, 256, 128, 128)]
 K2_ERR_TOL = 5e-6         # |truncation error kernel - plain|, f32
 K2_F64_RTOL = 1e-8        # f64 truncation error vs the SVD's
+
+# completion: K3 against its plain version, (name, dims, ranks, M)
+K3_CASES = [("slice", [4] * 10, [4] + [8] * 7 + [4], 20_000),
+            ("ragged", [2, 5, 3, 4], [2, 4, 3], 17),
+            ("tail", [3] * 4, [2] * 3, 13), ("empty", [3] * 4, [2] * 3, 0),
+            ("rank 160", [2] * 3, [160, 160], 50)]
+K3_RTOL = {"float64": 1e-12, "float32": 1e-5}   # of max |plain|
+# measure the truth, test the samples, every entry of x and of the truth
+EXPECTED_K3_LAUNCHES = 4
+COMPLETION_TARGET = 1e-8
+# the JAX package on the CPU (float64, check_every="device", jax 0.9.0) on
+# the d=10 instance: sample residual and full-grid relative error after 588
+# iterations at ranks [4, 8, ..., 8, 4]; the port must stay within
+# max(1e-8, 10x) of each
+JAX_D10_RESIDUAL = 0.6785049587588636
+JAX_D10_GRID_ERR = 2.597094923462056
+IHT_ITERATIONS = 5
 
 
 def _wall_ms(fn, reps: int = 3) -> float:
@@ -511,6 +533,217 @@ def phase_round_breakdown(dev):
               f"{(rk.host_bool.reads - reads0) // 4} host reads per run")
 
 
+def _k3_inputs(dims, ranks, M, dtype, dev, seed):
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    rs = [1] + list(ranks) + [1]
+    host = [rng.standard_normal((rs[k], n, rs[k + 1])) / np.sqrt(rs[k])
+            for k, n in enumerate(dims)]
+    P = np.stack([rng.integers(0, n, size=M) for n in dims],
+                 axis=1).reshape(M, len(dims)).astype(np.int64)
+    cores = [torch.tensor(c, dtype=dtype, device=dev) for c in host]
+    return host, P, cores, torch.tensor(P, device=dev)
+
+
+def _host_eval(host, P):
+    """The TT at the positions in float64 numpy."""
+    import numpy as np
+    F = np.ones((P.shape[0], 1))
+    for k, c in enumerate(host):
+        F = np.einsum("ma,amb->mb", F, np.asarray(c, np.float64)[:, P[:, k], :])
+    return F[:, 0]
+
+
+def phase_k3(dev):
+    """K3 against its plain version and a float64 numpy contraction on the
+    card, f64 and f32, at the completion slice's shape and the edge cases;
+    one launch per call; times over all 4^10 entries at the slice's
+    shape."""
+    import numpy as np
+    import torch
+    from xerus_tpu_torch.examples import full_grid_positions
+    from xerus_tpu_torch.ops import tt_eval as te
+    max_abs = 0.0
+    for name, dims, ranks, M in K3_CASES:
+        for dtype in (torch.float64, torch.float32):
+            host, P, cores, pos = _k3_inputs(dims, ranks, M, dtype, dev,
+                                             SEED + M)
+            launches0 = te.tt_eval_at_points.launches
+            kern = te.tt_eval_at_points(cores, pos)
+            torch.cuda.synchronize()
+            launched = te.tt_eval_at_points.launches - launches0
+            plain = te.tt_eval_at_points_reference(cores, pos)
+            exact = _host_eval(host, P)
+            k64 = kern.double().cpu().numpy()
+            scale = float(np.abs(exact).max()) if M else 1.0
+            diff = float((kern - plain).abs().max()) if M else 0.0
+            err = float(np.abs(k64 - exact).max()) if M else 0.0
+            bar = K3_RTOL[str(dtype).split(".")[1]]
+            max_abs = max(max_abs, diff)
+            print(f"K3 tt_eval {name} d={len(dims)} n={max(dims)} "
+                  f"r={max(ranks)} M={M} {dtype}: max |kernel - plain| "
+                  f"{diff:.3e}, max |kernel - f64| {err:.3e}, max |f64| "
+                  f"{scale:.3e} (bar {bar:g} relative), launches {launched}")
+            if not (kern.shape == (M,) and launched == 1
+                    and diff <= bar * scale and err <= bar * scale):
+                raise AssertionError(f"K3 {name} {dtype}: kernel disagrees "
+                                     "or did not launch once")
+    dims, ranks = K3_CASES[0][1], K3_CASES[0][2]
+    _h, _P, cores, _pos = _k3_inputs(dims, ranks, 1, torch.float64, dev, SEED)
+    grid = torch.from_numpy(full_grid_positions(dims)).to(dev)
+    timing = {"ms": _time_ms(lambda: te._launch(cores, grid), reps=20),
+              "plain_ms": _time_ms(
+                  lambda: te.tt_eval_at_points_reference(cores, grid),
+                  reps=20)}
+    print(f"K3 tt_eval time over all {grid.shape[0]} entries (d=10, n=4, "
+          f"r=8, f64): kernel {timing['ms']:.4f} ms (padding the cores "
+          f"included), plain {timing['plain_ms']:.4f} ms (CUDA events, "
+          f"median of 20 queued calls after 5 warm-up calls)")
+    return max_abs, timing
+
+
+def _adf(inst, dev, max_iterations):
+    import torch
+    from xerus_tpu_torch.algorithms import ADFVariant
+    from xerus_tpu_torch.convert import cores_to_torch
+    return ADFVariant(max_iterations, COMPLETION_TARGET, 0.9999)(
+        list(cores_to_torch(inst.start, dev, torch.float64)),
+        inst.measurements, max_ranks=inst.max_ranks, check_every="device")
+
+
+def phase_completion_small(dev):
+    """Benchmark workload 5 (d=5, n=4, rank 3, 400 samples) on the card and
+    on the CPU, where the plain versions run: both below the target at
+    ranks [3, 3, 3, 3], the largest entry found exactly, and the two
+    recovered tensors alike."""
+    import numpy as np
+    import torch
+    from xerus_tpu_torch.algorithms import find_largest_entry
+    from xerus_tpu_torch.examples import host_full_tensor, workload5_instance
+    full = {}
+    for name, device in (("card", dev), ("CPU", torch.device("cpu"))):
+        inst = workload5_instance()
+        t0 = time.perf_counter()
+        out = _adf(inst, device, 400)
+        pos = find_largest_entry(out.cores, accuracy=0.05)
+        wall = time.perf_counter() - t0
+        h = [c.cpu().numpy() for c in out.cores]
+        arr = np.abs(host_full_tensor(h))
+        frac = float(arr[pos] / arr.max())
+        test = inst.measurements.test(out.cores)
+        full[name] = host_full_tensor(h)
+        print(f"completion workload 5 on the {name}: sample residual "
+              f"{out.residual:.3e} (target {COMPLETION_TARGET:g}), test "
+              f"{test:.3e}, {out.iterations} iterations, ranks {out.ranks}, "
+              f"largest entry {pos}, found_entry_frac_of_max {frac}, wall "
+              f"{wall:.3f} s")
+        if not (out.residual < COMPLETION_TARGET and out.ranks == [3] * 4
+                and frac == 1.0):
+            raise AssertionError(f"workload 5 on the {name} misses a bar")
+    rel = (np.linalg.norm(full["card"] - full["CPU"])
+           / np.linalg.norm(full["CPU"]))
+    print(f"completion workload 5: card vs CPU recovered tensor rel diff "
+          f"{rel:.3e} (bar 1e-6)")
+    if not rel <= 1e-6:
+        raise AssertionError("card and CPU disagree on workload 5")
+
+
+def phase_completion_slice(dev):
+    """The completion path at full width, counted and checked: K3 measures
+    the truth at the 20,000 samples, the rank-adaptive ADF solve recovers
+    the TT, K3 tests it on the samples and evaluates it and the truth on
+    all 4^10 entries."""
+    import numpy as np
+    import torch
+    from xerus_tpu_torch.convert import cores_to_torch
+    from xerus_tpu_torch.examples import (completion_instance,
+                                          full_grid_positions,
+                                          host_full_tensor)
+    from xerus_tpu_torch.ops import round_kernels as rk
+    from xerus_tpu_torch.ops import tt_eval as te
+    inst = completion_instance()
+    ms = inst.measurements
+    cpu_values = ms.measuredValues.copy()
+    truth = list(cores_to_torch(inst.truth, dev, torch.float64))
+    dims = [c.shape[1] for c in truth]
+    grid = torch.from_numpy(full_grid_positions(dims)).to(dev)
+    torch.cuda.synchronize()
+    te.reset_counters()
+    reads0 = rk.host_bool.reads
+    ms.measure(truth)
+    t0 = time.perf_counter()
+    out = _adf(inst, dev, 2000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    test = ms.test(out.cores)
+    x_grid = te.tt_eval_at_points(out.cores, grid)
+    t_grid = te.tt_eval_at_points(truth, grid)
+    torch.cuda.synchronize()
+    launches = te.tt_eval_at_points.launches
+    reads = rk.host_bool.reads - reads0
+    xg, tg = x_grid.cpu().numpy(), t_grid.cpu().numpy()
+    grid_err = float(np.linalg.norm(xg - tg) / np.linalg.norm(tg))
+    hx = host_full_tensor([c.cpu().numpy() for c in out.cores])
+    ht = host_full_tensor(inst.truth)
+    host_err = float(np.linalg.norm(hx - ht) / np.linalg.norm(ht))
+    k3_vs_host = max(float(np.abs(xg - hx).max() / np.abs(hx).max()),
+                     float(np.abs(tg - ht).max() / np.abs(ht).max()))
+    meas_diff = float(np.abs(ms.measuredValues - cpu_values).max())
+    res_bar = max(COMPLETION_TARGET, 10 * JAX_D10_RESIDUAL)
+    err_bar = max(COMPLETION_TARGET, 10 * JAX_D10_GRID_ERR)
+    print(f"completion slice d=10 n=4 rank 8, 20000 samples: sample "
+          f"residual {out.residual:.3e} (bar {res_bar:g}; JAX on the CPU "
+          f"{JAX_D10_RESIDUAL:.3e}), test {test:.3e}, full-grid rel err "
+          f"{grid_err:.3e} (host f64 {host_err:.3e}; bar {err_bar:g}; JAX "
+          f"{JAX_D10_GRID_ERR:.3e}), {out.iterations} iterations, ranks "
+          f"{out.ranks}, host reads {reads}, solve wall {wall:.3f} s, K3 "
+          f"launches {launches}; K3 vs host f64 on the grid {k3_vs_host:.3e} "
+          f"(bar 1e-12), card vs CPU measured values {meas_diff:.3e}")
+    if not (all(np.isfinite(xg)) and xg.shape == (4 ** 10,)
+            and out.residual <= res_bar and test <= res_bar
+            and grid_err <= err_bar and k3_vs_host <= 1e-12
+            and abs(grid_err - host_err) <= 1e-12 * max(host_err, 1e-300)
+            + 1e-15 and meas_diff <= 1e-12):
+        raise AssertionError("the completion slice misses a bar")
+    if launches != EXPECTED_K3_LAUNCHES:
+        raise AssertionError(f"K3 launched {launches} times in the "
+                             f"completion path, expected "
+                             f"{EXPECTED_K3_LAUNCHES}")
+    return launches
+
+
+def phase_iht(dev):
+    """IHT at workload 5's size on the card (K3 once per iteration and once
+    per step-size trial) against the same on the CPU."""
+    import numpy as np
+    import torch
+    from xerus_tpu_torch.algorithms import IHT
+    from xerus_tpu_torch.convert import cores_to_torch
+    from xerus_tpu_torch.examples import workload5_instance
+    from xerus_tpu_torch.examples.completion import random_tt
+    from xerus_tpu_torch.ops import tt_eval as te
+    inst = workload5_instance()
+    start = random_tt([4] * 5, 3, np.random.default_rng(SEED))
+    start[0] = start[0] / np.linalg.norm(start[0])   # unit norm
+    res = {}
+    for name, device in (("card", dev), ("CPU", torch.device("cpu"))):
+        x0 = list(cores_to_torch(start, device, torch.float64))
+        te.reset_counters()
+        t0 = time.perf_counter()
+        _x, res[name] = IHT(x0, inst.measurements, IHT_ITERATIONS)
+        wall = time.perf_counter() - t0
+        print(f"IHT workload 5 on the {name}: {IHT_ITERATIONS} iterations "
+              f"from a random unit-norm rank-3 TT, residual "
+              f"{res[name]:.9e}, K3 launches "
+              f"{te.tt_eval_at_points.launches}, wall {wall:.3f} s")
+        if name == "card" and te.tt_eval_at_points.launches != 8 * IHT_ITERATIONS:
+            raise AssertionError("IHT did not evaluate through K3 once per "
+                                 "iteration and step-size trial")
+    if not abs(res["card"] - res["CPU"]) <= 1e-8 * res["CPU"]:
+        raise AssertionError("card and CPU disagree on IHT")
+
+
 def main():
     sys.path.insert(0, HERE)
     phase_environment()
@@ -520,10 +753,14 @@ def main():
     phase_build()
     k1_max_abs, k1_timing = phase_kernels(dev)
     k2_max_abs, k2_timing = phase_k2(dev)
+    k3_max_abs, k3_timing = phase_k3(dev)
     phase_small_agreement(dev)
     phase_small_rounding(dev)
+    phase_completion_small(dev)
     k1_launches = phase_slice(dev)
     k2_launches = phase_round_slice(dev)
+    k3_launches = phase_completion_slice(dev)
+    phase_iht(dev)
     phase_breakdown(dev)
     phase_round_breakdown(dev)
     print(json.dumps({"kernels": [
@@ -536,7 +773,12 @@ def main():
          "source": "xerus_tpu_torch/csrc/gemm_exact.cu",
          "replaces": "xerus_tpu/ops/tt_kernels.py:1232",
          "launches": k2_launches, "max_abs_err": k2_max_abs,
-         "ms": k2_timing["ms"], "plain_ms": k2_timing["plain_ms"]}]}))
+         "ms": k2_timing["ms"], "plain_ms": k2_timing["plain_ms"]},
+        {"name": "tt_eval", "route": "cuda",
+         "source": "xerus_tpu_torch/csrc/tt_eval.cu",
+         "replaces": "xerus_tpu/ops/pallas_tt_eval.py:45",
+         "launches": k3_launches, "max_abs_err": k3_max_abs,
+         "ms": k3_timing["ms"], "plain_ms": k3_timing["plain_ms"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

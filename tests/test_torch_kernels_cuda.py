@@ -12,6 +12,7 @@ import torch
 
 from xerus_tpu_torch.ops import df32
 from xerus_tpu_torch.ops import gemm_exact as ge
+from xerus_tpu_torch.ops import tt_eval as te
 from xerus_tpu_torch.ops.df_matvec import df_matvec, df_matvec_reference
 
 
@@ -141,3 +142,78 @@ def test_gemm_exact_kernel_rejects_bad_input(cuda):
         ge.gemm_exact_kernel(cur, 4, 32)
     with pytest.raises(ValueError, match="cap"):
         ge.gemm_exact_kernel(torch.zeros((12000, 1), device=cuda), 4, 8)
+
+
+# K3: chip_smoke.py's phase_k3 shapes (dims, ranks, M): the completion
+# slice's (d=10, n=4, r=8, M=20,000), the ragged case of
+# tests/test_pallas_kernels.py, a short tail, no measurement, rank 160
+K3_SHAPES = [([4] * 10, [4] + [8] * 7 + [4], 20000),
+             ([2, 5, 3, 4], [2, 4, 3], 17), ([3] * 4, [2] * 3, 13),
+             ([3] * 4, [2] * 3, 0), ([2] * 3, [160, 160], 50)]
+
+
+def _k3_case(dims, ranks, M, dtype, device, seed=3):
+    rng = np.random.default_rng(seed)
+    rs = [1] + list(ranks) + [1]
+    cores = [torch.tensor(rng.standard_normal((rs[k], n, rs[k + 1]))
+                          / np.sqrt(rs[k]), dtype=dtype, device=device)
+             for k, n in enumerate(dims)]
+    P = np.stack([rng.integers(0, n, size=M) for n in dims],
+                 axis=1).reshape(M, len(dims))
+    return cores, torch.tensor(P, dtype=torch.int64, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-12),
+                                        (torch.float32, 1e-5)])
+@pytest.mark.parametrize("dims,ranks,M", K3_SHAPES)
+def test_tt_eval_kernel_matches_plain(cuda, dims, ranks, M, dtype, rtol):
+    """K3 against its plain version on the card, one launch per call, in
+    the cores' dtype: max |kernel - plain| <= rtol * max |plain|."""
+    cores, pos = _k3_case(dims, ranks, M, dtype, cuda)
+    launches0 = te.tt_eval_at_points.launches
+    kern = te.tt_eval_at_points(cores, pos)
+    torch.cuda.synchronize()
+    assert te.tt_eval_at_points.launches == launches0 + 1
+    plain = te.tt_eval_at_points_reference(cores, pos)
+    assert kern.shape == (M,) and kern.dtype == dtype
+    if M:
+        scale = float(plain.abs().max())
+        assert float((kern - plain).abs().max()) <= rtol * scale
+
+
+@pytest.mark.cuda
+def test_tt_eval_kernel_takes_cores_of_any_layout(cuda):
+    """The wrapper copies the cores into one padded stack, so transposed
+    views (a QR's column-major Q) evaluate like contiguous cores."""
+    cores, pos = _k3_case([3] * 4, [2] * 3, 13, torch.float64, cuda)
+    views = [c.transpose(0, 2).contiguous().transpose(0, 2) for c in cores]
+    assert not views[1].is_contiguous()
+    assert torch.equal(te.tt_eval_at_points(views, pos),
+                       te.tt_eval_at_points(cores, pos))
+
+
+@pytest.mark.cuda
+def test_tt_eval_kernel_rejects_bad_input(cuda):
+    cores, pos = _k3_case([3] * 4, [2] * 3, 13, torch.float64, cuda)
+    launches0 = te.tt_eval_at_points.launches
+    with pytest.raises(TypeError, match="float32 or float64"):
+        te.tt_eval_at_points([c.half() for c in cores], pos)
+    with pytest.raises(TypeError, match="int64"):
+        te.tt_eval_at_points(cores, pos.int())
+    with pytest.raises(ValueError, match="tensor"):
+        te.tt_eval_at_points([cores[0][0]] + cores[1:], pos)
+    with pytest.raises(ValueError, match="contiguous"):
+        te.tt_eval_at_points(cores, pos.T.contiguous().T)
+    with pytest.raises(ValueError, match="on cpu"):
+        te.tt_eval_at_points(cores, pos.cpu())
+    with pytest.raises(ValueError, match="on cpu"):
+        te.tt_eval_at_points([cores[0], cores[1].cpu()] + cores[2:], pos)
+    assert te.tt_eval_at_points.launches == launches0
+    bad = pos.clone()
+    bad[5, 2] = 3
+    with pytest.raises(ValueError, match="outside the mode sizes"):
+        te.tt_eval_at_points(cores, bad)
+    bad[5, 2] = -1
+    with pytest.raises(ValueError, match="outside the mode sizes"):
+        te.tt_eval_at_points(cores, bad)

@@ -75,6 +75,40 @@ def test_rounding_imports_without_jax():
     assert proc.stdout.strip() == "ok"
 
 
+def test_completion_imports_without_jax():
+    """With jax made unimportable, the completion modules import, evaluate
+    a small TT at points and run a short adaptive ADF solve."""
+    code = (
+        "import sys; sys.modules['jax'] = None\n"
+        "import numpy as np, torch\n"
+        "from xerus_tpu_torch.algorithms import (ADFVariant, IHT, "
+        "RankOneMeasurementSet, SinglePointMeasurementSet, "
+        "find_largest_entry)\n"
+        "from xerus_tpu_torch.examples import (workload5_instance, "
+        "full_grid_positions, host_full_tensor)\n"
+        "from xerus_tpu_torch.ops import adf_kernels, stacking, tt_eval\n"
+        "from xerus_tpu_torch.convert import cores_to_torch\n"
+        "inst = workload5_instance()\n"
+        "cs = list(cores_to_torch(inst.truth, torch.device('cpu'), "
+        "torch.float64))\n"
+        "grid = torch.from_numpy(full_grid_positions([4] * 5))\n"
+        "vals = tt_eval.tt_eval_at_points(cs, grid).numpy()\n"
+        "assert np.abs(vals - host_full_tensor(inst.truth)).max() < 1e-14\n"
+        "assert inst.measurements.test(cs) < 1e-14\n"
+        "out = ADFVariant(20, 1e-8, 0.9999)(list(cores_to_torch(inst.start, "
+        "torch.device('cpu'), torch.float64)), inst.measurements, "
+        "max_ranks=inst.max_ranks, check_every='device')\n"
+        "assert out.iterations == 20 and np.isfinite(out.residual)\n"
+        "assert 0 <= find_largest_entry(out.cores) < 4 ** 5\n"
+        "assert not any(m == 'jax' or m.startswith('jax.') or "
+        "m.startswith('xerus_tpu.') for m in sys.modules "
+        "if sys.modules[m] is not None)\n"
+        "print('ok')\n")
+    proc = _run(["-c", code])
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
 def test_precision_guard_is_applied():
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False

@@ -26,8 +26,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # flags of one kernel beside the common ones: df_matvec's error-free
 # transformations must never see a multiply and an add contracted into an
-# FMA (-fmad=false); the GEMM-only gemm_exact wants FFMA contraction
-KERNEL_FLAGS = {"df_matvec": ["-fmad=false"], "gemm_exact": []}
+# FMA (-fmad=false); the GEMM-only gemm_exact and the TT evaluation
+# tt_eval want FFMA contraction
+KERNEL_FLAGS = {"df_matvec": ["-fmad=false"], "gemm_exact": [],
+                "tt_eval": []}
 
 _loaded = {}
 # seconds and compiler output of the builds made by this process

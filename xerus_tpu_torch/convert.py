@@ -17,11 +17,11 @@ from .ops.df32 import DF, df_from_f64, df_to_f64
 
 def cores_to_torch(np_cores: Sequence[np.ndarray], device,
                    dtype=torch.float32) -> Tuple[torch.Tensor, ...]:
-    """Host cores -> tensors of ``dtype`` on ``device`` (rounded on the
-    host, as numpy's astype rounds)."""
+    """Host cores -> contiguous tensors of ``dtype`` on ``device`` (rounded
+    on the host, as numpy's astype rounds)."""
     np_dtype = torch.empty((), dtype=dtype).numpy().dtype
-    return tuple(torch.from_numpy(np.array(c, dtype=np_dtype)).to(device)
-                 for c in np_cores)
+    return tuple(torch.from_numpy(np.array(c, dtype=np_dtype, order="C"))
+                 .to(device) for c in np_cores)
 
 
 def cores_to_df(np_cores_f64: Sequence[np.ndarray], device

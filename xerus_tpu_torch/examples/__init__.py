@@ -1,3 +1,5 @@
 from .poisson import qtt_poisson_instance, host_poisson_residual
 from .rounding import (bench_round_instance, cliff_instance, cpu_round_sweep,
                        host_tt_distance, host_tt_log_norm)
+from .completion import (completion_instance, full_grid_positions,
+                         host_full_tensor, workload5_instance)
