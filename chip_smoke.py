@@ -24,8 +24,12 @@ full width:
 It checks the host-f64 residual of the solve, the f32-vs-f64 log-norm
 of every rounding and the completion's residuals against the JAX
 package's own numbers, that each path went through its kernel (launch counts,
-zeroed just before the path and read just after), and that a small solve
-and a small rounding on the card agree with the same on the CPU.
+zeroed just before the path and read just after; K2's bonds on its cluster
+route), and that a small solve and a small rounding on the card agree with
+the same on the CPU.  Beside each kernel's time it prints its bound (bytes
+over the HBM rate or operations over the FP32/FP64 rate, whichever is
+larger; K2's operations from its flags) and, for K2, the time of
+torch.linalg.svd(driver="gesvd") on the same bond.
 
 Every phase raises on failure and nothing is caught, so the exit code is 0
 only if every phase passed.  Without a CUDA card, or without the package
@@ -72,6 +76,11 @@ K2_CASES = [("generic", 256, 512, 96, 128), ("cliff", 256, 512, 96, 128),
             ("overranked", 256, 512, 96, 128), ("slice", 256, 256, 128, 128)]
 K2_ERR_TOL = 5e-6         # |truncation error kernel - plain|, f32
 K2_F64_RTOL = 1e-8        # f64 truncation error vs the SVD's
+# K2's f64 case on the cluster route, then shapes past one cluster's shared
+# memory, which take the grid route: (kind, B, M, keep, keep_cap, dtype)
+K2_F64_CASE = ("generic", 40, 24, 5, 8, "float64")
+K2_GRID_CASES = [("cliff", 512, 1024, 256, 256, "float32"),
+                 ("generic", 264, 200, 8, 8, "float64")]
 
 # completion: K3 against its plain version, (name, dims, ranks, M)
 K3_CASES = [("slice", [4] * 10, [4] + [8] * 7 + [4], 20_000),
@@ -89,6 +98,24 @@ COMPLETION_TARGET = 1e-8
 JAX_D10_RESIDUAL = 0.6785049587588636
 JAX_D10_GRID_ERR = 2.597094923462056
 IHT_ITERATIONS = 5
+
+# NVIDIA's H100 SXM data sheet: HBM rate, FP32 and FP64 rates without
+# tensor cores; a kernel's bound is the larger of its bytes (each input
+# read once, each output written once) over the first and its operations
+# over the rate of its type
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+# K1's FP32 operations per matrix element: df_mul (3 multiplies, 1 FMA
+# counted 2, 2 adds, fast_two_sum's 3) and df_add (two_sum's 6, 2 adds,
+# fast_two_sum's 3), csrc/df_matvec.cu
+K1_OPS_PER_ELEMENT = 21
+
+
+def _bound(nbytes: float, flops: float, dtype: str):
+    """(bound_ms, bound_by): the least time the card could take."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def _wall_ms(fn, reps: int = 3) -> float:
@@ -193,10 +220,16 @@ def phase_kernels(dev):
             timing["ms"] = _time_ms(lambda: df_matvec(*args))
             timing["plain_ms"] = _time_ms(lambda: df_matvec_reference(*args))
             gbps = 2 * m * k * 4 / (timing["ms"] * 1e-3) / 1e9
+            timing["bound_ms"], timing["bound_by"] = _bound(
+                (2 * m * k + 2 * k + 2 * m) * 4,
+                K1_OPS_PER_ELEMENT * m * k, "float32")
+            timing["library_ms"] = None   # no PyTorch call computes a df product
             print(f"K1 df_matvec ({m}, {k}) time: kernel "
                   f"{timing['ms'] * 1e3:.2f} us ({gbps:.0f} GB/s of A), plain "
                   f"{timing['plain_ms'] * 1e3:.2f} us (CUDA events, median "
-                  f"of 50 queued calls after 5 warm-up calls)")
+                  f"of 50 queued calls after 5 warm-up calls); bound "
+                  f"{timing['bound_ms'] * 1e3:.2f} us by {timing['bound_by']}"
+                  f", {timing['bound_ms'] / timing['ms']:.1%} of it reached")
     return max_abs, timing
 
 
@@ -319,13 +352,16 @@ def _k2_run(cur, keep, cap, kernel):
     mask = (torch.arange(cap, device=cur.device) < keep).to(cur.dtype)
     if kernel:
         vt0, vt_bal, flags = ge.gemm_exact_kernel(cur, keep, cap)
-        okp, conv, it, ns, syncs = flags.tolist()
-        info = dict(okp=bool(okp), converged=bool(conv), outer=it, ns=ns,
-                    syncs=syncs)
+        info = dict(zip(ge.FLAGS, flags.tolist()))
+        info["okp"], info["converged"] = (bool(info["okp"]),
+                                          bool(info["converged"]))
     else:
+        ns0, rows0 = ge._gemm_exact_body.ns_iters, ge._gemm_exact_body.ns_row_iters
         vt0, vt_bal, okp_t, conv_t, it = ge._gemm_exact_body(
             cur, mask, *ge._gemm_exact_tuning(cur.dtype))
-        info = dict(okp=bool(okp_t), converged=bool(conv_t), outer=it)
+        info = dict(okp=bool(okp_t), converged=bool(conv_t), outer=it,
+                    ns=ge._gemm_exact_body.ns_iters - ns0,
+                    ns_rows=ge._gemm_exact_body.ns_row_iters - rows0)
     return ge._finish_gemm_exact(vt0, vt_bal, info["okp"], mask), info
 
 
@@ -335,59 +371,107 @@ def _trunc_err(cur, vt):
     return float(((c - (c @ v.T) @ v).norm() ** 2 / c.norm() ** 2).item())
 
 
+def _k2_check(kind, B, M, keep, cap, dtype, dev, seed):
+    """One K2 case on the card against its plain version: f32 within
+    K2_ERR_TOL of the plain version's truncation error, f64 both within
+    K2_F64_RTOL of the SVD's; both certified, two repeat launches bitwise
+    equal, and the flags' route the one gemm_exact_route chose before the
+    launch.  Returns (input, |kernel - plain| truncation error, kernel
+    flags)."""
+    import numpy as np
+    import torch
+    from xerus_tpu_torch.ops import gemm_exact as ge
+    A = _k2_input(kind, B, M, keep, seed)
+    cur = torch.tensor(A, dtype=getattr(torch, dtype), device=dev)
+    vk, fk = _k2_run(cur, keep, cap, True)
+    vp, fp = _k2_run(cur, keep, cap, False)
+    ek, ep = _trunc_err(cur, vk), _trunc_err(cur, vp)
+    a = ge.gemm_exact_kernel(cur, keep, cap)
+    b = ge.gemm_exact_kernel(cur, keep, cap)
+    same = all(torch.equal(x, y) for x, y in zip(a, b))
+    route = ge.gemm_exact_route(B, M, cap, cur.dtype)
+    diff = abs(ek - ep)
+    if dtype == "float32":
+        agree = diff < K2_ERR_TOL
+        bars = f"|diff| {diff:.3e}, bar {K2_ERR_TOL:g}"
+    else:
+        s = np.linalg.svd(A, compute_uv=False)
+        e_svd = float(np.sum(s[keep:] ** 2) / np.sum(s ** 2))
+        agree = (abs(ek - e_svd) <= K2_F64_RTOL * e_svd
+                 and abs(ep - e_svd) <= K2_F64_RTOL * e_svd)
+        bars = f"svd {e_svd:.15e}, rtol bar {K2_F64_RTOL:g}"
+    print(f"K2 gemm_exact {kind} ({B}, {M}) keep {keep} cap {cap} "
+          f"{dtype}: {'cluster' if route else 'grid'} route; trunc err "
+          f"kernel {ek:.15e} plain {ep:.15e} ({bars}); kernel {fk}; plain "
+          f"{fp}; repeat launches bitwise equal: {same}")
+    if not (agree and same and fk["converged"] and fp["converged"]):
+        raise AssertionError(f"K2 {kind} ({B}, {M}) {dtype}: kernel and "
+                             "plain disagree, did not certify, or repeat "
+                             "differs")
+    if fk["cluster_ctas"] != route:
+        raise AssertionError(f"K2 {kind} ({B}, {M}) {dtype}: the flags "
+                             f"report {fk['cluster_ctas']} CTAs per cluster,"
+                             f" gemm_exact_route chose {route}")
+    return cur, diff, fk
+
+
 def phase_k2(dev):
     """K2 against its plain version on the card: the reference's three
     kinds and the slice's bond shape in f32, one small f64 case against
-    the SVD; bitwise repeat launches; times at the slice's shape."""
-    import numpy as np
+    the SVD, and an f32 and an f64 shape past one cluster (grid route);
+    bitwise repeat launches; at the slice's shape the cluster route, the
+    kernel's time beside its bound (FLOPs from its flags), the plain
+    version's and the gesvd call's."""
     import torch
     from xerus_tpu_torch.ops import gemm_exact as ge
     max_abs = 0.0
     timing = {}
     for kind, B, M, keep, cap in K2_CASES:
-        cur = torch.tensor(_k2_input(kind, B, M, keep, SEED + B + M),
-                           dtype=torch.float32, device=dev)
-        vk, fk = _k2_run(cur, keep, cap, True)
-        vp, fp = _k2_run(cur, keep, cap, False)
-        ek, ep = _trunc_err(cur, vk), _trunc_err(cur, vp)
-        a = ge.gemm_exact_kernel(cur, keep, cap)
-        b = ge.gemm_exact_kernel(cur, keep, cap)
-        same = all(torch.equal(x, y) for x, y in zip(a, b))
-        diff = abs(ek - ep)
+        cur, diff, fk = _k2_check(kind, B, M, keep, cap, "float32", dev,
+                                  SEED + B + M)
         max_abs = max(max_abs, diff)
-        print(f"K2 gemm_exact {kind} ({B}, {M}) keep {keep} cap {cap} f32: "
-              f"trunc err kernel {ek:.9e} plain {ep:.9e} (|diff| {diff:.3e}, "
-              f"bar {K2_ERR_TOL:g}); kernel {fk}; plain {fp}; repeat "
-              f"launches bitwise equal: {same}")
-        if not (diff < K2_ERR_TOL and same and fk["converged"]
-                and fp["converged"]):
-            raise AssertionError(f"K2 {kind}: kernel and plain disagree, "
-                                 "did not certify, or repeat differs")
         if kind == "slice":
+            if not fk["cluster_ctas"]:
+                raise AssertionError("K2 slice bond did not take the "
+                                     "cluster route")
             timing["ms"] = _time_ms(lambda: ge.gemm_exact_kernel(cur, keep,
                                                                  cap),
                                     reps=20, warmup=2)
             timing["plain_ms"] = _wall_ms(lambda: _k2_run(cur, keep, cap,
                                                           False))
+            timing["library_ms"] = _time_ms(
+                lambda: torch.linalg.svd(cur, full_matrices=False,
+                                         driver="gesvd"), reps=20, warmup=2)
+            flops = ge.gemm_exact_flops(B, M, cap, fk["outer"], fk["ns"],
+                                        fk["ns_rows"],
+                                        ge._gemm_exact_tuning(cur.dtype)[2])
+            timing["bound_ms"], timing["bound_by"] = _bound(
+                (B * M + 2 * cap * M) * 4, flops, "float32")
             print(f"K2 gemm_exact slice ({B}, {M}) time: kernel "
                   f"{timing['ms']:.3f} ms (CUDA events, median of 20 queued "
                   f"launches after 2 warm-up launches), plain "
                   f"{timing['plain_ms']:.3f} ms (host wall clock around "
                   f"torch.cuda.synchronize(), median of 3; it reads its loop "
-                  f"conditions to the host)")
-    A = _k2_input("generic", 40, 24, 5, SEED)
-    s = np.linalg.svd(A, compute_uv=False)
-    e_svd = float(np.sum(s[5:] ** 2) / np.sum(s ** 2))
-    cur = torch.tensor(A, dtype=torch.float64, device=dev)
-    vk, fk = _k2_run(cur, 5, 8, True)
-    vp, fp = _k2_run(cur, 5, 8, False)
-    ek, ep = _trunc_err(cur, vk), _trunc_err(cur, vp)
-    print(f"K2 gemm_exact f64 (40, 24) keep 5 cap 8: trunc err kernel "
-          f"{ek:.15e} plain {ep:.15e} svd {e_svd:.15e} (rtol bar "
-          f"{K2_F64_RTOL:g}); kernel {fk}; plain {fp}")
-    if not (abs(ek - e_svd) <= K2_F64_RTOL * e_svd
-            and abs(ep - e_svd) <= K2_F64_RTOL * e_svd and fk["converged"]):
-        raise AssertionError("K2 f64 misses the SVD truncation error")
+                  f"conditions to the host), torch.linalg.svd(driver="
+                  f"'gesvd') {timing['library_ms']:.3f} ms (CUDA events, "
+                  f"median of 20)")
+            print(f"K2 gemm_exact slice: route cluster of "
+                  f"{fk['cluster_ctas']} CTAs, {fk['barriers']} cluster "
+                  f"barriers, {fk['outer']} outer and {fk['ns']} Newton-"
+                  f"Schulz steps ({fk['ns_rows']} in the row polar); "
+                  f"{flops / 1e9:.3f} GFLOP by gemm_exact_flops, bound "
+                  f"{timing['bound_ms']:.4f} ms by {timing['bound_by']} "
+                  f"(FP32 67 TFLOP/s), {timing['bound_ms'] / timing['ms']:.2%}"
+                  f" of it reached, {flops / timing['ms'] / 1e9:.3f} TFLOP/s")
+    _k2_check(*K2_F64_CASE, dev, SEED)
+    for kind, B, M, keep, cap, dtype in K2_GRID_CASES:
+        _cur, diff, fk = _k2_check(kind, B, M, keep, cap, dtype, dev,
+                                   SEED + B + M)
+        if fk["cluster_ctas"]:
+            raise AssertionError(f"K2 {kind} ({B}, {M}) {dtype} took the "
+                                 "cluster route, expected the grid route")
+        if dtype == "float32":
+            max_abs = max(max_abs, diff)
     return max_abs, timing
 
 
@@ -452,7 +536,7 @@ def phase_round_slice(dev):
         print(f"round {inst}: f64 LAPACK chain log-norm {ref:.9f} "
               f"({time.perf_counter() - t0:.2f} s on the host)")
         cores = list(cores_to_torch(cs, dev))
-        lnorm = {}
+        lnorm, walls = {}, {}
         methods = ("gemm_exact", "svd") + (("randomized",)
                                            if inst == "random" else ())
         for method in methods:
@@ -467,8 +551,7 @@ def phase_round_slice(dev):
             launches = ge.gemm_exact_kernel.launches
             reads = rk.host_bool.reads - reads0
             cnt = {k: getattr(ge.trunc_step_gemm_exact, k)
-                   for k in ("calls", "svd_fallbacks", "lq_finishes",
-                             "outer_iters", "ns_iters", "grid_syncs")}
+                   for k in ge.TRUNC_COUNTERS}
             t0 = time.perf_counter()
             _round(method, cores)
             torch.cuda.synchronize()
@@ -488,18 +571,31 @@ def phase_round_slice(dev):
                   f"TFLOP/s by the analytic count, f32-vs-f64 log-norm rel "
                   f"err {rel:.3e}, K2 launches {launches}, host flag reads "
                   f"{reads} + {launches} K2 flag reads, gemm_exact {cnt}")
+            walls[method] = min(wall, wall2)
             if method == "gemm_exact":
                 k2_launches += launches
                 if launches != EXPECTED_K2_LAUNCHES:
                     raise AssertionError(
                         f"K2 launched {launches} times in the {inst} "
                         f"rounding, expected {EXPECTED_K2_LAUNCHES}")
+                if cnt["cluster_bonds"] != launches:
+                    raise AssertionError(f"{inst} rounding: only "
+                                         f"{cnt['cluster_bonds']} of "
+                                         f"{launches} K2 bonds took the "
+                                         "cluster route")
+                if cnt["svd_fallbacks"]:
+                    raise AssertionError(f"{inst} rounding: "
+                                         f"{cnt['svd_fallbacks']} K2 bonds "
+                                         "did not certify and took the SVD "
+                                         "fallback")
             if method != "randomized" and not rel <= ROUND_F64_BAR:
                 raise AssertionError(f"round {inst} {method}: log-norm rel "
                                      f"err {rel:.3e} above {ROUND_F64_BAR:g}")
         d_ge = abs(lnorm["gemm_exact"] - lnorm["svd"]) / abs(lnorm["svd"])
         print(f"round {inst}: gemm_exact vs svd log-norm rel diff "
-              f"{d_ge:.3e} (bar {GE_VS_SVD_BAR:g})")
+              f"{d_ge:.3e} (bar {GE_VS_SVD_BAR:g}); wall gemm_exact "
+              f"{walls['gemm_exact']:.4f} s vs svd {walls['svd']:.4f} s "
+              f"(the faster of the two timed runs each)")
         if not d_ge <= GE_VS_SVD_BAR:
             raise AssertionError(f"round {inst}: gemm_exact and svd differ")
         if "randomized" in lnorm:
@@ -512,15 +608,66 @@ def phase_round_slice(dev):
     return k2_launches
 
 
+def _k2_bond_times(cores):
+    """K2's device time in one gemm_exact rounding: CUDA events around each
+    call of the wrapper (its output allocation and flag fill included,
+    a few us), with each bond's shape, column bucket and flags."""
+    import torch
+    from xerus_tpu_torch.ops import gemm_exact as ge
+    kernel = ge.gemm_exact_kernel
+    bonds = []
+
+    def timed(cur, keep, cap):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = kernel(cur, keep, cap)
+        end.record()
+        bonds.append((tuple(cur.shape), cap, start, end, out[2]))
+        return out
+
+    # the wrapper counts its launches on whatever the module's name holds
+    timed.launches = kernel.launches
+    torch.cuda.synchronize()
+    ge.gemm_exact_kernel = timed
+    try:
+        _round("gemm_exact", cores)
+    finally:
+        ge.gemm_exact_kernel = kernel
+    torch.cuda.synchronize()
+    return [((B, M), cap, start.elapsed_time(end),
+             dict(zip(ge.FLAGS, flags.tolist())))
+            for (B, M), cap, start, end, flags in bonds]
+
+
 def phase_round_breakdown(dev):
-    """Where a gemm_exact rounding's time goes: the Newton-Schulz QR sweep
-    alone, then the whole rounding."""
+    """Where a gemm_exact rounding's time goes: K2's device time bond by
+    bond beside its bound, the Newton-Schulz QR sweep alone, then the
+    whole rounding."""
     import torch
     from xerus_tpu_torch.convert import cores_to_torch
     from xerus_tpu_torch.examples import bench_round_instance
+    from xerus_tpu_torch.ops import gemm_exact as ge
     from xerus_tpu_torch.ops import round_kernels as rk
     cores = list(cores_to_torch(bench_round_instance(
         ROUND_D, ROUND_N, ROUND_RANK, SEED), dev))
+    polish = ge._gemm_exact_tuning(torch.float32)[2]
+    total = bound = 0.0
+    bonds = _k2_bond_times(cores)
+    for n, ((B, M), cap, ms, f) in enumerate(bonds):
+        b_ms, _by = _bound((B * M + 2 * cap * M) * 4, ge.gemm_exact_flops(
+            B, M, cap, f["outer"], f["ns"], f["ns_rows"], polish), "float32")
+        total, bound = total + ms, bound + b_ms
+        print(f"breakdown: K2 bond {n} ({B}, {M}) cap {cap}: {ms:.3f} ms, "
+              f"bound {b_ms:.4f} ms; outer {f['outer']}, Newton-Schulz "
+              f"{f['ns']}, certified {f['converged']}, CTAs per cluster "
+              f"{f['cluster_ctas']}")
+    times = sorted(ms for _s, _c, ms, _f in bonds)
+    print(f"breakdown: K2 device time per gemm_exact rounding (random "
+          f"instance): {total:.3f} ms over {len(bonds)} launches (CUDA "
+          f"events around each wrapper call), per bond {times[0]:.3f} to "
+          f"{times[-1]:.3f} ms, median {statistics.median(times):.3f}; "
+          f"bound {bound:.3f} ms, sum over the launches of (time - bound) "
+          f"{total - bound:.3f} ms")
     for name, fn in (("ns QR sweep alone",
                       lambda: rk._qr_sweep_segmented(cores, 3, "ns")),
                      ("cholqr QR sweep alone (svd path)",
@@ -595,11 +742,21 @@ def phase_k3(dev):
     timing = {"ms": _time_ms(lambda: te._launch(cores, grid), reps=20),
               "plain_ms": _time_ms(
                   lambda: te.tt_eval_at_points_reference(cores, grid),
-                  reps=20)}
+                  reps=20),
+              "library_ms": None}   # no PyTorch call evaluates a TT at points
+    n_pts, d = grid.shape
+    rs = [1] + list(ranks) + [1]
+    fmas = sum(rs[k] * rs[k + 1] for k in range(d))   # per entry
+    core_bytes = sum(c.numel() for c in cores) * 8
+    timing["bound_ms"], timing["bound_by"] = _bound(
+        n_pts * d * 8 + n_pts * 8 + core_bytes, 2 * fmas * n_pts, "float64")
     print(f"K3 tt_eval time over all {grid.shape[0]} entries (d=10, n=4, "
           f"r=8, f64): kernel {timing['ms']:.4f} ms (padding the cores "
           f"included), plain {timing['plain_ms']:.4f} ms (CUDA events, "
-          f"median of 20 queued calls after 5 warm-up calls)")
+          f"median of 20 queued calls after 5 warm-up calls); bound "
+          f"{timing['bound_ms']:.4f} ms by {timing['bound_by']} ({fmas} FMAs "
+          f"per entry at FP64), {timing['bound_ms'] / timing['ms']:.1%} of "
+          f"it reached")
     return max_abs, timing
 
 
@@ -763,22 +920,25 @@ def main():
     phase_iht(dev)
     phase_breakdown(dev)
     phase_round_breakdown(dev)
+    def entry(name, source, replaces, launches, max_abs, timing):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": max_abs, "ms": timing["ms"],
+                "plain_ms": timing["plain_ms"],
+                "bound_ms": timing["bound_ms"],
+                "bound_by": timing["bound_by"],
+                "library_ms": timing["library_ms"]}
+
     print(json.dumps({"kernels": [
-        {"name": "df_matvec", "route": "cuda",
-         "source": "xerus_tpu_torch/csrc/df_matvec.cu",
-         "replaces": "xerus_tpu/ops/pallas_df.py:60",
-         "launches": k1_launches, "max_abs_err": k1_max_abs,
-         "ms": k1_timing["ms"], "plain_ms": k1_timing["plain_ms"]},
-        {"name": "gemm_exact", "route": "cuda",
-         "source": "xerus_tpu_torch/csrc/gemm_exact.cu",
-         "replaces": "xerus_tpu/ops/tt_kernels.py:1232",
-         "launches": k2_launches, "max_abs_err": k2_max_abs,
-         "ms": k2_timing["ms"], "plain_ms": k2_timing["plain_ms"]},
-        {"name": "tt_eval", "route": "cuda",
-         "source": "xerus_tpu_torch/csrc/tt_eval.cu",
-         "replaces": "xerus_tpu/ops/pallas_tt_eval.py:45",
-         "launches": k3_launches, "max_abs_err": k3_max_abs,
-         "ms": k3_timing["ms"], "plain_ms": k3_timing["plain_ms"]}]}))
+        entry("df_matvec", "xerus_tpu_torch/csrc/df_matvec.cu",
+              "xerus_tpu/ops/pallas_df.py:60", k1_launches, k1_max_abs,
+              k1_timing),
+        entry("gemm_exact", "xerus_tpu_torch/csrc/gemm_exact.cu",
+              "xerus_tpu/ops/tt_kernels.py:1232", k2_launches, k2_max_abs,
+              k2_timing),
+        entry("tt_eval", "xerus_tpu_torch/csrc/tt_eval.cu",
+              "xerus_tpu/ops/pallas_tt_eval.py:45", k3_launches, k3_max_abs,
+              k3_timing)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

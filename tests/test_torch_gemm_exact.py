@@ -163,3 +163,25 @@ def test_svd_fallback_when_not_certified(monkeypatch):
     s = np.linalg.svd(A.numpy(), compute_uv=False)
     err = np.linalg.norm(A.numpy() - us.numpy() @ vt.numpy()) ** 2
     np.testing.assert_allclose(err, np.sum(s[4:] ** 2), rtol=1e-10)
+
+
+@pytest.mark.parametrize("dtype,B,M,keep,cap", [
+    (torch.float32, 48, 40, 6, 8), (torch.float64, 40, 56, 5, 8)])
+def test_flop_count_matches_flop_counter(dtype, B, M, keep, cap):
+    """gemm_exact_flops, the formula chip_smoke.py and PERF.md use for K2's
+    bound, is exactly what torch.utils.flop_counter counts around the plain
+    version, for the outer, polish and Newton-Schulz counts it ran (the
+    plain version's counters, as the kernel's flags count them)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    A = np.random.default_rng(B + M).standard_normal((B, M))
+    cur = torch.tensor(A, dtype=dtype)
+    mask = (torch.arange(cap) < keep).to(dtype)
+    tuning = ge._gemm_exact_tuning(dtype)
+    ge.reset_counters()
+    with FlopCounterMode(display=False) as fc:
+        _vt0, _vtb, _okp, conv, outer = ge._gemm_exact_body(cur, mask,
+                                                            *tuning)
+    ns, ns_rows = ge._gemm_exact_body.ns_iters, ge._gemm_exact_body.ns_row_iters
+    assert bool(conv) and outer > 0 and 0 < ns_rows < ns
+    assert fc.get_total_flops() == ge.gemm_exact_flops(
+        B, M, cap, outer, ns, ns_rows, tuning[2])

@@ -119,6 +119,30 @@ def test_gemm_exact_kernel_matches_plain_f32(cuda, kind, B, M, keep, cap):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind,B,M,keep,cap,route", [
+    ("generic", 256, 256, 128, 128, 16), ("cliff", 512, 1024, 256, 256, 0)])
+def test_gemm_exact_kernel_routes(cuda, kind, B, M, keep, cap, route):
+    """The rounding's (256, 256) keep-128 bond takes the 16-CTA cluster
+    route, a shape past one cluster's shared memory the grid route; the
+    route is chosen before the launch and the flags report the one that
+    ran.  Each matches its plain version within 5e-6 in truncation error,
+    and repeat launches are bitwise equal."""
+    cur = torch.tensor(_k2_case(kind, B, M, keep, B + M),
+                       dtype=torch.float32, device=cuda)
+    assert ge.gemm_exact_route(B, M, cap, torch.float32) == route
+    vk, conv_k = _k2_vt(cur, keep, cap, True)
+    vp, conv_p = _k2_vt(cur, keep, cap, False)
+    assert conv_k and conv_p
+    assert abs(_k2_err(cur, vk) - _k2_err(cur, vp)) < 5e-6
+    a = ge.gemm_exact_kernel(cur, keep, cap)
+    b = ge.gemm_exact_kernel(cur, keep, cap)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    flags = dict(zip(ge.FLAGS, a[2].tolist()))
+    assert flags["cluster_ctas"] == route
+    assert 0 < flags["ns_rows"] <= flags["ns"] and flags["barriers"] > 0
+
+
+@pytest.mark.cuda
 def test_gemm_exact_kernel_f64_matches_svd(cuda):
     """f64 launches the double kernel; its truncation error equals the SVD
     truncation's to rtol 1e-8."""

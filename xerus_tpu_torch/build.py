@@ -47,15 +47,18 @@ def _nvcc() -> str:
 
 
 def load_kernel_library(name: str) -> ctypes.CDLL:
-    """Compile ``csrc/<name>.cu`` with its flags (once per content and
-    flags) and load it."""
+    """Compile ``csrc/<name>.cu`` with its flags (once per content of the
+    source, of the headers in ``csrc/`` and of the flags) and load it."""
     if name in _loaded:
         return _loaded[name]
     src = os.path.join(CSRC, name + ".cu")
     flags = NVCC_FLAGS + KERNEL_FLAGS[name]
-    with open(src, "rb") as fh:
-        digest = hashlib.sha256(fh.read() + " ".join(flags).encode()
-                                ).hexdigest()[:12]
+    h = hashlib.sha256(" ".join(flags).encode())
+    for path in [src] + sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC)
+                               if f.endswith(".cuh")):
+        with open(path, "rb") as fh:
+            h.update(fh.read())
+    digest = h.hexdigest()[:12]
     os.makedirs(BUILD_DIR, exist_ok=True)
     lib_path = os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
     if not os.path.exists(lib_path):

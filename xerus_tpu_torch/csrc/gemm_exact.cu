@@ -1,5 +1,6 @@
-// K2: certified GEMM-only rank-`keep` truncation of one bond matricization,
-// as one cooperative persistent kernel on Hopper.
+// K2: certified GEMM-only rank-`keep` truncation of one bond matricization
+// on Hopper, as one thread-block cluster whose shared memory holds the
+// whole iteration.
 //
 // Replaces the Pallas TPU kernel xerus_tpu/ops/tt_kernels.py
 // _gemm_exact_pallas_call (body _gemm_exact_body).  It computes what that
@@ -14,498 +15,845 @@
 //   vt_raw = V^T cur, row balancing and a Newton-Schulz row polar.
 // Outputs vt0 (K, M) (the polar, valid iff okp), vt_bal (K, M) (the
 // balanced rows, input of the Householder-LQ finish that the caller runs
-// on the host's decision) and flags {okp, converged, outer iterations,
-// Newton-Schulz iterations in all, grid barriers}.  The caller is the gemm_exact
-// truncation of xerus_tpu_torch/ops/round_kernels.py: 17 calls at
-// (256, 256), keep 128, K 128 per d=32 rank-256 -> 128 rounding.
+// on the host's decision) and the flags of gemm_exact_common.cuh.  The
+// caller is the gemm_exact truncation of xerus_tpu_torch/ops/round_kernels.py:
+// 17 calls at (256, 256), keep 128, K 128 per d=32 rank-256 -> 128 rounding.
 //
-// What bounds it: latency.  A truncation is a sequential chain of small
-// GEMMs (8-34 MFLOP each at (256, 256): G, Gn V, the (K, K) Newton-Schulz
-// Grams and updates, G V for tau) separated by data-dependent decisions,
-// some hundreds to thousands of them per call.  The operands (under 2 MB)
-// stay in the 50 MB L2; no GEMM fills the card.  The TPU kept all of it in
-// one core's VMEM; here G alone (256 KiB in f32) is larger than a block's
-// shared memory.  So the design is one cooperative launch per truncation
-// with one block per SM, every operand in global memory (L2), a tiled
-// SIMT FFMA GEMM (32 x 32 output tiles through shared memory, tiles dealt
-// to blocks by index, ragged edges masked) for every product, and
-// grid.sync() between phases.  Every block reads the same reduced scalars
-// after each sync and takes the same branch, so loop exits are uniform:
-// a block that left a loop alone would deadlock the next grid.sync().
+// Bound at that shape: operations.  The flags give the FLOP count
+// (ops/gemm_exact.py gemm_exact_flops): at 22.4 outer and 834
+// Newton-Schulz steps per bond, the rounding's mean, about 15.7 GFLOP,
+// 0.24 ms at the H100's 67 TFLOP/s of FP32 FFMA; its inputs and outputs
+// (under 1 MB) take 0.3 us at 3.35 TB/s.  What the work really is,
+// though, is a chain of about 1,900 data-dependent small products (the
+// largest (256, 256, 256), the most frequent the (128, 128, 256)
+// Newton-Schulz Gram and its (256, 128, 128) update), each followed by a
+// reduction that decides the next step.  So latency bounds it: the grid
+// route (gemm_exact_grid.cuh) pays a grid-wide barrier per phase, an L2
+// round trip per 32-deep chunk and keeps at most 32 of 132 blocks busy.
 //
-// Determinism: reductions are fixed-order two-stage trees (one partial
-// per block, folded by every block in block order; no float atomics), and
-// the grid is the SM count, so two launches on one card give bitwise
-// equal outputs.  The tau >= tau_prev safeguard and the Aitken ratios make
-// the iteration count sensitive to the last bit of every reduction.
+// The cluster route (this file's kernel) answers that as the TPU kernel
+// did with one core's VMEM: 16 CTAs of one non-portable cluster hold the
+// whole state in their shared memory, split by rows (G's columns G[:, I_c]
+// and Gn's, the (B, K) bases V, Q and a work buffer, the iterate's
+// transpose; later cur's columns and the (M, K) row-polar iterate), and
+// exchange what a product needs through distributed shared memory.  Every
+// exchange is a push: a CTA stores its slice, its partial Gram rows or its
+// rows of P = 1.5 I - 0.5 S straight into the other CTAs' shared memory,
+// destinations staggered by rank, and one cluster barrier (release /
+// acquire) publishes them; no CTA waits on a remote load.  A Newton-Schulz
+// step is: the CTA's partial Gram, only its 4 x 4 blocks on and above the
+// diagonal (S is symmetric), pushed to the owners of S's rows; barrier;
+// each owner (row blocks b and K/4 - 1 - b, so that all owners fold the
+// same number of blocks) folds the 16 partials in rank order, takes
+// max|S - diag(mask)| and pushes its upper rows of P to all; barrier;
+// every CTA folds the error, mirrors P's lower blocks from the upper ones
+// and updates its rows X <- X P in place.  Two cluster barriers, no
+// global memory.  The products are SIMT FFMA on k-major shared-memory
+// operands with 4 x 4 register blocks per thread: up to four row blocks
+// of one column block per thread for the (K, K) Gram; for the products
+// whose output is a row slice, the transpose (K, rows) is computed, so
+// that both 4-wide loads spread over few banks, with k split over
+// neighbouring lanes and folded by shuffles.  The rounding's bonds (f32,
+// K = 128, 16 rows of B and 16 or 32 rows of M per CTA) get instantiations
+// with those sizes fixed at compile time, so every loop unrolls; other
+// shapes run the same code with sizes read at run time.
 //
-// Precision constraint for any later tensor-core design: the certificates
-// sit at 4, 8 and 16 eps of the working type and the Newton-Schulz exits
-// at 64 eps, so every product must keep full f32 (f64) accuracy.  TF32
-// (10-bit mantissa) would never certify; a wgmma design needs a 3xTF32
-// split (or f64 DMMA for the double path) to meet the same bars.
+// Why not wgmma / TMA: the products are at most (256, 256, 256), each
+// CTA's share of one is (128, 16, 256) or smaller, and ~1,900 of them run
+// back to back with a reduction between: a tensor-core tile would sit
+// mostly idle behind the barriers, and TF32 (10-bit mantissa) never
+// certifies.  The certificates sit at 4, 8 and 16 eps of the working type
+// and the Newton-Schulz exits at 64 eps, so every product keeps full FP32
+// (FP64 for the double instantiation) FFMA; a 3xTF32 mma.sync split (or
+// DMMA for f64) was not tried.  A Newton-Schulz step pays its pushes, two
+// cluster barriers and FFMA loops at 8 warps per SM.
+//
+// Route: the cluster route takes every shape whose state fits one CTA's
+// 227 KB of shared memory (f32 up to B = 256, K = 128, M = 512: the
+// rounding's bonds), chosen from the shape before the launch
+// (xerus_gemm_exact_route); the others (B > 256, K > 128, long M, most of
+// f64) take the grid route of gemm_exact_grid.cuh, a cooperative grid
+// kernel.  flags[kClusterCtas] says which ran.  The cluster size is fixed
+// at 16; if the card cannot schedule it, the launch fails (a different
+// CTA count would change the reduction order and the bitwise result).
+//
+// Determinism: every reduction folds per-CTA partials in rank order and
+// per-thread partials in a fixed tree; no float atomics.  Every CTA folds
+// the same values in the same order and takes the same branch, so no
+// barrier deadlocks and two launches give bitwise equal outputs.  The
+// tau >= tau_prev safeguard and the Aitken ratios make the iteration
+// count sensitive to the last bit of every reduction.
 //
 // Built without -fmad=false: the GEMMs and scalar updates may contract
 // into FMAs, which changes nothing the certificates rely on.
 
-#include <cfloat>
-#include <cstddef>
-#include <cstdint>
 #include <cooperative_groups.h>
-#include <cuda_runtime.h>
+#include <type_traits>
+
+#include "gemm_exact_common.cuh"
+#include "gemm_exact_grid.cuh"
+
+namespace gemm_exact {
+namespace cluster {
 
 namespace cg = cooperative_groups;
 
-namespace {
-
+constexpr int kCtas = 16;       // CTAs per cluster (non-portable size)
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 32;       // output tile edge
-constexpr int kChunk = 32;      // inner-dimension chunk
-constexpr int kMaxGrid = 1024;  // partial slots per reduction buffer
+constexpr int kMaxTasks = 4;    // 4 x 4 output blocks per thread, at most
+constexpr int kSplitMax = 8;    // k slices of a small product
+constexpr int kChunkM = 32;     // inner chunk of the G = cur cur^T staging
+// error code of a cluster that the card cannot schedule
+constexpr int kUnschedulable = 100001;
+// rows of S one CTA owns: two 4-row blocks, b and q4 - 1 - b
+constexpr int kOwnRows = 8;
 
-template <typename T> struct Num;
-template <> struct Num<float> {
-    static __device__ __forceinline__ float mad(float a, float b, float c) {
-        return __fmaf_rn(a, b, c);
-    }
-    static __device__ __forceinline__ float sqrt(float x) { return sqrtf(x); }
-    static __device__ __forceinline__ float abs(float x) { return fabsf(x); }
-    static __device__ __forceinline__ float inf() {
-        return __int_as_float(0x7f800000);
-    }
-    static constexpr double eps = FLT_EPSILON;
-    static constexpr double big = FLT_MAX / 4.0;
-};
-template <> struct Num<double> {
-    static __device__ __forceinline__ double mad(double a, double b, double c) {
-        return __fma_rn(a, b, c);
-    }
-    static __device__ __forceinline__ double sqrt(double x) { return ::sqrt(x); }
-    static __device__ __forceinline__ double abs(double x) { return fabs(x); }
-    static __device__ __forceinline__ double inf() {
-        return __longlong_as_double(0x7ff0000000000000LL);
-    }
-    static constexpr double eps = DBL_EPSILON;
-    static constexpr double big = DBL_MAX / 4.0;
-};
-
-// NaN-propagating max / min, as jnp.maximum / jnp.minimum / jnp.max
-template <typename T> __device__ __forceinline__ T nmax(T a, T b) {
-    return (a != a || a > b) ? a : b;
+__host__ __device__ inline int up4(int n) { return (n + 3) / 4 * 4; }
+__host__ __device__ inline int pow2_at_least(int n) {
+    int p = 4;
+    while (p < n) p *= 2;
+    return p;
 }
-template <typename T> __device__ __forceinline__ T nmin(T a, T b) {
-    return (a != a || a < b) ? a : b;
+__host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
+
+// Shared-memory layout of one CTA, in elements (every offset a multiple
+// of 4).  The CTA owns rows [c rb, (c+1) rb) of the (Bp, Kp) bases and of
+// G, rows [c rm, (c+1) rm) of the (Mp, Kp) row-polar iterate, and the
+// rows of the (Kp, Kp) Newton-Schulz Gram that owned_block gives it (at most
+// kOwnRows).  Padding rows and columns are zero and stay zero (dead
+// columns).  P's rows are ldp = Kp + 4 apart: an odd number of 16-byte
+// units, so 4-wide loads down a column hit distinct banks.
+struct Layout {
+    int Bp, Kp, rb, rm, ldp, ldg;
+    int A;                        // exchange: full (Bp, Kp) basis, or
+    int recv, pfull;              //   Gram partials (kCtas, kOwnRows, Kp) + P
+    int Gt, Gnt, V, Q, T1, Xt;    // phase 1
+    int Cs, Y, Yt;                // phase 2 (row polar), aliases phase 1
+    int col, colv, red, blk, total;
+};
+
+__host__ __device__ inline Layout layout(int B, int M, int K) {
+    Layout l;
+    l.rb = up4((B + kCtas - 1) / kCtas);
+    l.rm = pow2_at_least((M + kCtas - 1) / kCtas);
+    l.Kp = pow2_at_least(K);
+    l.ldp = l.Kp + 4;
+    l.Bp = kCtas * l.rb;
+    l.ldg = l.Bp + 4;
+    int o = 0;
+    l.A = o;
+    l.recv = o;
+    l.pfull = o + kCtas * kOwnRows * l.Kp;
+    o += imax(imax(l.Bp * l.Kp, kCtas * kOwnRows * l.Kp + l.Kp * l.ldp),
+              kChunkM * l.ldg);
+    const int p1 = o;
+    l.Gt = o; o += l.Bp * l.rb;
+    l.Gnt = o; o += l.Bp * l.rb;
+    l.V = o; o += l.rb * l.Kp;
+    l.Q = o; o += l.rb * l.Kp;
+    l.T1 = o; o += l.rb * l.Kp;
+    l.Xt = o; o += l.Kp * l.rb;
+    const int end1 = o;
+    o = p1;
+    l.Cs = o; o += l.Bp * l.rm;
+    l.Y = o; o += l.rm * l.Kp;
+    l.Yt = o; o += l.Kp * l.rm;
+    o = imax(o, end1);
+    l.col = o; o += kCtas * l.Kp;
+    l.colv = o; o += l.Kp;
+    l.red = o; o += 2 * kCtas * kWarps;
+    l.blk = o; o += up4(kWarps + 1);
+    l.total = o;
+    return l;
 }
 
-struct SumOp {
-    template <typename T> __device__ T operator()(T a, T b) const { return a + b; }
-};
-struct MaxOp {
-    template <typename T> __device__ T operator()(T a, T b) const { return nmax(a, b); }
-};
-struct MinOp {
-    template <typename T> __device__ T operator()(T a, T b) const { return nmin(a, b); }
+// the shape limits of the cluster route besides the shared memory: one
+// 4 x 4 block of G's columns per thread (rb <= 16), at most kMaxTasks
+// blocks per thread in the (Kp, Kp) Gram and the (rm, Kp) products
+inline bool shape_ok(const Layout& l) {
+    return l.rb <= 16 && l.Kp <= 8 * kCtas
+           && l.rm * l.Kp / 16 <= kMaxTasks * kThreads;
+}
+
+template <typename T> struct Params {
+    Args<T> a;
+    Layout l;
 };
 
-template <typename T> struct Smem {
-    T a[kTile][kChunk + 1];
-    T b[kChunk][kTile + 1];
-    T red[kWarps + 1];
+// Sizes fixed at compile time (0: the layout's, read at run time).  The
+// rounding's bonds get their own instantiation, so that every loop bound,
+// stride and tile count below is a constant and the GEMM loops unroll.
+template <int KP, int RB, int RM> struct Fixed {
+    static constexpr int kp = KP, rb = RB, rm = RM;
 };
+using Generic = Fixed<0, 0, 0>;
+template <class D> __device__ __forceinline__ int kp_of(const Layout& l) {
+    return D::kp ? D::kp : l.Kp;
+}
+template <class D> __device__ __forceinline__ int rb_of(const Layout& l) {
+    return D::rb ? D::rb : l.rb;
+}
+template <class D> __device__ __forceinline__ int rm_of(const Layout& l) {
+    return D::rm ? D::rm : l.rm;
+}
+
+__device__ __forceinline__ void ld4(const float* p, float (&v)[4]) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+}
+__device__ __forceinline__ void ld4(const double* p, double (&v)[4]) {
+    const double2 t0 = reinterpret_cast<const double2*>(p)[0];
+    const double2 t1 = reinterpret_cast<const double2*>(p)[1];
+    v[0] = t0.x; v[1] = t0.y; v[2] = t1.x; v[3] = t1.y;
+}
+// p may be a local or a remote (distributed) shared-memory address
+__device__ __forceinline__ void st4(float* p, const float (&v)[4]) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void st4(double* p, const double (&v)[4]) {
+    reinterpret_cast<double2*>(p)[0] = make_double2(v[0], v[1]);
+    reinterpret_cast<double2*>(p)[1] = make_double2(v[2], v[3]);
+}
 
 // Fixed-order block reduction; every thread of the block gets the result.
 template <typename T, typename Op>
-__device__ T block_reduce(T v, Op op, T ident, Smem<T>& sm) {
+__device__ T block_reduce(T v, Op op, T ident, T* blk) {
     const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
         v = op(v, __shfl_down_sync(0xffffffffu, v, off));
     __syncthreads();
-    if (lane == 0) sm.red[w] = v;
+    if (lane == 0) blk[w] = v;
     __syncthreads();
     if (w == 0) {
-        T r = lane < kWarps ? sm.red[lane] : ident;
+        T r = lane < kWarps ? blk[lane] : ident;
 #pragma unroll
         for (int off = 16; off > 0; off >>= 1)
             r = op(r, __shfl_down_sync(0xffffffffu, r, off));
-        if (lane == 0) sm.red[kWarps] = r;
+        if (lane == 0) blk[kWarps] = r;
     }
     __syncthreads();
-    return sm.red[kWarps];
-}
-
-template <typename T> struct Params {
-    const T* cur;
-    int B, M, K, keep;
-    int max_outer, max_ns, polish, stall_need;
-    T *G, *Gn, *V, *X1, *X2, *GV, *W, *Y1, *P, *Yb, *part, *colvec;
-    T *vt0, *vt_bal;
-    int* flags;
-};
-
-enum Epi { kStore, kStoreMaxAbs, kNsGram, kTau, kCheb };
-
-template <typename T> struct Gemm {
-    int m, n, k;
-    const T* A; int lda; bool ta;   // op(A)[i][k] = ta ? A[k*lda+i] : A[i*lda+k]
-    const T* B; int ldb; bool tb;   // op(B)[k][j] = tb ? B[j*ldb+k] : B[k*ldb+j]
-    T* C; int ldc;
-    Epi epi;
-    int keep;                       // kNsGram: target = diag(j < keep)
-    const T* E1; const T* E2;       // kTau: V; kCheb: Y1, V (leading dim ldc)
-    T c;                            // kCheb coefficient
-};
-
-// C = op(A) op(B) with the epilogue `epi`, tiles dealt to blocks by index.
-// Returns this block's partial (max for kStoreMaxAbs/kNsGram, sum for
-// kTau, in tile order), the same value in every thread of the block.
-template <typename T>
-__device__ T gemm(const Gemm<T>& g, Smem<T>& sm) {
-    const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-    const int tiles_n = (g.n + kTile - 1) / kTile;
-    const int tiles = ((g.m + kTile - 1) / kTile) * tiles_n;
-    T part = T(0);
-    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-        const int i0 = (t / tiles_n) * kTile, j0 = (t % tiles_n) * kTile;
-        T acc[2][2] = {{T(0), T(0)}, {T(0), T(0)}};
-        for (int k0 = 0; k0 < g.k; k0 += kChunk) {
-            for (int e = threadIdx.x; e < kTile * kChunk; e += kThreads) {
-                int r, c;   // r: row of op(A), c: inner index
-                if (g.ta) { r = e % kTile; c = e / kTile; }
-                else { r = e / kChunk; c = e % kChunk; }
-                const int gi = i0 + r, gk = k0 + c;
-                T v = T(0);
-                if (gi < g.m && gk < g.k)
-                    v = g.ta ? g.A[(size_t)gk * g.lda + gi]
-                             : g.A[(size_t)gi * g.lda + gk];
-                sm.a[r][c] = v;
-            }
-            for (int e = threadIdx.x; e < kChunk * kTile; e += kThreads) {
-                int r, c;   // r: inner index, c: column of op(B)
-                if (g.tb) { r = e % kChunk; c = e / kChunk; }
-                else { r = e / kTile; c = e % kTile; }
-                const int gk = k0 + r, gj = j0 + c;
-                T v = T(0);
-                if (gk < g.k && gj < g.n)
-                    v = g.tb ? g.B[(size_t)gj * g.ldb + gk]
-                             : g.B[(size_t)gk * g.ldb + gj];
-                sm.b[r][c] = v;
-            }
-            __syncthreads();
-#pragma unroll 8
-            for (int kk = 0; kk < kChunk; ++kk) {
-                const T a0 = sm.a[ty][kk], a1 = sm.a[ty + 16][kk];
-                const T b0 = sm.b[kk][tx], b1 = sm.b[kk][tx + 16];
-                acc[0][0] = Num<T>::mad(a0, b0, acc[0][0]);
-                acc[0][1] = Num<T>::mad(a0, b1, acc[0][1]);
-                acc[1][0] = Num<T>::mad(a1, b0, acc[1][0]);
-                acc[1][1] = Num<T>::mad(a1, b1, acc[1][1]);
-            }
-            __syncthreads();
-        }
-        T tpart = T(0);
-#pragma unroll
-        for (int a = 0; a < 2; ++a) {
-#pragma unroll
-            for (int b = 0; b < 2; ++b) {
-                const int i = i0 + ty + 16 * a, j = j0 + tx + 16 * b;
-                if (i >= g.m || j >= g.n) continue;
-                const T s = acc[a][b];
-                const size_t at = (size_t)i * g.ldc + j;
-                switch (g.epi) {
-                case kStore:
-                    g.C[at] = s;
-                    break;
-                case kStoreMaxAbs:
-                    g.C[at] = s;
-                    tpart = nmax(tpart, Num<T>::abs(s));
-                    break;
-                case kNsGram: {
-                    const T tgt = (i == j && j < g.keep) ? T(1) : T(0);
-                    tpart = nmax(tpart, Num<T>::abs(s - tgt));
-                    g.C[at] = (i == j ? T(1.5) : T(0)) - T(0.5) * s;
-                    break;
-                }
-                case kTau:
-                    tpart += g.E1[at] * s;
-                    break;
-                case kCheb:
-                    g.C[at] = T(2) * (g.c * s - g.E1[at]) - g.E2[at];
-                    break;
-                }
-            }
-        }
-        if (g.epi == kTau) {
-            part += block_reduce(tpart, SumOp(), T(0), sm);
-        } else if (g.epi == kStoreMaxAbs || g.epi == kNsGram) {
-            part = nmax(part, block_reduce(tpart, MaxOp(), T(0), sm));
-        }
-    }
-    return part;
+    return blk[kWarps];
 }
 
 template <typename T> struct Ctx {
-    cg::grid_group grid;
-    Smem<T>& sm;
+    cg::cluster_group cl;
+    T* sm;                  // this CTA's dynamic shared memory
     const Params<T>& p;
-    int rnd;        // reduction round: picks one of the two partial buffers
-    int ns_total;   // Newton-Schulz iterations, all calls
-    int syncs;      // grid barriers
+    int cr;                 // rank in the cluster
+    int rnd;                // reduction round: picks one of two slot sets
+    int ns_total, ns_rows;  // Newton-Schulz iterations (all; row polar)
+    int syncs;              // cluster barriers
+    const T* staged;        // the basis the exchange region holds, if any
 
+    __device__ const Layout& l() const { return p.l; }
+    __device__ T* at(int off) const { return sm + off; }
+    // the same offset in CTA `rank`'s shared memory
+    __device__ T* remote(T* local, int rank) const {
+        return cl.map_shared_rank(local, rank);
+    }
     __device__ void sync() {
-        grid.sync();
+        cl.sync();   // barrier.cluster.arrive.release + wait.acquire
         ++syncs;
     }
 
-    // publish this block's partial, sync, fold all partials in block order
+    // Cluster-wide reduction of n <= kWarps values, each already reduced
+    // over this CTA: push them into slot [cr] of every CTA, barrier, and
+    // fold the kCtas slots in rank order (fold_slots) in every CTA alike.
+    // Two slot sets alternate, so round r + 2 never overwrites slots that a
+    // CTA still reads: the barrier of round r + 1 lies between.
+    __device__ T* slots() const {
+        return sm + p.l.red + (rnd & 1) * kCtas * kWarps;
+    }
+    __device__ void publish(const T* v, int n) {
+        if (threadIdx.x < kCtas) {
+            T* dst = remote(slots() + cr * kWarps, threadIdx.x);
+            for (int q = 0; q < n; ++q) dst[q] = v[q];
+        }
+    }
     template <typename Op>
-    __device__ T all_reduce(T blockpart, Op op, T ident) {
-        T* buf = p.part + (rnd & 1) * kMaxGrid;
-        ++rnd;
-        if (threadIdx.x == 0) buf[blockIdx.x] = blockpart;
+    __device__ T fold_slots(int q, Op op, T ident) const {
+        const T* buf = slots();
+        T r = ident;
+        for (int src = 0; src < kCtas; ++src)
+            r = op(r, buf[src * kWarps + q]);
+        return r;
+    }
+    // One value per thread reduced over the cluster: each warp's xor tree
+    // (the same result in every lane) goes to slot [cr][warp] of every
+    // CTA; after the barrier every lane folds four slots in order and the
+    // warp an xor tree over them, alike in every warp of every CTA.
+    template <typename Op>
+    __device__ T all_reduce(T v, Op op, T ident) {
+        static_assert(kCtas * kWarps == 4 * 32, "four slots per lane");
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+            v = op(v, __shfl_xor_sync(0xffffffffu, v, off));
+        const int lane = threadIdx.x & 31;
+        if (lane < kCtas)
+            *remote(slots() + cr * kWarps + (threadIdx.x >> 5), lane) = v;
         sync();
-        T v = ident;
-        for (int b = threadIdx.x; b < (int)gridDim.x; b += kThreads)
-            v = op(v, buf[b]);
-        return block_reduce(v, op, ident, sm);
+        const T* buf = slots() + 4 * lane;
+        T r = op(op(op(op(ident, buf[0]), buf[1]), buf[2]), buf[3]);
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+            r = op(r, __shfl_xor_sync(0xffffffffu, r, off));
+        ++rnd;
+        return r;
     }
-
-    // fold n values of a vector every block can read, in index order
-    template <typename Op>
-    __device__ T fold(const T* v, int n, Op op, T ident) {
-        T a = ident;
-        for (int i = threadIdx.x; i < n; i += kThreads) a = op(a, v[i]);
-        return block_reduce(a, op, ident, sm);
-    }
-
-    __device__ size_t gtid() const {
-        return (size_t)blockIdx.x * kThreads + threadIdx.x;
-    }
-    __device__ size_t gstride() const { return (size_t)gridDim.x * kThreads; }
 };
 
-template <typename T>
-__device__ T mask_of(int j, int keep) { return j < keep ? T(1) : T(0); }
+// How a block of threads covers an (m, n) output in 4 x 4 blocks (m, n
+// multiples of 4).  Up to kThreads blocks: one per group of `split`
+// neighbouring lanes (a power of two), lane s of the group taking k = s,
+// s + split, ...; the group folds its partials by shuffles.  More blocks
+// (`multi`): each thread takes one column block and up to kMaxTasks row
+// blocks (n / 4 must divide kThreads), the q-th of them bi0 + ((q + rot)
+// mod kMaxTasks) bstep: `rot` staggers, CTA by CTA, which rows come first.
+struct Tiles {
+    int tasks, tn, m4, split, slice, t, bi0, bstep, bj, rot, k0, k1;
+    bool multi;
+};
 
-// Newton-Schulz iteration on X (cols: B x K, X <- X (1.5 I - 0.5 X^T X);
-// rows: K x M, Y <- (1.5 I - 0.5 Y Y^T) Y) until max|S - diag(mask)| <=
-// 64 eps or max_ns steps.  X starts in `x`; `y` is the other buffer.
-// Returns the buffer holding the result; `ok` = err <= tol.
+// row block of a thread's q-th block, and whether it has one
+__device__ __forceinline__ int bi_of(const Tiles& s, int q) {
+    return s.multi ? s.bi0 + ((q + s.rot) % kMaxTasks) * s.bstep : s.bi0;
+}
+__device__ __forceinline__ bool has_block(const Tiles& s, int q) {
+    return s.multi ? bi_of(s, q) < s.m4 : q == 0;
+}
+
+__device__ __forceinline__ Tiles tiles_of(int m, int n, int kd, bool allow_split,
+                                 int rot = 0) {
+    Tiles s;
+    s.tn = n / 4;
+    s.m4 = m / 4;
+    s.rot = rot;
+    s.tasks = s.m4 * s.tn;
+    s.multi = s.tasks > kThreads;
+    if (!s.multi) {
+        int split = 1;
+        if (allow_split)
+            while (split < kSplitMax && s.tasks * split * 2 <= kThreads)
+                split *= 2;
+        s.split = split;
+        s.slice = threadIdx.x & (split - 1);
+        s.t = threadIdx.x / split;           // >= tasks: idle
+        s.bi0 = s.t / s.tn;
+        s.bj = s.t % s.tn;
+        s.bstep = 0;
+        s.k0 = s.slice;                      // k0, k0 + split, ... < kd
+        s.k1 = kd;
+    } else {
+        s.split = 1;
+        s.slice = 0;
+        s.t = threadIdx.x;
+        s.bstep = kThreads / s.tn;
+        s.bi0 = threadIdx.x / s.tn;
+        s.bj = threadIdx.x % s.tn;
+        s.k0 = 0;
+        s.k1 = kd;
+    }
+    return s;
+}
+
+// acc[q] += sum_{k0 <= k < k1} A[k][4 bi_q ..] (x) B[k][4 bj ..], the
+// operands k-major in shared memory (rows of lda / ldb elements).
 template <typename T>
-__device__ T* ns_iterate(Ctx<T>& cx, bool rows, int nr, int nc, T* x, T* y,
-                         bool& ok) {
-    const Params<T>& p = cx.p;
+__device__ __forceinline__ void mma(const Tiles& s, const T* A, int lda,
+                                    const T* B, int ldb, int k0, int k1,
+                                    T (&acc)[kMaxTasks][4][4]) {
+    if (s.t >= s.tasks || k0 >= k1) return;
+    const T* bp = B + 4 * s.bj;
+    if (!s.multi) {
+        // k = k0 + split * kk, kk < cnt
+        const int st = s.split;
+        const T* ap = A + 4 * s.bi0 + k0 * lda;
+        bp += k0 * ldb;
+        const int cnt = (k1 - k0 + st - 1) / st;
+#pragma unroll 4
+        for (int k = 0; k < cnt; ++k) {
+            T a[4], b[4];
+            ld4(ap + k * st * lda, a);
+            ld4(bp + k * st * ldb, b);
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+                for (int j = 0; j < 4; ++j)
+                    acc[0][i][j] = Num<T>::mad(a[i], b[j], acc[0][i][j]);
+        }
+    } else {
+        int aoff[kMaxTasks];
+#pragma unroll
+        for (int q = 0; q < kMaxTasks; ++q)
+            aoff[q] = has_block(s, q) ? 4 * bi_of(s, q) : -1;
+#pragma unroll 2
+        for (int k = k0; k < k1; ++k) {
+            T b[4];
+            ld4(bp + k * ldb, b);
+            const T* ak = A + k * lda;
+            T a[kMaxTasks][4];
+#pragma unroll
+            for (int q = 0; q < kMaxTasks; ++q)
+                if (aoff[q] >= 0) ld4(ak + aoff[q], a[q]);
+#pragma unroll
+            for (int q = 0; q < kMaxTasks; ++q) {
+                if (aoff[q] >= 0) {
+#pragma unroll
+                    for (int i = 0; i < 4; ++i)
+#pragma unroll
+                        for (int j = 0; j < 4; ++j)
+                            acc[q][i][j] = Num<T>::mad(a[q][i], b[j],
+                                                       acc[q][i][j]);
+                }
+            }
+        }
+    }
+}
+
+// C = A^T B over kd (A: (kd, m), B: (kd, n), k-major in shared memory),
+// handed in 4 x 4 blocks to epi(i0, j0, c).  Every read of A and B ends
+// before the first epilogue call, so an epilogue may overwrite the
+// operands; the block is synchronized on return.
+template <typename T, typename Epi>
+__device__ __forceinline__ void cgemm(int m, int n, int kd, const T* A,
+                                      int lda, const T* B, int ldb, Epi& epi,
+                                      int rot = 0) {
+    const Tiles s = tiles_of(m, n, kd, true, rot);
+    T acc[kMaxTasks][4][4];
+#pragma unroll
+    for (int q = 0; q < kMaxTasks; ++q)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) acc[q][i][j] = T(0);
+    mma(s, A, lda, B, ldb, s.k0, s.k1, acc);
+    // fold the k slices of a lane group, a fixed pairwise tree
+    for (int off = 1; off < s.split; off <<= 1) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+                acc[0][i][j] += __shfl_xor_sync(0xffffffffu, acc[0][i][j], off);
+    }
+    __syncthreads();
+    if (s.slice == 0 && s.t < s.tasks) {
+#pragma unroll
+        for (int q = 0; q < kMaxTasks; ++q)
+            if (has_block(s, q)) epi(4 * bi_of(s, q), 4 * s.bj, acc[q]);
+    }
+    __syncthreads();
+}
+
+// ---- epilogues ----
+// The products with a row slice of this CTA as output are computed
+// transposed, out(i, j) with i < Kp a basis column and j < r a local row,
+// so that both operands' 4-wide loads spread over few banks; the
+// epilogues store into the row-major (r, Kp) buffers.
+
+template <typename T> struct StoreT {      // R[j][i] = out(i, j)
+    T* R; int ld;
+    __device__ void operator()(int i0, int j0, T (&c)[4][4]) {
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+            T v[4] = {c[0][b], c[1][b], c[2][b], c[3][b]};
+            st4(R + (j0 + b) * ld + i0, v);
+        }
+    }
+};
+
+template <typename T> struct StoreBothT {  // Xt[i][j] and X[j][i]
+    T* X; T* Xt; int ldx, ldt;
+    __device__ void operator()(int i0, int j0, T (&c)[4][4]) {
+#pragma unroll
+        for (int a = 0; a < 4; ++a) st4(Xt + (i0 + a) * ldt + j0, c[a]);
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+            T v[4] = {c[0][b], c[1][b], c[2][b], c[3][b]};
+            st4(X + (j0 + b) * ldx + i0, v);
+        }
+    }
+};
+
+template <typename T> struct TauSumT {     // sum of V (.) out^T
+    const T* V; int ld; T part;
+    __device__ void operator()(int i0, int j0, T (&c)[4][4]) {
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+            for (int b = 0; b < 4; ++b)
+                part += V[(j0 + b) * ld + i0 + a] * c[a][b];
+    }
+};
+
+template <typename T> struct ChebT {       // W = 2 (c s - Y1) - V into Y1
+    T* Y1; const T* V; int ld; T coef;
+    __device__ void operator()(int i0, int j0, T (&c)[4][4]) {
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+            for (int b = 0; b < 4; ++b) {
+                const int at = (j0 + b) * ld + i0 + a;
+                Y1[at] = T(2) * (coef * c[a][b] - Y1[at]) - V[at];
+            }
+    }
+};
+
+// Owners of S's rows: CTA c owns the 4-row blocks c and q4 - 1 - c (of
+// q4), its `half` 0 and 1, so that every owner folds about as many blocks
+// on and above the diagonal.
+// the 4-row block of S that CTA c owns as its `half`, or -1
+__device__ __forceinline__ int owned_block(int c, int half, int q4) {
+    const int b = half ? q4 - 1 - c : c;
+    if (b < 0) return -1;
+    return (2 * b < q4) == (half == 0) ? b : -1;
+}
+
+// a CTA's partial Gram rows, pushed into the owner's slot [cr]; only the
+// blocks on and above the diagonal (S is symmetric)
+template <typename T> struct GramPush {
+    const Ctx<T>* cx; T* recv; int Kp;
+    __device__ void operator()(int i0, int j0, T (&c)[4][4]) {
+        if (i0 > j0) return;
+        const int q4 = Kp / 4, b = i0 / 4, half = 2 * b < q4 ? 0 : 1;
+        const int owner = half ? q4 - 1 - b : b;
+        T* dst = cx->remote(recv + (cx->cr * kOwnRows + 4 * half) * Kp + j0,
+                            owner);
+#pragma unroll
+        for (int a = 0; a < 4; ++a) st4(dst + a * Kp, c[a]);
+    }
+};
+
+// ---- cluster exchanges ----
+
+// Every CTA's (r, Kp) row slice x into every CTA's exchange region, as
+// the full (kCtas r, Kp) matrix; nothing to do if the region holds x
+// already (cx.staged: every writer of a staged basis or of the region
+// clears it).  The first barrier makes sure no CTA still reads its
+// exchange region from the phase before.  Destinations are staggered by
+// rank, so the CTAs do not all push into the same one at once.
+template <typename T, class D>
+__device__ __forceinline__ void allgather(Ctx<T>& cx, const T* x, int r) {
+    if (cx.staged == x) return;
+    const Layout& l = cx.l();
+    const int Kp = kp_of<D>(l);
+    cx.sync();
+    T* full = cx.at(l.A) + cx.cr * r * Kp;
+    const int n4 = r * Kp / 4;
+    for (int e = threadIdx.x; e < n4 * kCtas; e += kThreads) {
+        const int dd = e / n4, f = e - dd * n4, d = (dd + cx.cr) % kCtas;
+        T v[4];
+        ld4(x + 4 * f, v);
+        st4(cx.remote(full + 4 * f, d), v);
+    }
+    cx.sync();
+    cx.staged = x;
+}
+
+// colv[j] = sum over all CTAs' rows i < r of f(i, j), folded in rank
+// order in every CTA alike.  Each use is followed by another barrier
+// before the next one writes the slots again.
+template <typename T, class D, typename F>
+__device__ __forceinline__ void col_reduce(Ctx<T>& cx, int r, F f) {
+    const Layout& l = cx.l();
+    const int Kp = kp_of<D>(l);
+    T* col = cx.at(l.col);
+    for (int j = threadIdx.x; j < Kp; j += kThreads) {
+        T s = T(0);
+        for (int i = 0; i < r; ++i) s += f(i, j);
+        for (int dd = 0; dd < kCtas; ++dd)
+            *cx.remote(col + cx.cr * Kp + j, (dd + cx.cr) % kCtas) = s;
+    }
+    cx.sync();
+    T* colv = cx.at(l.colv);
+    for (int j = threadIdx.x; j < Kp; j += kThreads) {
+        T s = T(0);
+        for (int src = 0; src < kCtas; ++src) s += col[src * Kp + j];
+        colv[j] = s;
+    }
+    __syncthreads();
+}
+
+// The blocks of P below the diagonal blocks from those above (P is
+// symmetric), a 4 x 4 block per thread through registers; neighbouring
+// lanes take neighbouring upper blocks of one block row, so the loads run
+// along P's rows.
+template <typename T>
+__device__ __forceinline__ void mirror_lower(T* P, int ldp, int q4) {
+    for (int e = threadIdx.x; e < q4 * q4; e += kThreads) {
+        const int bj = e / q4, bi = e - bj * q4;
+        if (bi <= bj) continue;
+        T u[4][4];
+#pragma unroll
+        for (int x = 0; x < 4; ++x) ld4(P + (4 * bj + x) * ldp + 4 * bi, u[x]);
+#pragma unroll
+        for (int y = 0; y < 4; ++y) {
+            T v[4] = {u[0][y], u[1][y], u[2][y], u[3][y]};
+            st4(P + (4 * bi + y) * ldp + 4 * bj, v);
+        }
+    }
+}
+
+// Newton-Schulz on the distributed (kCtas r, Kp) matrix whose rows
+// [cr r, (cr+1) r) are X (row-major) and Xt (its transpose):
+// X <- X (1.5 I - 0.5 X^T X) until max|X^T X - diag(j < keep)| <= 64 eps
+// or max_ns steps.  In place; returns err <= tol.
+template <typename T, class D, int RC>
+__device__ bool ns(Ctx<T>& cx, T* X, T* Xt, int r_run, bool rows) {
+    const Layout& l = cx.l();
+    const Args<T>& a = cx.p.a;
     const T tol = T(64.0 * Num<T>::eps);
-    Gemm<T> gs{};   // the Gram S = X^T X (cols) or Y Y^T (rows) -> P
-    gs.m = p.K; gs.n = p.K; gs.k = rows ? nc : nr;
-    gs.C = p.P; gs.ldc = p.K; gs.epi = kNsGram; gs.keep = p.keep;
-    Gemm<T> gu{};   // the update into y
-    gu.epi = kStore;
+    const int Kp = kp_of<D>(l), ldp = Kp + 4, q4 = Kp / 4;
+    const int r = RC ? RC : r_run;
+    T* recv = cx.at(l.recv);
+    T* pfull = cx.at(l.pfull);
     int it = 0;
     T err;
+    cx.staged = nullptr;   // the exchange region holds S and P now
     for (;;) {
-        if (rows) {
-            gs.A = x; gs.lda = nc; gs.ta = false;
-            gs.B = x; gs.ldb = nc; gs.tb = true;
-        } else {
-            gs.A = x; gs.lda = nc; gs.ta = true;
-            gs.B = x; gs.ldb = nc; gs.tb = false;
-        }
-        err = cx.all_reduce(gemm(gs, cx.sm), MaxOp(), T(0));
-        if (!(err > tol) || it >= p.max_ns) break;
-        if (rows) {   // y = P x, (K, K) (K, M)
-            gu.m = nr; gu.n = nc; gu.k = nr;
-            gu.A = p.P; gu.lda = p.K; gu.ta = false;
-            gu.B = x; gu.ldb = nc; gu.tb = false;
-        } else {      // y = x P, (B, K) (K, K)
-            gu.m = nr; gu.n = nc; gu.k = nc;
-            gu.A = x; gu.lda = nc; gu.ta = false;
-            gu.B = p.P; gu.ldb = p.K; gu.tb = false;
-        }
-        gu.C = y; gu.ldc = nc;
-        gemm(gu, cx.sm);
+        GramPush<T> gp{&cx, recv, Kp};
+        cgemm(Kp, Kp, r, X, Kp, X, Kp, gp, cx.cr);
         cx.sync();
-        T* t = x; x = y; y = t;
+        // this CTA's rows of S on and above the diagonal blocks: fold the
+        // partials in rank order, the error, and P's rows to every CTA
+        T e = T(0);
+        for (int f = threadIdx.x; f < kOwnRows * q4; f += kThreads) {
+            const int lr = f / q4, jb = f - lr * q4;
+            const int b = owned_block(cx.cr, lr >> 2, q4);
+            if (b < 0 || jb < b) continue;
+            const int i = 4 * b + (lr & 3), j0 = 4 * jb;
+            T s[4] = {T(0), T(0), T(0), T(0)};
+            for (int src = 0; src < kCtas; ++src) {
+                T v[4];
+                ld4(recv + (src * kOwnRows + lr) * Kp + j0, v);
+#pragma unroll
+                for (int b = 0; b < 4; ++b) s[b] += v[b];
+            }
+            T pv[4];
+#pragma unroll
+            for (int b = 0; b < 4; ++b) {
+                const int j = j0 + b;
+                const T tgt = (i == j && j < a.keep) ? T(1) : T(0);
+                e = nmax(e, Num<T>::abs(s[b] - tgt));
+                pv[b] = (i == j ? T(1.5) : T(0)) - T(0.5) * s[b];
+            }
+            for (int dd = 0; dd < kCtas; ++dd)
+                st4(cx.remote(pfull + i * ldp + j0, (dd + cx.cr) % kCtas), pv);
+        }
+        err = cx.all_reduce(e, MaxOp(), T(0));
+        if (!(err > tol) || it >= a.max_ns) break;
+        mirror_lower(pfull, ldp, q4);
+        __syncthreads();
+        // X <- X P, computed as (X P)^T = P X^T (P symmetric)
+        StoreBothT<T> sb{X, Xt, Kp, r};
+        cgemm(Kp, r, Kp, pfull, ldp, Xt, r, sb);
         ++it;
     }
     cx.ns_total += it;
-    ok = err <= tol;
-    return x;
+    if (rows) cx.ns_rows += it;
+    return err <= tol;
 }
 
-// orth(W): column balancing, mask, Frobenius prescale, Newton-Schulz.
-// Writes into x / y (B x K); returns the buffer holding Q.
-template <typename T>
-__device__ T* orth(Ctx<T>& cx, const T* w, T* x, T* y, bool& ok) {
-    const Params<T>& p = cx.p;
+// orth(W): column balancing, mask, Frobenius prescale, Newton-Schulz,
+// into the basis buffer X (rows of this CTA) and Xt
+template <typename T, class D>
+__device__ bool orth(Ctx<T>& cx, const T* W, T* X) {
+    const Layout& l = cx.l();
+    const int Kp = kp_of<D>(l), rb = rb_of<D>(l), keep = cx.p.a.keep;
     const T tiny = T(1e-30);
-    const int B = p.B, K = p.K;
-    for (int j = blockIdx.x; j < K; j += gridDim.x) {
-        T s = T(0);
-        for (int i = threadIdx.x; i < B; i += kThreads) {
-            const T v = w[(size_t)i * K + j];
-            s += v * v;
-        }
-        const T nrm = nmax(Num<T>::sqrt(block_reduce(s, SumOp(), T(0), cx.sm)),
-                           tiny);
-        const T mj = mask_of<T>(j, p.keep);
-        T q = T(0);
-        for (int i = threadIdx.x; i < B; i += kThreads) {
-            const T v = (w[(size_t)i * K + j] / nrm) * mj;
-            x[(size_t)i * K + j] = v;
-            q += v * v;
-        }
-        q = block_reduce(q, SumOp(), T(0), cx.sm);
-        if (threadIdx.x == 0) p.colvec[j] = q;
+    T* Xt = cx.at(l.Xt);
+    if (cx.staged == X) cx.staged = nullptr;
+    col_reduce<T, D>(cx, rb, [&](int i, int j) {
+        const T v = W[i * Kp + j];
+        return v * v;
+    });
+    const T* colv = cx.at(l.colv);
+    T q = T(0);
+    for (int e = threadIdx.x; e < rb * Kp; e += kThreads) {
+        const int j = e % Kp;
+        const T nrm = nmax(Num<T>::sqrt(colv[j]), tiny);
+        const T v = (W[e] / nrm) * mask_of<T>(j, keep);
+        X[e] = v;
+        q += v * v;
     }
-    cx.sync();
-    const T alpha = Num<T>::sqrt(cx.fold(p.colvec, K, SumOp(), T(0))) + tiny;
-    for (size_t e = cx.gtid(); e < (size_t)B * K; e += cx.gstride())
-        x[e] = x[e] / alpha;
-    cx.sync();
-    return ns_iterate(cx, false, B, K, x, y, ok);
+    const T alpha = Num<T>::sqrt(cx.all_reduce(q, SumOp(), T(0))) + tiny;
+    for (int e = threadIdx.x; e < rb * Kp; e += kThreads) {
+        const int i = e / Kp, j = e - i * Kp;
+        const T v = X[e] / alpha;
+        X[e] = v;
+        Xt[j * rb + i] = v;
+    }
+    __syncthreads();
+    return ns<T, D, D::rb>(cx, X, Xt, rb, false);
 }
 
 // tau = sum(V * (G V)) without storing G V
-template <typename T>
-__device__ T tau_of(Ctx<T>& cx, const T* v) {
-    const Params<T>& p = cx.p;
-    Gemm<T> g{};
-    g.m = p.B; g.n = p.K; g.k = p.B;
-    g.A = p.G; g.lda = p.B; g.ta = false;
-    g.B = v; g.ldb = p.K; g.tb = false;
-    g.C = nullptr; g.ldc = p.K; g.epi = kTau; g.E1 = v;
-    return cx.all_reduce(gemm(g, cx.sm), SumOp(), T(0));
+template <typename T, class D>
+__device__ T tau_of(Ctx<T>& cx, const T* Vb) {
+    const Layout& l = cx.l();
+    const int Kp = kp_of<D>(l), rb = rb_of<D>(l);
+    allgather<T, D>(cx, Vb, rb);
+    TauSumT<T> ts{Vb, Kp, T(0)};
+    cgemm(Kp, rb, kCtas * rb, cx.at(l.A), Kp, cx.at(l.Gt), rb,
+          ts);
+    return cx.all_reduce(ts.part, SumOp(), T(0));
 }
 
-// C (B x K) = Gn @ src
-template <typename T>
+// dst (this CTA's rows) = Gn @ src; dst may be src
+template <typename T, class D>
 __device__ void gn_times(Ctx<T>& cx, const T* src, T* dst) {
-    const Params<T>& p = cx.p;
-    Gemm<T> g{};
-    g.m = p.B; g.n = p.K; g.k = p.B;
-    g.A = p.Gn; g.lda = p.B; g.ta = false;
-    g.B = src; g.ldb = p.K; g.tb = false;
-    g.C = dst; g.ldc = p.K; g.epi = kStore;
-    gemm(g, cx.sm);
-    cx.sync();
+    const Layout& l = cx.l();
+    const int Kp = kp_of<D>(l), rb = rb_of<D>(l);
+    allgather<T, D>(cx, src, rb);
+    StoreT<T> st{dst, Kp};
+    cgemm(Kp, rb, kCtas * rb, cx.at(l.A), Kp, cx.at(l.Gnt), rb,
+          st);
+    if (cx.staged == dst) cx.staged = nullptr;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-gemm_exact_kernel(Params<T> p) {
-    __shared__ Smem<T> sm;
-    Ctx<T> cx{cg::this_grid(), sm, p, 0, 0, 0};
-    const int B = p.B, M = p.M, K = p.K;
+template <typename T, class D>
+__global__ void __launch_bounds__(kThreads, 1)
+kernel(const __grid_constant__ Params<T> p) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    cg::cluster_group cl = cg::this_cluster();
+    Ctx<T> cx{cl, reinterpret_cast<T*>(smem_raw), p, (int)cl.block_rank(),
+              0, 0, 0, 0, nullptr};
+    const Args<T>& a = p.a;
+    const Layout& l = p.l;
+    const int B = a.B, M = a.M, K = a.K;
+    const int Kp = kp_of<D>(l), rb = rb_of<D>(l), rm = rm_of<D>(l);
+    const int Bp = kCtas * rb;
+    const int cr = cx.cr;
     const T tiny = T(1e-30);
     const T eps = T(Num<T>::eps);
     const T stag_tol = T(8.0 * Num<T>::eps);
     const T noise_floor = T(4.0 * Num<T>::eps);
     const T cap_tol = T(16.0 * Num<T>::eps);
+    T* blk = cx.at(l.blk);
+    T* Gt = cx.at(l.Gt);
+    T* Gnt = cx.at(l.Gnt);
+    T* T1 = cx.at(l.T1);
 
-    // ---- G = cur cur^T and its scalars ----
-    T gmax;
+    cx.sync();   // every CTA runs: its shared memory may be written
+
+    // ---- G[:, rows of this CTA] = cur cur[rows]^T, staged by chunks ----
+    T gm = T(0);
     {
-        Gemm<T> g{};
-        g.m = B; g.n = B; g.k = M;
-        g.A = p.cur; g.lda = M; g.ta = false;
-        g.B = p.cur; g.ldb = M; g.tb = true;
-        g.C = p.G; g.ldc = B; g.epi = kStoreMaxAbs;
-        gmax = cx.all_reduce(gemm(g, sm), MaxOp(), T(0)) + tiny;
+        T* st = cx.at(l.A);   // st[mm][k] = cur[k][m0 + mm]
+        const Tiles s = tiles_of(Bp, rb, kChunkM, false);
+        T acc[kMaxTasks][4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) acc[0][i][j] = T(0);
+        for (int m0 = 0; m0 < M; m0 += kChunkM) {
+            for (int e = threadIdx.x; e < Bp * kChunkM; e += kThreads) {
+                const int k = e / kChunkM, mm = e - k * kChunkM;
+                const int m = m0 + mm;
+                st[mm * l.ldg + k] = (k < B && m < M)
+                                         ? a.cur[(size_t)k * M + m] : T(0);
+            }
+            __syncthreads();
+            mma(s, st, l.ldg, st + cr * rb, l.ldg, 0, kChunkM, acc);
+            __syncthreads();
+        }
+        if (s.t < s.tasks) {
+            const int k0 = 4 * s.bi0, j0 = 4 * s.bj;
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+                st4(Gt + (k0 + i) * rb + j0, acc[0][i]);
+#pragma unroll
+                for (int j = 0; j < 4; ++j)
+                    gm = nmax(gm, Num<T>::abs(acc[0][i][j]));
+            }
+        }
+        __syncthreads();
     }
-    T trG = T(0), live = T(0);
+    T trG, live, gmax;
     {
         T s = T(0), c = T(0);
-        for (int i = threadIdx.x; i < B; i += kThreads) {
-            const T gii = p.G[(size_t)i * B + i];
+        for (int il = threadIdx.x; il < rb; il += kThreads) {
+            const T gii = Gt[(cr * rb + il) * rb + il];
             s += gii;
             c += gii > T(0) ? T(1) : T(0);
         }
-        trG = block_reduce(s, SumOp(), T(0), sm);
-        live = block_reduce(c, SumOp(), T(0), sm);
+        T v[3];
+        v[0] = block_reduce(gm, MaxOp(), T(0), blk);
+        v[1] = block_reduce(s, SumOp(), T(0), blk);
+        v[2] = block_reduce(c, SumOp(), T(0), blk);
+        cx.publish(v, 3);
+        cx.sync();
+        gmax = cx.fold_slots(0, MaxOp(), T(0)) + tiny;
+        trG = cx.fold_slots(1, SumOp(), T(0));
+        live = cx.fold_slots(2, SumOp(), T(0));
+        ++cx.rnd;
     }
-    const T keep_f = nmax(T(p.keep < 0 ? 0 : (p.keep < K ? p.keep : K)), T(1));
+    const T keep_f = nmax(T(a.keep), T(1));
     const T gscale = trG + tiny;
 
     // Gn = G / gscale; start basis W = (G[:, :K] + 1e-3 gmax hash) * mask
     {
         const T hscale = T(1e-3) * gmax;
-        for (size_t e = cx.gtid(); e < (size_t)B * B; e += cx.gstride()) {
-            p.Gn[e] = p.G[e] / gscale;
-            const int i = (int)(e / B), j = (int)(e % B);
-            if (j < K) {
-                // int32 hash with wrap-around, Python-style modulo
-                const uint32_t hu = (uint32_t)i * 40503u + (uint32_t)j * 9973u
-                                    + 12345u;
-                int r = (int)(int32_t)hu % 65536;
-                if (r < 0) r += 65536;
-                const T h = T(r) / T(65536.0) - T(0.5);
-                p.W[(size_t)i * K + j] = (p.G[e] + hscale * h)
-                                         * mask_of<T>(j, p.keep);
-            }
+        for (int e = threadIdx.x; e < Bp * rb; e += kThreads)
+            Gnt[e] = Gt[e] / gscale;
+        for (int e = threadIdx.x; e < rb * Kp; e += kThreads) {
+            const int il = e / Kp, j = e - il * Kp, i = cr * rb + il;
+            T w = T(0);
+            if (i < B && j < K)   // G[i][j] = G[j][i] = Gt[j][il]
+                w = (Gt[j * rb + il] + hscale * start_hash<T>(i, j))
+                    * mask_of<T>(j, a.keep);
+            T1[e] = w;
         }
-        cx.sync();
+        __syncthreads();
     }
 
-    // basis pool: V and two free buffers for orth's ping-pong
-    T* V = p.V;
-    T* F1 = p.X1;
-    T* F2 = p.X2;
-    bool ok;
-    {
-        T* q = orth(cx, p.W, F1, F2, ok);
-        T* other = q == F1 ? F2 : F1;
-        F1 = V; F2 = other; V = q;
-    }
-    T tau = tau_of(cx, V);
+    // basis pool: V and the candidate Q (orth writes into Q in place)
+    T* Vb = cx.at(l.V);
+    T* Qb = cx.at(l.Q);
+    bool ok = orth<T, D>(cx, T1, Qb);
+    { T* t = Vb; Vb = Qb; Qb = t; }
+    T tau = tau_of<T, D>(cx, Vb);
 
     // ---- outer loop: power / Chebyshev steps, certificates ----
     const T big = T(Num<T>::big);
     T I_prev = big, I_pprev = big;
     int stall = 0, it = 0;
-    while (stall < p.stall_need && it < p.max_outer) {
+    while (stall < a.stall_need && it < a.max_outer) {
         const bool power = (it % 2) == 0;
-        gn_times(cx, V, p.GV);
+        gn_times<T, D>(cx, Vb, T1);                  // GV
         if (power) {
-            gn_times(cx, p.GV, p.W);
+            gn_times<T, D>(cx, T1, T1);              // W = Gn GV
         } else {
             // column Rayleigh quotients of V (dead columns: +inf)
-            for (int j = blockIdx.x; j < K; j += gridDim.x) {
-                T s = T(0);
-                for (int i = threadIdx.x; i < B; i += kThreads) {
-                    const size_t at = (size_t)i * K + j;
-                    s += V[at] * p.GV[at];
-                }
-                s = block_reduce(s, SumOp(), T(0), sm) * gscale;
-                if (threadIdx.x == 0)
-                    p.colvec[j] = j < p.keep ? s : Num<T>::inf();
-            }
-            cx.sync();
-            const T rmin = cx.fold(p.colvec, K, MinOp(), Num<T>::inf());
+            const T* Vc = Vb;
+            col_reduce<T, D>(cx, rb, [&](int i, int j) {
+                return Vc[i * Kp + j] * T1[i * Kp + j];
+            });
+            const T* colv = cx.at(l.colv);
+            T r = Num<T>::inf();
+            for (int j = threadIdx.x; j < Kp; j += kThreads)
+                r = nmin(r, j < a.keep ? colv[j] * gscale : Num<T>::inf());
+            const T rmin = block_reduce(r, MinOp(), Num<T>::inf(), blk);
             const T resid = nmax(trG - tau, T(0));
             const T b_floor = T(0.5) * resid / nmax(live - keep_f, T(1))
                               + eps * trG + tiny;
             const T b = nmax(T(0.9) * rmin, b_floor);
             const T c = T(2) * gscale / b;
-            for (size_t e = cx.gtid(); e < (size_t)B * K; e += cx.gstride())
-                p.Y1[e] = c * p.GV[e] - V[e];
-            cx.sync();
-            Gemm<T> g{};
-            g.m = B; g.n = K; g.k = B;
-            g.A = p.Gn; g.lda = B; g.ta = false;
-            g.B = p.Y1; g.ldb = K; g.tb = false;
-            g.C = p.W; g.ldc = K; g.epi = kCheb;
-            g.E1 = p.Y1; g.E2 = V; g.c = c;
-            gemm(g, sm);
-            cx.sync();
+            for (int e = threadIdx.x; e < rb * Kp; e += kThreads)
+                T1[e] = c * T1[e] - Vb[e];     // Y1
+            __syncthreads();
+            if (cx.staged == T1) cx.staged = nullptr;
+            allgather<T, D>(cx, T1, rb);
+            ChebT<T> ch{T1, Vb, Kp, c};
+            cgemm(Kp, rb, Bp, cx.at(l.A), Kp, Gnt, rb, ch);
+            cx.staged = nullptr;
         }
-        T* q = orth(cx, p.W, F1, F2, ok);
-        T tau2 = tau_of(cx, q);
+        ok = orth<T, D>(cx, T1, Qb);
+        T tau2 = tau_of<T, D>(cx, Qb);
         const bool better = tau2 >= tau;
         if (better) {
-            T* other = q == F1 ? F2 : F1;
-            F1 = V; F2 = other; V = q;
+            T* t = Vb; Vb = Qb; Qb = t;
         } else {
             tau2 = tau;
         }
@@ -526,151 +874,199 @@ gemm_exact_kernel(Params<T> p) {
         tau = tau2;
         ++it;
     }
-    const bool converged = stall >= p.stall_need;
+    const bool converged = stall >= a.stall_need;
 
     // ---- polish: fixed power steps under the monotone safeguard ----
-    for (int s = 0; s < p.polish; ++s) {
-        gn_times(cx, V, p.GV);
-        gn_times(cx, p.GV, p.W);
-        bool ok2;
-        T* q = orth(cx, p.W, F1, F2, ok2);
-        const T tau2 = tau_of(cx, q);
+    for (int s = 0; s < a.polish; ++s) {
+        gn_times<T, D>(cx, Vb, T1);
+        gn_times<T, D>(cx, T1, T1);
+        const bool ok2 = orth<T, D>(cx, T1, Qb);
+        const T tau2 = tau_of<T, D>(cx, Qb);
         if (ok2 && tau2 >= tau * (T(1) - stag_tol)) {
-            T* other = q == F1 ? F2 : F1;
-            F1 = V; F2 = other; V = q;
+            T* t = Vb; Vb = Qb; Qb = t;
             tau = tau2;
         }
     }
 
-    // ---- vt_raw = V^T cur, row balancing, Newton-Schulz row polar ----
-    {
-        Gemm<T> g{};
-        g.m = K; g.n = M; g.k = B;
-        g.A = V; g.lda = K; g.ta = true;
-        g.B = p.cur; g.ldb = M; g.tb = false;
-        g.C = p.Yb; g.ldc = M; g.epi = kStore;
-        gemm(g, sm);
-        cx.sync();
+    // ---- vt_raw^T = cur^T V (rows m of this CTA), row balancing, polar ----
+    allgather<T, D>(cx, Vb, rb);   // V in full; phase 1's buffers are free now
+    T* Cs = cx.at(l.Cs);     // Cs[b][ml] = cur[b][cr rm + ml]
+    T* Y = cx.at(l.Y);
+    T* Yt = cx.at(l.Yt);
+    for (int e = threadIdx.x; e < Bp * rm; e += kThreads) {
+        const int b = e / rm, ml = e - b * rm, m = cr * rm + ml;
+        Cs[e] = (b < B && m < M) ? a.cur[(size_t)b * M + m] : T(0);
     }
-    for (int i = blockIdx.x; i < K; i += gridDim.x) {
-        const T* row = p.Yb + (size_t)i * M;
-        T s = T(0);
-        for (int j = threadIdx.x; j < M; j += kThreads) s += row[j] * row[j];
-        const T rn = nmax(Num<T>::sqrt(block_reduce(s, SumOp(), T(0), sm)),
-                          tiny);
-        T q = T(0);
-        for (int j = threadIdx.x; j < M; j += kThreads) {
-            const T v = row[j] / rn;
-            p.vt_bal[(size_t)i * M + j] = v;
+    __syncthreads();
+    {
+        StoreT<T> st{Y, Kp};
+        cgemm(Kp, rm, Bp, cx.at(l.A), Kp, Cs, rm, st);
+    }
+    col_reduce<T, D>(cx, rm, [&](int i, int j) {
+        const T v = Y[i * Kp + j];
+        return v * v;
+    });
+    T q = T(0);
+    {
+        const T* colv = cx.at(l.colv);
+        for (int e = threadIdx.x; e < rm * Kp; e += kThreads) {
+            const int ml = e / Kp, k = e - ml * Kp;
+            const T v = Y[e] / nmax(Num<T>::sqrt(colv[k]), tiny);
+            Y[e] = v;
+            Yt[k * rm + ml] = v;
             q += v * v;
         }
-        q = block_reduce(q, SumOp(), T(0), sm);
-        if (threadIdx.x == 0) p.colvec[i] = q;
     }
-    cx.sync();
-    const T alpha = Num<T>::sqrt(cx.fold(p.colvec, K, SumOp(), T(0))) + tiny;
-    for (size_t e = cx.gtid(); e < (size_t)K * M; e += cx.gstride())
-        p.vt0[e] = p.vt_bal[e] / alpha;
-    cx.sync();
-    bool okp;
-    const T* y = ns_iterate(cx, true, K, M, p.vt0, p.Yb, okp);
-    if (y != p.vt0) {
-        for (size_t e = cx.gtid(); e < (size_t)K * M; e += cx.gstride())
-            p.vt0[e] = y[e];
+    __syncthreads();
+    for (int e = threadIdx.x; e < K * rm; e += kThreads) {
+        const int k = e / rm, ml = e - k * rm, m = cr * rm + ml;
+        if (m < M) a.vt_bal[(size_t)k * M + m] = Yt[k * rm + ml];
     }
-    if (blockIdx.x == 0 && threadIdx.x == 0) {
-        p.flags[0] = okp ? 1 : 0;
-        p.flags[1] = converged ? 1 : 0;
-        p.flags[2] = it;
-        p.flags[3] = cx.ns_total;
-        p.flags[4] = cx.syncs;
+    const T alpha = Num<T>::sqrt(cx.all_reduce(q, SumOp(), T(0))) + tiny;
+    for (int e = threadIdx.x; e < rm * Kp; e += kThreads) {
+        const int ml = e / Kp, k = e - ml * Kp;
+        const T v = Y[e] / alpha;
+        Y[e] = v;
+        Yt[k * rm + ml] = v;
+    }
+    __syncthreads();
+    const bool okp = ns<T, D, D::rm>(cx, Y, Yt, rm, true);
+    for (int e = threadIdx.x; e < K * rm; e += kThreads) {
+        const int k = e / rm, ml = e - k * rm, m = cr * rm + ml;
+        if (m < M) a.vt0[(size_t)k * M + m] = Yt[k * rm + ml];
+    }
+    cx.sync();   // no CTA leaves while another may still write into it
+    if (cr == 0 && threadIdx.x == 0) {
+        a.flags[kOkp] = okp ? 1 : 0;
+        a.flags[kConverged] = converged ? 1 : 0;
+        a.flags[kOuter] = it;
+        a.flags[kNs] = cx.ns_total;
+        a.flags[kBarriers] = cx.syncs;
+        a.flags[kClusterCtas] = kCtas;
+        a.flags[kNsRows] = cx.ns_rows;
     }
 }
 
-// workspace layout (elements), each buffer aligned to 64 elements
-struct Layout {
-    size_t G, Gn, V, X1, X2, GV, W, Y1, P, Yb, part, colvec, total;
-};
-
-size_t up64(size_t n) { return (n + 63) / 64 * 64; }
-
-Layout layout(int B, int M, int K) {
-    Layout l;
-    size_t o = 0;
-    const size_t bb = (size_t)B * B, bk = (size_t)B * K;
-    l.G = o; o += up64(bb);
-    l.Gn = o; o += up64(bb);
-    l.V = o; o += up64(bk);
-    l.X1 = o; o += up64(bk);
-    l.X2 = o; o += up64(bk);
-    l.GV = o; o += up64(bk);
-    l.W = o; o += up64(bk);
-    l.Y1 = o; o += up64(bk);
-    l.P = o; o += up64((size_t)K * K);
-    l.Yb = o; o += up64((size_t)K * M);
-    l.part = o; o += up64(2 * (size_t)kMaxGrid);
-    l.colvec = o; o += up64((size_t)(B > K ? B : K));
-    l.total = o;
-    return l;
-}
-
-template <typename T>
-int launch(const T* cur, int B, int M, int K, int keep, int max_outer,
-           int max_ns, int polish, int stall_need, void* ws, T* vt0,
-           T* vt_bal, int* flags, void* stream) {
-    int dev = 0, sms = 0, coop = 0, per_sm = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e != cudaSuccess) return (int)e;
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return (int)e;
-    e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-    if (e != cudaSuccess) return (int)e;
-    if (!coop) return (int)cudaErrorNotSupported;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, gemm_exact_kernel<T>, kThreads, 0);
-    if (e != cudaSuccess) return (int)e;
-    if (per_sm < 1) return (int)cudaErrorLaunchOutOfResources;
-    const int grid = sms < kMaxGrid ? sms : kMaxGrid;
-
+template <typename T> bool fits(int B, int M, int K) {
     const Layout l = layout(B, M, K);
-    T* w = static_cast<T*>(ws);
+    if (!shape_ok(l)) return false;
+    int dev = 0, optin = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess) return false;
+    if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev) != cudaSuccess)
+        return false;
+    return (size_t)l.total * sizeof(T) <= (size_t)optin;
+}
+
+// Internal linkage: the function-local static of a template with external
+// linkage is one object (a GNU unique symbol) across every library loaded
+// in the process, so a second library holding this kernel would skip
+// setting its own kernel's attributes and fail to launch.
+template <typename T, class D>
+static int launch_fixed(const Args<T>& a, cudaStream_t stream) {
     Params<T> p;
-    p.cur = cur; p.B = B; p.M = M; p.K = K; p.keep = keep;
-    p.max_outer = max_outer; p.max_ns = max_ns; p.polish = polish;
-    p.stall_need = stall_need;
-    p.G = w + l.G; p.Gn = w + l.Gn; p.V = w + l.V; p.X1 = w + l.X1;
-    p.X2 = w + l.X2; p.GV = w + l.GV; p.W = w + l.W; p.Y1 = w + l.Y1;
-    p.P = w + l.P; p.Yb = w + l.Yb; p.part = w + l.part;
-    p.colvec = w + l.colvec;
-    p.vt0 = vt0; p.vt_bal = vt_bal; p.flags = flags;
-    void* args[] = {&p};
-    e = cudaLaunchCooperativeKernel((const void*)gemm_exact_kernel<T>,
-                                    dim3(grid), dim3(kThreads), args, 0,
-                                    static_cast<cudaStream_t>(stream));
+    p.a = a;
+    p.l = layout(a.B, a.M, a.K);
+    const size_t bytes = (size_t)p.l.total * sizeof(T);
+    static size_t checked = 0;   // largest size already set and checked
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(kCtas);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = bytes;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = kCtas;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    cudaError_t e;
+    if (bytes > checked) {
+        e = cudaFuncSetAttribute(kernel<T, D>,
+                                 cudaFuncAttributeNonPortableClusterSizeAllowed,
+                                 1);
+        if (e != cudaSuccess) return (int)e;
+        e = cudaFuncSetAttribute(kernel<T, D>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)bytes);
+        if (e != cudaSuccess) return (int)e;
+        int clusters = 0;
+        e = cudaOccupancyMaxActiveClusters(&clusters, kernel<T, D>, &cfg);
+        if (e != cudaSuccess) return (int)e;
+        if (clusters < 1) return kUnschedulable;
+        checked = bytes;
+    }
+    e = cudaLaunchKernelEx(&cfg, kernel<T, D>, p);
     if (e != cudaSuccess) return (int)e;
     return (int)cudaGetLastError();
 }
 
-}  // namespace
+// the rounding's bonds, (256, 256) and (256, 512) in the 128 bucket, in
+// f32 take instantiations with fixed sizes; every other shape the generic
+template <typename T>
+int launch(const Args<T>& a, cudaStream_t stream) {
+    const Layout l = layout(a.B, a.M, a.K);
+    if (std::is_same<T, float>::value && l.Kp == 128 && l.rb == 16) {
+        if (l.rm == 16) return launch_fixed<T, Fixed<128, 16, 16>>(a, stream);
+        if (l.rm == 32) return launch_fixed<T, Fixed<128, 16, 32>>(a, stream);
+    }
+    return launch_fixed<T, Generic>(a, stream);
+}
 
-// Bytes of the workspace the wrapper allocates for a (B, M) input with
-// column bucket K, elements of `elt` bytes.
+}  // namespace cluster
+
+template <typename T>
+int run(const T* cur, int B, int M, int K, int keep, int max_outer,
+        int max_ns, int polish, int stall_need, void* ws, T* vt0, T* vt_bal,
+        int* flags, void* stream) {
+    Args<T> a;
+    a.cur = cur; a.B = B; a.M = M; a.K = K;
+    a.keep = keep < 0 ? 0 : (keep < K ? keep : K);
+    a.max_outer = max_outer; a.max_ns = max_ns; a.polish = polish;
+    a.stall_need = stall_need;
+    a.vt0 = vt0; a.vt_bal = vt_bal; a.flags = flags;
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (cluster::fits<T>(B, M, K)) return cluster::launch<T>(a, s);
+    return grid::launch<T>(a, ws, s);
+}
+
+}  // namespace gemm_exact
+
+// CTAs per cluster of the route a (B, M) input with column bucket K and
+// elements of `elt` bytes takes on the current device: 16 for the cluster
+// route, 0 for the grid route.
+extern "C" int xerus_gemm_exact_route(int B, int M, int K, int elt) {
+    const bool fit = elt == 4 ? gemm_exact::cluster::fits<float>(B, M, K)
+                              : gemm_exact::cluster::fits<double>(B, M, K);
+    return fit ? gemm_exact::cluster::kCtas : 0;
+}
+
+// Bytes of device workspace the wrapper allocates: none for the cluster
+// route (its state lives in shared memory), the grid route's layout else.
 extern "C" size_t xerus_gemm_exact_workspace_bytes(int B, int M, int K,
                                                    int elt) {
-    return layout(B, M, K).total * (size_t)elt;
+    if (xerus_gemm_exact_route(B, M, K, elt)) return 0;
+    return gemm_exact::grid::layout(B, M, K).total * (size_t)elt;
+}
+
+// Error code of a launch whose cluster the card cannot schedule.
+extern "C" int xerus_gemm_exact_unschedulable() {
+    return gemm_exact::cluster::kUnschedulable;
 }
 
 // One certified truncation of the contiguous (B, M) `cur` on the current
-// device, launched on `stream`: vt0 and vt_bal are (K, M), flags int32[5].
-// Allocates nothing, does not synchronize; returns the launch's CUDA error
-// code (0 on success).
+// device, launched on `stream`: vt0 and vt_bal are (K, M), flags
+// int32[kFlags].  Allocates nothing, does not synchronize; returns the
+// launch's CUDA error code (0 on success).
 extern "C" int xerus_gemm_exact_f32(const float* cur, int B, int M, int K,
                                     int keep, int max_outer, int max_ns,
                                     int polish, int stall_need, void* ws,
                                     float* vt0, float* vt_bal, int* flags,
                                     void* stream) {
-    return launch<float>(cur, B, M, K, keep, max_outer, max_ns, polish,
-                         stall_need, ws, vt0, vt_bal, flags, stream);
+    return gemm_exact::run<float>(cur, B, M, K, keep, max_outer, max_ns,
+                                  polish, stall_need, ws, vt0, vt_bal, flags,
+                                  stream);
 }
 
 extern "C" int xerus_gemm_exact_f64(const double* cur, int B, int M, int K,
@@ -678,6 +1074,7 @@ extern "C" int xerus_gemm_exact_f64(const double* cur, int B, int M, int K,
                                     int polish, int stall_need, void* ws,
                                     double* vt0, double* vt_bal, int* flags,
                                     void* stream) {
-    return launch<double>(cur, B, M, K, keep, max_outer, max_ns, polish,
-                          stall_need, ws, vt0, vt_bal, flags, stream);
+    return gemm_exact::run<double>(cur, B, M, K, keep, max_outer, max_ns,
+                                   polish, stall_need, ws, vt0, vt_bal, flags,
+                                   stream);
 }

@@ -11,6 +11,13 @@ tensors on the CPU, and only there.  For CUDA tensors it launches the
 kernel (``gemm_exact_kernel``) or raises; nothing falls back.  The
 Householder-LQ finish and the SVD fallback stay outside the kernel, as on
 the TPU: the host decides them from the kernel's flags, one read per bond.
+
+The kernel has two routes, chosen from the shape before the launch
+(``gemm_exact_route``): one 16-CTA thread-block cluster with the whole
+state in shared memory where it fits (the rounding's (256, 256) keep-128
+bonds in f32), else the cooperative grid kernel.  ``gemm_exact_flops``
+is the operation count of one truncation from its iteration counts, for
+the kernel's flags and the plain version's counters alike.
 """
 
 from __future__ import annotations
@@ -43,7 +50,8 @@ def _ns_polar_rows(Y: torch.Tensor, max_it: int, rowmask=None,
     """Row-orthonormal polar factor of Y (k, M) by Newton-Schulz,
     Y <- (1.5 I - 0.5 Y Y^T) Y; the rowspace is preserved.  ``rowmask``
     marks live rows (dead rows are zero and stay zero).  One host read per
-    iteration.  Returns (Q, ok) with ok a 0-d bool tensor."""
+    iteration.  Returns (Q, ok) with ok a 0-d bool tensor;
+    ``_ns_polar_rows.iterations`` counts the iterations of all calls."""
     dtype = Y.dtype
     tol = torch.tensor(tol_mult * _eps(dtype), dtype=dtype, device=Y.device)
     alpha = torch.linalg.vector_norm(Y) + TINY
@@ -59,7 +67,11 @@ def _ns_polar_rows(Y: torch.Tensor, max_it: int, rowmask=None,
         S = Y @ Y.T
         err = (S - target).abs().max()
         it += 1
+    _ns_polar_rows.iterations += it
     return Y, err <= tol
+
+
+_ns_polar_rows.iterations = 0
 
 
 def _gemm_exact_body(cur: torch.Tensor, col_mask: torch.Tensor,
@@ -74,7 +86,12 @@ def _gemm_exact_body(cur: torch.Tensor, col_mask: torch.Tensor,
     Certified when the Aitken deficit bound or the improvement sits at the
     f32/f64 noise floor, or the captured energy is within 16 eps of tr(G),
     on ``stall_need`` consecutive power steps.  Loop conditions are read to
-    the host; the arithmetic mirrors the reference op for op."""
+    the host; the arithmetic mirrors the reference op for op.
+
+    Counters, as the kernel's flags count: ``_gemm_exact_body.ns_iters``
+    adds every Newton-Schulz iteration (the orthonormalizations and the
+    row polar), ``_gemm_exact_body.ns_row_iters`` those of the row polar."""
+    cols0, rows0 = _ns_orth_cols.iterations, _ns_polar_rows.iterations
     dtype = cur.dtype
     dev = cur.device
     B, _M = cur.shape
@@ -163,7 +180,34 @@ def _gemm_exact_body(cur: torch.Tensor, col_mask: torch.Tensor,
     rn = torch.sqrt(torch.sum(vt_raw * vt_raw, dim=1))
     vt_bal = vt_raw / torch.clamp_min(rn, TINY)[:, None]
     vt0, okp = _ns_polar_rows(vt_bal, max_ns, rowmask=col_mask)
+    rows = _ns_polar_rows.iterations - rows0
+    _gemm_exact_body.ns_iters += _ns_orth_cols.iterations - cols0 + rows
+    _gemm_exact_body.ns_row_iters += rows
     return vt0, vt_bal, okp, converged, it
+
+
+_gemm_exact_body.ns_iters = 0
+_gemm_exact_body.ns_row_iters = 0
+
+
+def gemm_exact_flops(B: int, M: int, K: int, outer: int, ns: int,
+                     ns_rows: int, polish: int) -> int:
+    """Floating-point operations (a multiply-add counts 2) of one certified
+    truncation of a (B, M) bond in the column bucket K, after ``outer``
+    outer steps, ``polish`` polish steps and ``ns`` Newton-Schulz
+    iterations of which ``ns_rows`` in the row polar (the kernel's flags
+    outer, ns, ns_rows; the plain version's counters).  Only the products
+    count: G = cur cur^T; per orthonormalization (1 + outer + polish) one
+    tau = tr(V^T G V) product and the first Newton-Schulz Gram; two Gn
+    products per outer or polish step; per column Newton-Schulz iteration
+    an update and a Gram; V^T cur, the row polar's first Gram and per row
+    iteration an update and a Gram."""
+    steps = 1 + outer + polish
+    return (2 * B * B * M
+            + steps * (2 * B * B * K + 2 * K * K * B)
+            + 2 * (outer + polish) * 2 * B * B * K
+            + (ns - ns_rows) * 4 * B * K * K
+            + 2 * K * B * M + 2 * K * K * M + ns_rows * 4 * K * K * M)
 
 
 def _finish_gemm_exact(vt0, vt_bal, okp: bool, col_mask):
@@ -183,9 +227,17 @@ def _finish_gemm_exact(vt0, vt_bal, okp: bool, col_mask):
 
 @lru_cache(maxsize=1)
 def _library():
-    lib = build.load_kernel_library("gemm_exact")
+    return _bind(build.load_kernel_library("gemm_exact"))
+
+
+def _bind(lib):
+    """Declare the C interface of a library built from csrc/gemm_exact.cu."""
     lib.xerus_gemm_exact_workspace_bytes.argtypes = [ctypes.c_int] * 4
     lib.xerus_gemm_exact_workspace_bytes.restype = ctypes.c_size_t
+    lib.xerus_gemm_exact_route.argtypes = [ctypes.c_int] * 4
+    lib.xerus_gemm_exact_route.restype = ctypes.c_int
+    lib.xerus_gemm_exact_unschedulable.argtypes = []
+    lib.xerus_gemm_exact_unschedulable.restype = ctypes.c_int
     for name in ("xerus_gemm_exact_f32", "xerus_gemm_exact_f64"):
         fn = getattr(lib, name)
         fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 8
@@ -194,12 +246,27 @@ def _library():
     return lib
 
 
+# flags of one launch (csrc/gemm_exact_common.cuh): okp, converged, outer
+# iterations, Newton-Schulz iterations in all, barriers (cluster or grid),
+# CTAs per cluster (0: the grid route ran), row-polar Newton-Schulz
+# iterations
+FLAGS = ("okp", "converged", "outer", "ns", "barriers", "cluster_ctas",
+         "ns_rows")
+
+
+def gemm_exact_route(B: int, M: int, keep_cap: int, dtype) -> int:
+    """CTAs per cluster of the route K2 takes on the current card for a
+    (B, M) input of ``dtype`` in the column bucket keep_cap: 16 for the
+    cluster route, 0 for the grid route.  Builds the kernel library."""
+    elt = torch.empty((), dtype=dtype).element_size()
+    return int(_library().xerus_gemm_exact_route(B, M, keep_cap, elt))
+
+
 def gemm_exact_kernel(cur: torch.Tensor, keep: int, keep_cap: int):
     """Launch K2 on a CUDA tensor ``cur`` (B, M), float32 or float64,
     contiguous, keep_cap <= B.  Returns (vt0, vt_bal, flags) on the card;
-    flags is int32 [okp, converged, outer iterations, Newton-Schulz
-    iterations, grid barriers].  ``gemm_exact_kernel.launches`` counts the
-    launches."""
+    flags is int32 in the order of ``FLAGS``.  ``gemm_exact_kernel.launches``
+    counts the launches."""
     if cur.device.type != "cuda":
         raise RuntimeError(f"gemm_exact_kernel: no kernel for device "
                            f"{cur.device}")
@@ -223,7 +290,8 @@ def gemm_exact_kernel(cur: torch.Tensor, keep: int, keep_cap: int):
     ws = torch.empty((nbytes // elt,), dtype=cur.dtype, device=cur.device)
     vt0 = torch.empty((keep_cap, M), dtype=cur.dtype, device=cur.device)
     vt_bal = torch.empty_like(vt0)
-    flags = torch.zeros((5,), dtype=torch.int32, device=cur.device)
+    flags = torch.zeros((len(FLAGS),), dtype=torch.int32,
+                        device=cur.device)
     fn = (lib.xerus_gemm_exact_f32 if cur.dtype == torch.float32
           else lib.xerus_gemm_exact_f64)
     tuning = _gemm_exact_tuning(cur.dtype)
@@ -232,6 +300,9 @@ def gemm_exact_kernel(cur: torch.Tensor, keep: int, keep_cap: int):
         rc = fn(cur.data_ptr(), B, M, keep_cap, int(keep), *tuning,
                 ws.data_ptr(), vt0.data_ptr(), vt_bal.data_ptr(),
                 flags.data_ptr(), stream)
+    if rc == lib.xerus_gemm_exact_unschedulable():
+        raise RuntimeError("gemm_exact kernel: the card cannot schedule one "
+                           "16-CTA cluster with this shared memory")
     if rc != 0:
         raise RuntimeError(f"gemm_exact kernel launch failed: cudaError {rc}")
     gemm_exact_kernel.launches += 1
@@ -249,7 +320,8 @@ def trunc_step_gemm_exact(cur: torch.Tensor, keep: int, keep_cap: int):
     K2 does.  Counters: ``calls``, ``svd_fallbacks`` (bonds that did not
     certify), ``lq_finishes`` (polar failed, Householder LQ), and the
     summed ``outer_iters``; on the card also the kernel's summed
-    ``ns_iters`` and ``grid_syncs``."""
+    ``ns_iters``, ``ns_row_iters`` and ``barriers``, and ``cluster_bonds``,
+    the bonds that took the cluster route."""
     trunc_step_gemm_exact.calls += 1
     dtype = cur.dtype
     col_mask = (torch.arange(keep_cap, device=cur.device) < keep).to(dtype)
@@ -260,9 +332,12 @@ def trunc_step_gemm_exact(cur: torch.Tensor, keep: int, keep_cap: int):
     elif cur.device.type == "cuda":
         vt0, vt_bal, flags = gemm_exact_kernel(cur.contiguous(), keep,
                                                keep_cap)
-        okp, ok, it, ns, syncs = (int(v) for v in flags.tolist())
-        trunc_step_gemm_exact.ns_iters += ns
-        trunc_step_gemm_exact.grid_syncs += syncs
+        f = dict(zip(FLAGS, (int(v) for v in flags.tolist())))
+        okp, ok, it = f["okp"], f["converged"], f["outer"]
+        trunc_step_gemm_exact.ns_iters += f["ns"]
+        trunc_step_gemm_exact.ns_row_iters += f["ns_rows"]
+        trunc_step_gemm_exact.barriers += f["barriers"]
+        trunc_step_gemm_exact.cluster_bonds += f["cluster_ctas"] > 0
     else:
         raise RuntimeError(f"trunc_step_gemm_exact: no kernel for device "
                            f"{cur.device}")
@@ -278,11 +353,17 @@ def trunc_step_gemm_exact(cur: torch.Tensor, keep: int, keep_cap: int):
 
 
 def reset_counters() -> None:
-    """Zero the launch count and the truncation counters."""
+    """Zero the launch count, the truncation counters and the plain
+    version's Newton-Schulz counters."""
     gemm_exact_kernel.launches = 0
-    for name in ("calls", "svd_fallbacks", "lq_finishes", "outer_iters",
-                 "ns_iters", "grid_syncs"):
+    for name in TRUNC_COUNTERS:
         setattr(trunc_step_gemm_exact, name, 0)
+    _gemm_exact_body.ns_iters = 0
+    _gemm_exact_body.ns_row_iters = 0
+
+
+TRUNC_COUNTERS = ("calls", "svd_fallbacks", "lq_finishes", "outer_iters",
+                  "ns_iters", "ns_row_iters", "barriers", "cluster_bonds")
 
 
 reset_counters()

@@ -180,7 +180,12 @@ def _ns_orth_cols(X: torch.Tensor, max_it: int, colmask=None,
         S = X.T @ X
         err = (S - target).abs().max()
         it += 1
+    _ns_orth_cols.iterations += it
     return X, err <= tol
+
+
+# Newton-Schulz iterations run by _ns_orth_cols, all calls
+_ns_orth_cols.iterations = 0
 
 
 def _qr_sweep_segmented(cores: Sequence[torch.Tensor], min_run: int = 3,
