@@ -82,11 +82,44 @@ K2_F64_CASE = ("generic", 40, 24, 5, 8, "float64")
 K2_GRID_CASES = [("cliff", 512, 1024, 256, 256, "float32"),
                  ("generic", 264, 200, 8, 8, "float64")]
 
-# completion: K3 against its plain version, (name, dims, ranks, M)
-K3_CASES = [("slice", [4] * 10, [4] + [8] * 7 + [4], 20_000),
-            ("ragged", [2, 5, 3, 4], [2, 4, 3], 17),
-            ("tail", [3] * 4, [2] * 3, 13), ("empty", [3] * 4, [2] * 3, 0),
-            ("rank 160", [2] * 3, [160, 160], 50)]
+# completion: K3 against its plain version, (name, dims, ranks, M, route):
+# the slice's shape with few and many measurements (one run per site, merged
+# runs), ragged ranks and modes, n = 3 and 5, M = 0, 1, one tile and one
+# either side of it, prime M, an odd d whose positions start 8 bytes off a
+# 16-byte boundary (plain loads instead of bulk copies), tables between 48
+# and 227 KB, the R = 16 and R = 32 instantiations, 24 sites, tables that
+# leave no room beside the ring for the build's scratch (no fetch under the
+# build), and the shapes that leave the shared-memory route: ranks above 32
+# (frontier in device memory) and more sites than the by-value table holds
+# (frontier in registers, at both capacities)
+K3_SLICE_RANKS = [4] + [8] * 7 + [4]
+K3_CASES = [("slice", [4] * 10, K3_SLICE_RANKS, 20_000, "tables"),
+            ("slice, merged runs", [4] * 10, K3_SLICE_RANKS, 300_007,
+             "tables"),
+            ("ragged", [2, 5, 3, 4], [2, 4, 3], 17, "tables"),
+            ("tail", [3] * 4, [2] * 3, 13, "tables"),
+            ("empty", [3] * 4, [2] * 3, 0, "tables"),
+            ("one", [3] * 4, [2] * 3, 1, "tables"),
+            ("tile - 1", [4] * 5, [3] * 4, 31, "tables"),
+            ("tile", [4] * 5, [3] * 4, 32, "tables"),
+            ("tile + 1", [4] * 5, [3] * 4, 33, "tables"),
+            ("n=3, prime M", [3] * 7, [5] * 6, 100_003, "tables"),
+            ("n=5, ragged ranks, prime M", [5] * 7, [3, 7, 8, 8, 5, 2],
+             65_537, "tables"),
+            ("odd d, 8-byte aligned positions", [4] * 5, [3] * 4, 401,
+             "tables"),
+            ("stack 82 KB", [4] * 10, [16] * 9, 20_000, "tables"),
+            ("rank 32", [4] * 6, [32] * 5, 5_000, "tables"),
+            ("long chain, scratch inside the ring", [2] * 24, [2] * 23,
+             200_000, "tables"),
+            ("12 sites", [4] * 12, [8] * 11, 300_001, "tables"),
+            ("rank 16, merged runs", [4] * 10, [16] * 9, 500_000, "tables"),
+            ("rank 160", [2] * 3, [160, 160], 50, "device"),
+            ("d past the table", [2] * 40, [2] * 39, 1_000, "device"),
+            ("d past the table, rank 12", [3] * 26, [12] * 25, 5_000,
+             "device")]
+K3_ROUTES = {"tables": "shared-memory tables",
+             "device": "device-memory cores"}
 K3_RTOL = {"float64": 1e-12, "float32": 1e-5}   # of max |plain|
 # measure the truth, test the samples, every entry of x and of the truth
 EXPECTED_K3_LAUNCHES = 4
@@ -680,7 +713,9 @@ def phase_round_breakdown(dev):
               f"{(rk.host_bool.reads - reads0) // 4} host reads per run")
 
 
-def _k3_inputs(dims, ranks, M, dtype, dev, seed):
+def _k3_inputs(dims, ranks, M, dtype, dev, seed, off_boundary=False):
+    """Cores and positions from a seed; ``off_boundary``: the positions are
+    rows 1.. of a larger array, 8 bytes off a 16-byte boundary for odd d."""
     import numpy as np
     import torch
     rng = np.random.default_rng(seed)
@@ -690,7 +725,15 @@ def _k3_inputs(dims, ranks, M, dtype, dev, seed):
     P = np.stack([rng.integers(0, n, size=M) for n in dims],
                  axis=1).reshape(M, len(dims)).astype(np.int64)
     cores = [torch.tensor(c, dtype=dtype, device=dev) for c in host]
-    return host, P, cores, torch.tensor(P, device=dev)
+    if off_boundary:
+        pos = torch.zeros((M + 1, len(dims)), dtype=torch.int64,
+                          device=dev)[1:]
+        pos.copy_(torch.tensor(P))
+        if pos.data_ptr() % 16 != 8:
+            raise AssertionError("the view is not 8 bytes off a boundary")
+    else:
+        pos = torch.tensor(P, device=dev)
+    return host, P, cores, pos
 
 
 def _host_eval(host, P):
@@ -702,24 +745,89 @@ def _host_eval(host, P):
     return F[:, 0]
 
 
+def _k3_bound(plan, dims, ranks, n_pts, dtype):
+    """K3's bound over n_pts measurements: positions and values moved once
+    and the cores read once, against the FMAs of the evaluation the launch
+    plan runs: the core elements one measurement multiplies, and every
+    block's table build.  Returns (FMAs per entry, (bound_ms, bound_by))."""
+    size = 8 if dtype == "float64" else 4
+    rs = [1] + list(ranks) + [1]
+    d = len(dims)
+    build = plan.blocks * sum(st.rows * st.rl_k * st.core_row
+                              for st in plan.steps)
+    core_bytes = sum(rs[k] * dims[k] * rs[k + 1] for k in range(d)) * size
+    return plan.loads_per_entry, _bound(
+        n_pts * d * 8 + n_pts * size + core_bytes,
+        2 * (plan.loads_per_entry * n_pts + build), dtype)
+
+
+def _k3_bad_index(dev):
+    """An index outside its site's own mode size, in the last, partial tile:
+    NaN there and nowhere else, counted exactly, and the wrapper raises;
+    input the wrapper rejects before a launch changes no launch count."""
+    import torch
+    from xerus_tpu_torch.ops import tt_eval as te
+    dims, ranks, M = [2, 5, 3, 4], [2, 4, 3], 32 * 3 + 5
+    for dtype in (torch.float64, torch.float32):
+        _h, _P, cores, pos = _k3_inputs(dims, ranks, M, dtype, dev, SEED)
+        good = te.tt_eval_at_points(cores, pos)
+        bad_pos = pos.clone()
+        bad_pos[M - 2, 0] = 2      # inside the largest mode, outside site 0's
+        bad_pos[M - 4, 2] = -1
+        bad_pos[M - 1, 1] = 5
+        bad_pos[M - 1, 3] = 4      # two in one measurement count once
+        out, bad = te._launch(cores, bad_pos)
+        rows = torch.tensor([M - 4, M - 2, M - 1], device=dev)
+        keep = torch.ones(M, dtype=torch.bool, device=dev)
+        keep[rows] = False
+        launches0 = te.tt_eval_at_points.launches
+        raised = False
+        try:
+            te.tt_eval_at_points(cores, bad_pos)
+        except ValueError as exc:
+            raised = "3 of" in str(exc)
+        launched = te.tt_eval_at_points.launches - launches0
+        rejected = 0
+        for args in ((cores, pos.int()), ([c.half() for c in cores], pos)):
+            try:
+                te.tt_eval_at_points(*args)
+            except TypeError:
+                rejected += 1
+        quiet = te.tt_eval_at_points.launches - launches0 - launched
+        print(f"K3 tt_eval bad indices in the last partial tile {dtype}: "
+              f"count {int(bad.sum().item())} (3 expected), NaN at them "
+              f"{bool(torch.isnan(out[rows]).all())}, others equal "
+              f"{torch.equal(out[keep], good[keep])}, wrapper raised "
+              f"{raised} after {launched} launch, {rejected} rejected inputs "
+              f"launched {quiet} times")
+        if not (int(bad.sum().item()) == 3 and torch.isnan(out[rows]).all()
+                and torch.equal(out[keep], good[keep]) and raised
+                and launched == 1 and rejected == 2 and quiet == 0):
+            raise AssertionError("K3 mishandles out-of-range indices")
+
+
 def phase_k3(dev):
     """K3 against its plain version and a float64 numpy contraction on the
-    card, f64 and f32, at the completion slice's shape and the edge cases;
-    one launch per call; times over all 4^10 entries at the slice's
-    shape."""
+    card, f64 and f32, at the completion slice's shape and the edge cases:
+    one launch per call, a bitwise-equal repeat, the route the plan chose;
+    out-of-range indices; times over all 4^10 entries at the slice's shape
+    in f64 and f32 beside their bounds; where a call's time goes at the
+    three sizes the paths use."""
     import numpy as np
     import torch
-    from xerus_tpu_torch.examples import full_grid_positions
+    from xerus_tpu_torch.examples import full_grid_positions, k3_split
     from xerus_tpu_torch.ops import tt_eval as te
     max_abs = 0.0
-    for name, dims, ranks, M in K3_CASES:
+    for name, dims, ranks, M, route in K3_CASES:
         for dtype in (torch.float64, torch.float32):
             host, P, cores, pos = _k3_inputs(dims, ranks, M, dtype, dev,
-                                             SEED + M)
+                                             SEED + M, "8-byte" in name)
             launches0 = te.tt_eval_at_points.launches
             kern = te.tt_eval_at_points(cores, pos)
             torch.cuda.synchronize()
             launched = te.tt_eval_at_points.launches - launches0
+            took = te.tt_eval_at_points.route
+            same = torch.equal(kern, te.tt_eval_at_points(cores, pos))
             plain = te.tt_eval_at_points_reference(cores, pos)
             exact = _host_eval(host, P)
             k64 = kern.double().cpu().numpy()
@@ -731,32 +839,51 @@ def phase_k3(dev):
             print(f"K3 tt_eval {name} d={len(dims)} n={max(dims)} "
                   f"r={max(ranks)} M={M} {dtype}: max |kernel - plain| "
                   f"{diff:.3e}, max |kernel - f64| {err:.3e}, max |f64| "
-                  f"{scale:.3e} (bar {bar:g} relative), launches {launched}")
-            if not (kern.shape == (M,) and launched == 1
+                  f"{scale:.3e} (bar {bar:g} relative), launches {launched}, "
+                  f"repeat bitwise equal: {same}; {took}")
+            if not (kern.shape == (M,) and launched == 1 and same
                     and diff <= bar * scale and err <= bar * scale):
-                raise AssertionError(f"K3 {name} {dtype}: kernel disagrees "
-                                     "or did not launch once")
+                raise AssertionError(f"K3 {name} {dtype}: kernel disagrees, "
+                                     "did not launch once or does not repeat")
+            plain_loads = "8-byte" in name and "plain loads" not in took
+            if not took.startswith(K3_ROUTES[route]) or plain_loads:
+                raise AssertionError(f"K3 {name} {dtype}: took '{took}', "
+                                     f"expected {K3_ROUTES[route]}")
+    _k3_bad_index(dev)
     dims, ranks = K3_CASES[0][1], K3_CASES[0][2]
-    _h, _P, cores, _pos = _k3_inputs(dims, ranks, 1, torch.float64, dev, SEED)
     grid = torch.from_numpy(full_grid_positions(dims)).to(dev)
-    timing = {"ms": _time_ms(lambda: te._launch(cores, grid), reps=20),
-              "plain_ms": _time_ms(
-                  lambda: te.tt_eval_at_points_reference(cores, grid),
-                  reps=20),
-              "library_ms": None}   # no PyTorch call evaluates a TT at points
-    n_pts, d = grid.shape
-    rs = [1] + list(ranks) + [1]
-    fmas = sum(rs[k] * rs[k + 1] for k in range(d))   # per entry
-    core_bytes = sum(c.numel() for c in cores) * 8
-    timing["bound_ms"], timing["bound_by"] = _bound(
-        n_pts * d * 8 + n_pts * 8 + core_bytes, 2 * fmas * n_pts, "float64")
-    print(f"K3 tt_eval time over all {grid.shape[0]} entries (d=10, n=4, "
-          f"r=8, f64): kernel {timing['ms']:.4f} ms (padding the cores "
-          f"included), plain {timing['plain_ms']:.4f} ms (CUDA events, "
-          f"median of 20 queued calls after 5 warm-up calls); bound "
-          f"{timing['bound_ms']:.4f} ms by {timing['bound_by']} ({fmas} FMAs "
-          f"per entry at FP64), {timing['bound_ms'] / timing['ms']:.1%} of "
-          f"it reached")
+    n_pts = grid.shape[0]
+    timing = {}
+    for dtype in (torch.float64, torch.float32):
+        name = str(dtype).split(".")[1]
+        _h, _P, cores, _pos = _k3_inputs(dims, ranks, 1, dtype, dev, SEED)
+        ms = _time_ms(lambda: te._launch(cores, grid), reps=20)
+        plain_ms = _time_ms(
+            lambda: te.tt_eval_at_points_reference(cores, grid), reps=20)
+        # the timed launch's output against the plain version's
+        kern, _bad = te._launch(cores, grid)
+        plain = te.tt_eval_at_points_reference(cores, grid)
+        diff = float((kern - plain).abs().max())
+        scale = float(plain.abs().max())
+        max_abs = max(max_abs, diff)
+        fmas, (bound_ms, bound_by) = _k3_bound(
+            te.plan_launch(cores, grid).plan, dims, ranks, n_pts, name)
+        print(f"K3 tt_eval time over all {n_pts} entries (d=10, n=4, r=8, "
+              f"{name}): kernel {ms:.4f} ms (the core hand-over included), "
+              f"plain {plain_ms:.4f} ms (CUDA events, median of 20 queued "
+              f"calls after 5 warm-up calls); max |kernel - plain| "
+              f"{diff:.3e} of max |plain| {scale:.3e}; bound {bound_ms:.4f} "
+              f"ms by {bound_by} (the plan's {fmas} FMAs per entry and its "
+              f"table builds counted), {bound_ms / ms:.1%} of it reached; "
+              f"{te.tt_eval_at_points.route}")
+        if diff > K3_RTOL[name] * scale:
+            raise AssertionError(f"K3 grid {name}: kernel disagrees with "
+                                 "its plain version")
+        if dtype == torch.float64:
+            # no PyTorch call evaluates a TT at points
+            timing = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                      "bound_ms": bound_ms, "bound_by": bound_by}
+    k3_split.print_split(dev)
     return max_abs, timing
 
 

@@ -169,11 +169,25 @@ def test_gemm_exact_kernel_rejects_bad_input(cuda):
 
 
 # K3: chip_smoke.py's phase_k3 shapes (dims, ranks, M): the completion
-# slice's (d=10, n=4, r=8, M=20,000), the ragged case of
-# tests/test_pallas_kernels.py, a short tail, no measurement, rank 160
-K3_SHAPES = [([4] * 10, [4] + [8] * 7 + [4], 20000),
+# slice's (d=10, n=4, r=8) with few and many measurements, the ragged case
+# of tests/test_pallas_kernels.py, a short tail, no measurement, one, a tile
+# and one either side, n = 3 and 5 with prime M, tables past 48 KB (r=16),
+# the r=32 instantiation, a 24-site chain, 12 sites whose tables leave the
+# build's scratch no room beside the ring, r=16 with merged runs, and the
+# device-memory route's shapes: rank 160 and more sites than the by-value
+# table holds (ranks 2 and 12: both register capacities)
+K3_SLICE_RANKS = [4] + [8] * 7 + [4]
+K3_SHAPES = [([4] * 10, K3_SLICE_RANKS, 20000),
+             ([4] * 10, K3_SLICE_RANKS, 300007),
              ([2, 5, 3, 4], [2, 4, 3], 17), ([3] * 4, [2] * 3, 13),
-             ([3] * 4, [2] * 3, 0), ([2] * 3, [160, 160], 50)]
+             ([3] * 4, [2] * 3, 0), ([3] * 4, [2] * 3, 1),
+             ([4] * 5, [3] * 4, 31), ([4] * 5, [3] * 4, 32),
+             ([4] * 5, [3] * 4, 33), ([3] * 7, [5] * 6, 100003),
+             ([5] * 7, [3, 7, 8, 8, 5, 2], 65537),
+             ([4] * 10, [16] * 9, 20000), ([4] * 6, [32] * 5, 5000),
+             ([2] * 24, [2] * 23, 200000), ([4] * 12, [8] * 11, 300001),
+             ([4] * 10, [16] * 9, 500000), ([2] * 3, [160, 160], 50),
+             ([2] * 40, [2] * 39, 1000), ([3] * 26, [12] * 25, 5000)]
 
 
 def _k3_case(dims, ranks, M, dtype, device, seed=3):
@@ -193,23 +207,62 @@ def _k3_case(dims, ranks, M, dtype, device, seed=3):
 @pytest.mark.parametrize("dims,ranks,M", K3_SHAPES)
 def test_tt_eval_kernel_matches_plain(cuda, dims, ranks, M, dtype, rtol):
     """K3 against its plain version on the card, one launch per call, in
-    the cores' dtype: max |kernel - plain| <= rtol * max |plain|."""
+    the cores' dtype: max |kernel - plain| <= rtol * max |plain|; a second
+    launch gives the same bits; the launch took the route the plan names."""
     cores, pos = _k3_case(dims, ranks, M, dtype, cuda)
     launches0 = te.tt_eval_at_points.launches
     kern = te.tt_eval_at_points(cores, pos)
     torch.cuda.synchronize()
     assert te.tt_eval_at_points.launches == launches0 + 1
+    plan = te.plan_launch(cores, pos).plan
+    assert te.tt_eval_at_points.route == plan.describe()
+    device_route = max(ranks) > 32 or len(dims) > te.MAX_SITES
+    assert plan.route == (te.ROUTE_GENERIC if device_route else te.ROUTE_SMEM)
     plain = te.tt_eval_at_points_reference(cores, pos)
     assert kern.shape == (M,) and kern.dtype == dtype
+    assert torch.equal(kern, te.tt_eval_at_points(cores, pos))
     if M:
         scale = float(plain.abs().max())
         assert float((kern - plain).abs().max()) <= rtol * scale
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-12),
+                                        (torch.float32, 1e-5)])
+def test_tt_eval_kernel_takes_positions_off_a_16_byte_boundary(cuda, dtype,
+                                                               rtol):
+    """Odd d and a positions view that starts 8 bytes off a 16-byte
+    boundary: the bulk copies cannot take it, the warps' plain loads do."""
+    cores, pos = _k3_case([4] * 5, [3] * 4, 402, dtype, cuda)
+    view = pos[1:]
+    assert view.is_contiguous() and view.data_ptr() % 16 == 8
+    kern = te.tt_eval_at_points(cores, view)
+    assert "plain loads" in te.tt_eval_at_points.route
+    plain = te.tt_eval_at_points_reference(cores, view)
+    assert float((kern - plain).abs().max()) <= rtol * float(plain.abs().max())
+    assert torch.equal(kern, te.tt_eval_at_points(cores, pos)[1:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("runs", [((0, 5), (6, 9)), ((0, 4), (5, 9)),
+                                  ((0, 1), (2, 3), (4, 5), (6, 7), (8, 9)),
+                                  tuple((k, k) for k in range(10))])
+def test_tt_eval_kernel_gives_the_plain_values_under_any_grouping(cuda, runs):
+    """The values do not depend on how the plan groups the sites (beyond
+    rounding)."""
+    cores, pos = _k3_case([3] * 10, [4] + [6] * 7 + [4], 50001,
+                          torch.float64, cuda)
+    plain = te.tt_eval_at_points_reference(cores, pos)
+    scale = float(plain.abs().max())
+    out, bad = te.launch_plan(te.plan_launch(cores, pos, groups=runs))
+    assert int(bad.sum().item()) == 0
+    assert float((out - plain).abs().max()) <= 1e-12 * scale
+
+
+@pytest.mark.cuda
 def test_tt_eval_kernel_takes_cores_of_any_layout(cuda):
-    """The wrapper copies the cores into one padded stack, so transposed
-    views (a QR's column-major Q) evaluate like contiguous cores."""
+    """The kernel reads each core through its strides, so transposed views
+    (a QR's column-major Q) evaluate like contiguous cores, bit for bit."""
     cores, pos = _k3_case([3] * 4, [2] * 3, 13, torch.float64, cuda)
     views = [c.transpose(0, 2).contiguous().transpose(0, 2) for c in cores]
     assert not views[1].is_contiguous()
@@ -234,6 +287,9 @@ def test_tt_eval_kernel_rejects_bad_input(cuda):
     with pytest.raises(ValueError, match="on cpu"):
         te.tt_eval_at_points([cores[0], cores[1].cpu()] + cores[2:], pos)
     assert te.tt_eval_at_points.launches == launches0
+    with pytest.raises(ValueError, match="rows"):
+        te.tt_eval_at_points([cores[0], cores[1][:1]] + cores[2:], pos)
+    assert te.tt_eval_at_points.launches == launches0
     bad = pos.clone()
     bad[5, 2] = 3
     with pytest.raises(ValueError, match="outside the mode sizes"):
@@ -241,3 +297,42 @@ def test_tt_eval_kernel_rejects_bad_input(cuda):
     bad[5, 2] = -1
     with pytest.raises(ValueError, match="outside the mode sizes"):
         te.tt_eval_at_points(cores, bad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_tt_eval_kernel_counts_bad_indices_in_the_last_partial_tile(cuda,
+                                                                    dtype):
+    """Indices outside their own site's mode size (a ragged TT: inside the
+    largest mode, outside this site's) in the last, partial tile: NaN at
+    those measurements only, counted once each, and the wrapper raises."""
+    M = 32 * 3 + 5
+    cores, pos = _k3_case([2, 5, 3, 4], [2, 4, 3], M, dtype, cuda)
+    good = te.tt_eval_at_points(cores, pos)
+    bad = pos.clone()
+    bad[M - 2, 0] = 2
+    bad[M - 4, 2] = -1
+    bad[M - 1, 1] = 5
+    bad[M - 1, 3] = 4
+    out, count = te._launch(cores, bad)
+    rows = torch.tensor([M - 4, M - 2, M - 1], device=cuda)
+    keep = torch.ones(M, dtype=torch.bool, device=cuda)
+    keep[rows] = False
+    assert int(count.sum().item()) == 3
+    assert torch.isnan(out[rows]).all()
+    assert torch.equal(out[keep], good[keep])
+    with pytest.raises(ValueError, match="3 of 101 positions"):
+        te.tt_eval_at_points(cores, bad)
+
+
+@pytest.mark.cuda
+def test_tt_eval_kernel_takes_an_empty_mode(cuda):
+    """A site with no entries stages nothing: no measurement gives an empty
+    result, and any index there is out of range."""
+    cores = [torch.zeros((1, 0, 1), dtype=torch.float64, device=cuda)]
+    none = torch.zeros((0, 1), dtype=torch.int64, device=cuda)
+    assert te.tt_eval_at_points(cores, none).shape == (0,)
+    five = torch.zeros((5, 1), dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError, match="5 of 5 positions"):
+        te.tt_eval_at_points(cores, five)
+    torch.cuda.synchronize()
