@@ -19,7 +19,13 @@ full width:
 - tensor completion: the d=10, n=4, rank-8 instance from 20,000 samples
   (measure, rank-adaptive ADF solve, test, every entry of the recovered TT
   and of the truth), benchmark workload 5 on the card and on the CPU, and
-  IHT; kernel K3 (tt_eval).
+  IHT; kernel K3 (tt_eval);
+- the object layer in float64 through its public names (no hand kernel:
+  torch.matmul and torch.linalg): SVD, QR/RQ/QC/CQ, the Cholesky, LU and
+  least-squares solves of ``x(i) << b(j) / A(j, i)``, a contraction and a
+  planned chain, sparse x dense on the device, file round trips and the
+  gesdd fixture, each object call timed beside the bare torch call, then
+  rerun under ``host()`` and held against the card's results.
 
 It checks the host-f64 residual of the solve, the f32-vs-f64 log-norm
 of every rounding and the completion's residuals against the JAX
@@ -46,6 +52,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -1028,9 +1035,343 @@ def phase_iht(dev):
         raise AssertionError("card and CPU disagree on IHT")
 
 
+# the object layer (misc/, core/, indexing/) through its public names, in
+# float64: each case against host numpy/scipy, then rerun under host() on
+# the CPU; the SPD and non-symmetric systems have the size of slice 1's
+# interior local systems
+OBJ_SVD_DIMS = [32, 32, 32, 32]          # split 2 | 2: 1024 x 1024, 8 MB
+OBJ_TALL_DIMS = [2048, 512]
+OBJ_N = 1800
+OBJ_LSQ = (2048, 1024, 512)              # rows, columns, rank
+OBJ_CON = (1024, 32, 8)                  # i = j, k = l, m
+OBJ_SPARSE = (4096, 0.005, 1024)         # [n, n] at this fill x [n, cols]
+OBJ_REL = 1e-12                          # reconstructions, spectra, products
+OBJ_SOLVE_REL = 1e-10                    # solve residuals, least squares
+OBJ_REPS = 5
+
+
+def _rel(a, b) -> float:
+    import numpy as np
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def _solve_route(perf):
+    """The last solve route a solve entered, from the performance counters."""
+    sections = perf._CALLS.get("Dense LAPACK", {})
+    taken = [route for section, route in (("Solve (Cholesky)", "cholesky"),
+                                          ("Solve (PLU)", "lu"),
+                                          ("Solve Least Squares",
+                                           "least squares"))
+             if section in sections]
+    return taken[-1] if taken else None
+
+
+def _objects_cases(xt, timer):
+    """Every case of the objects phase on the current compute device.
+    Checks the bars that need no second device and returns the gauge-free
+    results (reconstructions, spectra, ranks, solutions, products) for the
+    card-vs-CPU comparison.  ``timer(name, object_fn, bare_fn)`` times
+    both calls (on the card only)."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+    from xerus_tpu_torch.core import factorizations as fact
+    from xerus_tpu_torch.indexing import evaluate as ev
+    from xerus_tpu_torch.misc import performance as perf
+    out = {}
+
+    def check(name, value, bar):
+        print(f"objects: {name} {value:.3e} (bar {bar:g})")
+        if not value <= bar:
+            raise AssertionError(f"objects: {name} {value:.3e} above {bar:g}")
+
+    def np_rank(s):
+        return max(int(np.sum(s >= 16 * np.finfo(np.float64).eps * s[0])), 1)
+
+    def orth(q):
+        """max |Q^T Q - I| of a matrix with orthonormal columns."""
+        eye = torch.eye(q.shape[1], dtype=q.dtype, device=q.device)
+        return float((q.T @ q - eye).abs().max())
+
+    xt.set_seed(SEED)
+    A = xt.Tensor.random(OBJ_SVD_DIMS)
+    rows_a = OBJ_SVD_DIMS[0] * OBJ_SVD_DIMS[1]
+    sq = f"{rows_a}x{A.size // rows_a}"
+    a_np = A.to_ndarray().reshape(rows_a, -1)
+    i, j, k, l, m, r1, r2 = xt.indices(7)
+
+    # SVD through the DSL
+    U, S, Vt, rec = (xt.Tensor() for _ in range(4))
+
+    def svd():
+        (U(i, j, r1), S(r1, r2), Vt(r2, k, l)) << xt.SVD(A(i, j, k, l))
+
+    svd()
+    rec(i, j, k, l) << U(i, j, r1) * S(r1, r2) * Vt(r2, k, l)
+    s = np.diag(S.to_ndarray())
+    s_np = np.linalg.svd(a_np, compute_uv=False)
+    check(f"SVD {sq} reconstruction", _rel(rec.to_ndarray(),
+                                           A.to_ndarray()), OBJ_REL)
+    check("SVD singular values vs numpy, max |ds| / s0",
+          float(np.abs(s - s_np).max() / s_np[0]), OBJ_REL)
+    out["svd rec"], out["svd s"] = rec.to_ndarray(), s
+    US = xt.contract(U, S, 1)             # dense x the SVD's sparse S
+    if xt.config.device.type == "cuda" and not (torch.is_tensor(US._dense)
+                                                and US._dense.is_cuda):
+        raise AssertionError("objects: U * S left the card")
+    a_dev = A.to_torch().reshape(rows_a, -1)
+    timer(f"SVD {sq} (DSL)", svd, lambda: fact._svd(a_dev))
+
+    # QR, RQ, QC, CQ on A, on a tall matricization and on a rank-512 matrix
+    xt.set_seed(SEED + 1)
+    tall = xt.Tensor.random(OBJ_TALL_DIMS)
+    g = np.random.Generator(np.random.PCG64(SEED + 2))
+    rows, cols, rank = OBJ_LSQ
+    low = g.normal(size=(rows, rank)) @ g.normal(size=(rank, cols))
+    deficient = xt.Tensor.from_ndarray(low)
+    tall_name = "x".join(map(str, OBJ_TALL_DIMS))
+    for tname, t, split in ((sq, A, 2), (tall_name, tall, 1),
+                            (f"{rows}x{cols} rank {rank}", deficient, 1)):
+        s_ref = np.linalg.svd(t.to_ndarray().reshape(
+            int(np.prod(t.dimensions[:split])), -1), compute_uv=False)
+        for kind in ("QR", "RQ", "QC", "CQ"):
+            if kind in ("QR", "RQ") and "rank" in tname:
+                continue
+            L, R = xt.Tensor(), xt.Tensor()
+            f = getattr(xt, kind)
+            lhs = (i, j)[:split]
+            rhs = (k, l)[:t.degree() - split]
+
+            def run(L=L, R=R, f=f, t=t, lhs=lhs, rhs=rhs):
+                (L(*lhs, r1), R(r1, *rhs)) << f(t(*lhs, *rhs))
+
+            run()
+            r = L.dimensions[-1]
+            got = xt.contract(L, R, 1).to_ndarray()
+            check(f"{kind} {tname} reconstruction",
+                  _rel(got, t.to_ndarray()), OBJ_REL)
+            q = (L.to_torch().reshape(-1, r) if kind in ("QR", "QC")
+                 else R.to_torch().reshape(r, -1).T)
+            check(f"{kind} {tname} orthogonality max |Q^T Q - I|", orth(q),
+                  OBJ_REL)
+            if kind in ("QC", "CQ"):
+                print(f"objects: {kind} {tname} rank {r}, host numpy's rank "
+                      f"by the same rule {np_rank(s_ref)}")
+                if r != np_rank(s_ref):
+                    raise AssertionError(f"objects: {kind} {tname} rank {r}")
+            out[f"{kind} {tname}"] = got
+            out[f"{kind} {tname} rank"] = r
+            if tname == tall_name:
+                mat = t.to_torch().reshape(OBJ_TALL_DIMS)
+                bare = {"QR": lambda: torch.linalg.qr(mat),
+                        "RQ": lambda: torch.linalg.qr(
+                            torch.flip(mat, [0]).T),
+                        "QC": lambda: fact._svd(mat),
+                        "CQ": lambda: fact._svd(mat.T)}[kind]
+                timer(f"{kind} {tname} (DSL)", run, bare)
+
+    # x(i) << b(j) / A(j, i): SPD (Cholesky), non-symmetric (LU),
+    # rank-deficient rectangular (minimum-norm least squares)
+    g = np.random.Generator(np.random.PCG64(SEED + 3))
+    G = g.normal(size=(OBJ_N, OBJ_N))
+    systems = {"SPD": G @ G.T / OBJ_N + np.eye(OBJ_N),
+               "non-symmetric": G / np.sqrt(OBJ_N) + 2 * np.eye(OBJ_N),
+               "rank-deficient": low}
+    for name, mat in systems.items():
+        M = xt.Tensor.from_ndarray(mat)
+        b = xt.Tensor.from_ndarray(g.normal(size=mat.shape[0]))
+        x = xt.Tensor()
+
+        def solve(M=M, b=b, x=x):
+            x(i) << b(j) / M(j, i)
+
+        perf.enable(True)
+        perf.clear_analysis()
+        try:
+            solve()
+            route = _solve_route(perf)
+        finally:
+            perf.enable(False)
+            perf.clear_analysis()
+        xv, bv = x.to_ndarray(), b.to_ndarray()
+        if name == "rank-deficient":
+            ref = np.linalg.lstsq(mat, bv, rcond=None)[0]
+            check(f"solve {name} {mat.shape[0]}x{mat.shape[1]} (route "
+                  f"{route}) vs numpy's minimum-norm solution",
+                  _rel(xv, ref), OBJ_SOLVE_REL)
+        else:
+            check(f"solve {name} {OBJ_N}x{OBJ_N} (route {route}) residual",
+                  _rel(mat @ xv, bv), OBJ_SOLVE_REL)
+        want = {"SPD": "cholesky", "non-symmetric": "lu",
+                "rank-deficient": "least squares"}[name]
+        if route != want:
+            raise AssertionError(f"objects: solve {name} took {route}")
+        out[f"solve {name}"] = xv
+        m_dev, b_dev = M.to_torch(), b.to_torch()[:, None]
+        bare = {"SPD": lambda: torch.cholesky_solve(
+                    b_dev, torch.linalg.cholesky(m_dev)),
+                "non-symmetric": lambda: torch.linalg.solve(m_dev, b_dev),
+                "rank-deficient": lambda: fact._svd(m_dev)}[name]
+        timer(f"solve {name} ({route})", solve, bare)
+
+    # contraction and a planned chain
+    n_i, n_k, n_m = OBJ_CON
+    xt.set_seed(SEED + 4)
+    B = xt.Tensor.random([n_i, n_k, n_k])
+    D = xt.Tensor.random([n_k, n_i, n_k])
+    F = xt.Tensor.random([n_i, n_m])
+    C, E = xt.Tensor(), xt.Tensor()
+
+    def con():
+        C(i, j) << B(i, k, l) * D(k, j, l)
+
+    def chain():
+        E(i, m) << B(i, k, l) * D(k, j, l) * F(j, m)
+
+    con()
+    chain()
+    bn, dn, fn = B.to_ndarray(), D.to_ndarray(), F.to_ndarray()
+    check("contraction C(i,j) << B(i,k,l) * D(k,j,l) vs np.einsum",
+          _rel(C.to_ndarray(), np.einsum("ikl,kjl->ij", bn, dn,
+                                         optimize=True)), OBJ_REL)
+    check("chain E(i,m) << B(i,k,l) * D(k,j,l) * F(j,m) vs np.einsum",
+          _rel(E.to_ndarray(), np.einsum("ikl,kjl,jm->im", bn, dn, fn,
+                                         optimize=True)), OBJ_REL)
+    labels = ((0, 1, 2), (1, 3, 2), (3, 4))
+    shapes = (tuple(B.dimensions), tuple(D.dimensions), tuple(F.dimensions))
+    plan = ev.contraction_plan(labels, (0, 4), shapes)
+    print(f"objects: chain plan {plan}: "
+          f"{ev.plan_flops(labels, shapes, plan):,} FLOPs planned, "
+          f"{ev.plan_flops(labels, shapes, ev.left_to_right_plan(3)):,} "
+          f"left to right")
+    out["contraction"], out["chain"] = C.to_ndarray(), E.to_ndarray()
+    b_dev, d_dev, f_dev = B.to_torch(), D.to_torch(), F.to_torch()
+    timer(f"contraction {n_i}x{n_k * n_k}x{n_i} (DSL)", con,
+          lambda: torch.tensordot(b_dev, d_dev, dims=([1, 2], [0, 2])))
+    timer("chain (DSL, planned) vs torch.einsum (left to right)", chain,
+          lambda: torch.einsum("ikl,kjl,jm->im", b_dev, d_dev, f_dev))
+
+    # sparse x dense past DEVICE_SPARSE_THRESHOLD
+    n_s, fill, n_c = OBJ_SPARSE
+    xt.set_seed(SEED + 5)
+    Sp = xt.Tensor.random([n_s, n_s], n=int(fill * n_s * n_s))
+    Dd = xt.Tensor.random([n_s, n_c])
+    P = xt.Tensor()
+
+    def sparse():
+        P(i, j) << Sp(i, k) * Dd(k, j)
+
+    sparse()
+    pos, val = Sp.sparse_coo()
+    csr = sp.csr_matrix((val, (pos // n_s, pos % n_s)), shape=(n_s, n_s))
+    check(f"sparse [{n_s}, {n_s}] ({len(val)} entries) x dense "
+          f"[{n_s}, {n_c}] vs scipy", _rel(P.to_ndarray(),
+                                           csr @ Dd.to_ndarray()), OBJ_REL)
+    if not (Sp.is_sparse() and P.is_dense()):
+        raise AssertionError("objects: sparse x dense must give dense")
+    out["sparse"] = P.to_ndarray()
+    if P._dense.device.type != xt.config.device.type:
+        raise AssertionError("objects: the sparse product left the device")
+    with warnings.catch_warnings():       # torch's beta notes on sparse
+        warnings.simplefilter("ignore")
+        coo = torch.sparse_coo_tensor(
+            torch.from_numpy(np.stack([pos // n_s, pos % n_s])),
+            torch.from_numpy(val), (n_s, n_s)).to(Dd.to_torch().device)
+        csr_dev, d_dev = coo.to_sparse_csr(), Dd.to_torch()
+    timer("sparse x dense (DSL, index_add_) vs torch sparse CSR @ dense",
+          sparse, lambda: csr_dev @ d_dev)
+    if d_dev.device.type == "cuda":       # where the object call's time goes
+        from xerus_tpu_torch.ops.sparse_kernels import sparse_times_dense
+        coo_ms = _wall_ms(Sp.sparse_coo, OBJ_REPS)
+        dev_ms = _wall_ms(lambda: sparse_times_dense(pos, val, (n_s, n_s),
+                                                     d_dev), OBJ_REPS)
+        print(f"objects: sparse x dense split: the {{position: value}} dict "
+              f"to sorted COO on the host {coo_ms:.3f} ms, COO upload + "
+              f"gather + index_add_ {dev_ms:.3f} ms (median of {OBJ_REPS})")
+
+    # the captured matrix on which gesdd returned nan
+    fx = np.load(os.path.join(HERE, "tests", "data",
+                              "gesdd_failure_96x96.npy"))
+    T = xt.Tensor.from_ndarray(fx)
+    U2, S2, V2 = xt.calculate_svd(T, 1)
+    Cq, Qq = xt.calculate_cq(T, 1)
+    s2 = np.diag(S2.to_ndarray())
+    if not np.isfinite(s2).all():
+        raise AssertionError("objects: gesdd fixture spectrum not finite")
+    check("gesdd fixture 96x96 SVD reconstruction",
+          _rel(xt.contract(xt.contract(U2, S2, 1), V2, 1).to_ndarray(), fx),
+          OBJ_REL)
+    check("gesdd fixture 96x96 CQ reconstruction",
+          _rel(xt.contract(Cq, Qq, 1).to_ndarray(), fx), OBJ_REL)
+    out["gesdd s"], out["gesdd cq rank"] = s2, Cq.dimensions[-1]
+    fx_dev = T.to_torch()
+    timer("gesdd fixture 96x96 SVD", lambda: xt.calculate_svd(T, 1),
+          lambda: fact._svd(fx_dev))
+    out["factors"] = (U, S, Vt)
+    return out
+
+
+def phase_objects(dev, smi):
+    """The object layer on the card at the widths the port's paths reach,
+    in float64: SVD, QR/RQ/QC/CQ, the three solve routes, a contraction
+    and a planned chain, sparse x dense on the device, files, the gesdd
+    fixture; each object call timed beside the bare torch call, then every
+    case rerun under host() and held against the card's results."""
+    import tempfile
+    import numpy as np
+    import xerus_tpu_torch as xt
+    t0 = time.perf_counter()
+
+    def timer(name, obj, bare):
+        t_obj, t_bare = _wall_ms(obj, OBJ_REPS), _wall_ms(bare, OBJ_REPS)
+        print(f"objects time: {name}: object call {t_obj:.3f} ms, bare "
+              f"torch call {t_bare:.3f} ms (median of {OBJ_REPS}, "
+              f"synchronized; {smi})")
+
+    if xt.config.device.type != "cuda" or xt.config.device != dev:
+        raise AssertionError("objects: the object layer's default device is "
+                             "not the card")
+    card = _objects_cases(xt, timer)
+    U, S, Vt = card.pop("factors")
+    build = os.path.join(HERE, "xerus_tpu_torch", "_build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        for fmt in ("BINARY", "TSV"):
+            for name, t in (("U", U), ("S", S), ("Vt", Vt)):
+                path = os.path.join(tmp, f"{name}.{fmt}")
+                t1 = time.perf_counter()
+                xt.save_to_file(t, path, getattr(xt.FileFormat, fmt))
+                back = xt.load_from_file(path)
+                secs = time.perf_counter() - t1
+                same = (back.dimensions == t.dimensions
+                        and back.representation == t.representation
+                        and np.array_equal(back.to_ndarray(), t.to_ndarray()))
+                print(f"objects: save/load {fmt} {name} {t.dimensions} "
+                      f"{t.representation.name}: bitwise {same}, "
+                      f"{os.path.getsize(path):,} bytes, {secs:.3f} s")
+                if not same:
+                    raise AssertionError(f"objects: {fmt} round trip of "
+                                         f"{name} not bitwise")
+    card_secs = time.perf_counter() - t0
+    with xt.host():
+        cpu = _objects_cases(xt, lambda *args: None)
+    cpu.pop("factors")
+    worst = 0.0
+    for key, value in card.items():
+        if isinstance(value, np.ndarray):
+            worst = max(worst, _rel(value, cpu[key]))
+        elif value != cpu[key]:
+            raise AssertionError(f"objects: card and CPU differ on {key}")
+    print(f"objects: card vs CPU (host()) over {len(card)} results: worst "
+          f"relative difference {worst:.3e} (bar {OBJ_REL:g}); card part "
+          f"{card_secs:.1f} s, whole phase {time.perf_counter() - t0:.1f} s")
+    if not worst <= OBJ_REL:
+        raise AssertionError("objects: card and CPU disagree")
+
+
 def main():
     sys.path.insert(0, HERE)
-    phase_environment()
+    smi = phase_environment()
     import torch
     import xerus_tpu_torch
     dev = xerus_tpu_torch.cuda_device()
@@ -1045,6 +1386,7 @@ def main():
     k2_launches = phase_round_slice(dev)
     k3_launches = phase_completion_slice(dev)
     phase_iht(dev)
+    phase_objects(dev, smi)
     phase_breakdown(dev)
     phase_round_breakdown(dev)
     def entry(name, source, replaces, launches, max_abs, timing):

@@ -1,0 +1,180 @@
+"""The object layer on the card held against the same calls under host().
+
+Imports no jax, so the file also runs on a machine without it:
+
+    python -m pytest --noconftest -p no:cacheprovider tests/test_torch_objects_cuda.py
+
+Without a card every case skips.  Results are compared gauge-free
+(reconstructions, spectra, solutions, products) at 1e-12 relative in
+float64; index_add_ sums in no fixed order on the card, so the sparse
+product is compared to rounding, not bitwise."""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import xerus_tpu_torch as xt
+from xerus_tpu_torch.core import factorizations as fact
+from xerus_tpu_torch.misc import performance as perf
+
+FIXTURE = os.path.join(os.path.dirname(__file__), "data",
+                       "gesdd_failure_96x96.npy")
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _rel(a, b):
+    return np.linalg.norm(a - b) / np.linalg.norm(b)
+
+
+def _both(case):
+    """The case on the card (the default device), then under host()."""
+    xt.set_seed(0xBAADF00D)
+    card = case()
+    xt.set_seed(0xBAADF00D)
+    with xt.host():
+        cpu = case()
+    return card, cpu
+
+
+@pytest.mark.cuda
+def test_computations_run_on_the_card(cuda):
+    A = xt.Tensor.random([8, 8])
+    assert A.to_torch().device.type == "cuda"
+    i, j, k = xt.indices(3)
+    C = xt.Tensor()
+    C(i, k) << A(i, j) * A(j, k)
+    assert C._dense.device.type == "cuda"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,split", [([16, 8, 12], 1), ([64, 40], 1),
+                                         ([40, 64], 1)])
+def test_svd_qr_family_match_host(cuda, shape, split):
+    def case():
+        t = xt.Tensor.random(shape)
+        U, S, Vt = xt.calculate_svd(t, split)
+        out = {"s": np.diag(S.to_ndarray()),
+               "svd": xt.contract(xt.contract(U, S, 1), Vt, 1).to_ndarray()}
+        for kind in ("qr", "rq", "qc", "cq"):
+            L, R = getattr(xt, f"calculate_{kind}")(t, split)
+            out[kind] = xt.contract(L, R, 1).to_ndarray()
+            out[kind + " rank"] = L.dimensions[-1]
+        return out
+    card, cpu = _both(case)
+    for key, value in card.items():
+        if isinstance(value, np.ndarray):
+            assert _rel(value, cpu[key]) <= 1e-12, key
+        else:
+            assert value == cpu[key], key
+
+
+@pytest.mark.cuda
+def test_gesdd_fixture_on_the_card(cuda):
+    m = np.load(FIXTURE)
+    T = xt.Tensor.from_ndarray(m)
+    U, S, Vt = xt.calculate_svd(T, 1)
+    C, Q = xt.calculate_cq(T, 1)
+    assert np.isfinite(np.diag(S.to_ndarray())).all()
+    assert _rel(xt.contract(xt.contract(U, S, 1), Vt, 1).to_ndarray(),
+                m) <= 1e-12
+    assert _rel(xt.contract(C, Q, 1).to_ndarray(), m) <= 1e-12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,route", [("spd", "cholesky"),
+                                        ("indefinite", "lu"),
+                                        ("general", "lu"),
+                                        ("singular", "least squares"),
+                                        ("wide", "least squares")])
+def test_solve_routes_match_host(cuda, kind, route):
+    rng = np.random.default_rng(3)
+    g = rng.normal(size=(30, 30))
+    a = {"spd": g @ g.T + 30 * np.eye(30), "indefinite": g + g.T,
+         "general": g, "singular": np.diag([1.0] + [0.0] * 29),
+         "wide": g[:12]}[kind]
+    b = rng.normal(size=a.shape[0])
+
+    def case():
+        perf.enable(True)
+        perf.clear_analysis()
+        try:
+            x = fact.solve(xt.Tensor.from_ndarray(a),
+                           xt.Tensor.from_ndarray(b))
+            taken = [r for section, r in (("Solve (Cholesky)", "cholesky"),
+                                          ("Solve (PLU)", "lu"),
+                                          ("Solve Least Squares",
+                                           "least squares"))
+                     if section in perf._CALLS.get("Dense LAPACK", {})]
+        finally:
+            perf.enable(False)
+            perf.clear_analysis()
+        return x.to_ndarray(), taken[-1]
+    (xc, rc), (xh, rh) = _both(case)
+    assert rc == rh == route
+    assert _rel(xc, xh) <= 1e-12
+
+
+@pytest.mark.cuda
+def test_sparse_times_dense_on_the_card(cuda):
+    def case():
+        S = xt.Tensor.random([2048, 2048], n=20_000)
+        D = xt.Tensor.random([2048, 2048])
+        P = xt.Tensor()
+        i, j, k = xt.indices(3)
+        P(i, j) << S(i, k) * D(k, j)
+        assert P.is_dense()
+        return P.to_ndarray(), P._dense.device.type
+    (pc, dc), (ph, dh) = _both(case)
+    assert (dc, dh) == ("cuda", "cpu")
+    assert _rel(pc, ph) <= 1e-12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("what", ["U*S", "dense x sparse^T",
+                                  "sparse^T x dense", "pseudo_inverse"])
+def test_small_sparse_products_stay_on_the_card(cuda, what):
+    """Below DEVICE_SPARSE_THRESHOLD a product with a sparse operand (the
+    SVD's S among them) still runs on the card, and agrees with host()
+    (gauge-free: U * S is taken on to the reconstruction)."""
+    def case():
+        t = xt.Tensor.random([12, 9])
+        sp = xt.Tensor.random([9, 9], n=20)
+        if what == "U*S":
+            U, S, Vt = xt.calculate_svd(t, 1)
+            out = xt.contract(U, S, 1)
+            return (xt.contract(out, Vt, 1).to_ndarray(),
+                    torch.is_tensor(out._dense) and out._dense.is_cuda)
+        out = {"dense x sparse^T": lambda: xt.contract(t, sp, 1,
+                                                       rhs_trans=True),
+               "sparse^T x dense": lambda: xt.contract(sp, t, 1,
+                                                       lhs_trans=True,
+                                                       rhs_trans=True),
+               "pseudo_inverse": lambda: xt.pseudo_inverse(t, 1)}[what]()
+        return (out.to_ndarray(),
+                torch.is_tensor(out._dense) and out._dense.is_cuda)
+    (pc, card), (ph, host) = _both(case)
+    assert card and not host
+    assert _rel(pc, ph) <= 1e-12
+
+
+@pytest.mark.cuda
+def test_svd_retry_stays_on_the_card(cuda, monkeypatch):
+    """A nan spectrum from gesvd is retried with cuSOLVER's gesvdj on the
+    card, never on the host."""
+    def nan_spectrum(a):
+        u, s, vt = torch.linalg.svd(a, full_matrices=False, driver="gesvd")
+        return u, torch.full_like(s, float("nan")), vt
+
+    monkeypatch.setattr(fact, "_svd", nan_spectrum)
+    a = torch.from_numpy(np.random.default_rng(5).normal(size=(40, 24)))
+    u, s, vt = fact._svd_robust(a.to(cuda))
+    assert u.device.type == s.device.type == vt.device.type == "cuda"
+    assert _rel(((u * s) @ vt).cpu().numpy(), a.numpy()) <= 1e-12

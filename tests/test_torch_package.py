@@ -1,17 +1,22 @@
 """The port package itself: it imports without jax, pins full-precision
-matmuls, never hands out the CPU as the card, and its chip check refuses
+matmuls, never hands out the CPU as the card (object computations run on
+the card unless the caller enters ``host()``), and its chip check refuses
 to run without one."""
 
+import importlib
 import os
 import shutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
 import xerus_tpu_torch
-from xerus_tpu_torch import config
+# the package's ``config`` attribute is the settings object, as in
+# xerus_tpu; the module is reached through the import system
+config = importlib.import_module("xerus_tpu_torch.config")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -107,6 +112,104 @@ def test_completion_imports_without_jax():
     proc = _run(["-c", code])
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+def test_every_module_imports_without_jax():
+    """With jax and xerus_tpu made unimportable, every module of the port
+    imports, and the object layer's quick start runs under host()."""
+    code = (
+        "import sys; sys.modules['jax'] = None; "
+        "sys.modules['xerus_tpu'] = None\n"
+        "import importlib, pkgutil, xerus_tpu_torch as xt\n"
+        "mods = [m.name for m in pkgutil.walk_packages(xt.__path__, "
+        "'xerus_tpu_torch.')]\n"
+        "for name in mods: importlib.import_module(name)\n"
+        "for name in ('misc', 'core', 'indexing'):\n"
+        "    assert any(m.startswith('xerus_tpu_torch.' + name + '.') "
+        "for m in mods), name\n"
+        "with xt.host():\n"
+        "    A = xt.Tensor.random([8, 8]); b = xt.Tensor.random([8])\n"
+        "    i, j, r1, r2 = xt.indices(4)\n"
+        "    U, S, Vt, x, rec = (xt.Tensor() for _ in range(5))\n"
+        "    (U(i, r1), S(r1, r2), Vt(r2, j)) << xt.SVD(A(i, j))\n"
+        "    x(i) << b(j) / A(j, i)\n"
+        "    rec(i, j) << U(i, r1) * S(r1, r2) * Vt(r2, j)\n"
+        "    assert (rec(i, j) - A(i, j)).frob_norm() < 1e-12 * "
+        "A.frob_norm()\n"
+        "assert not any(m == 'jax' or m.startswith('jax.') or "
+        "m == 'xerus_tpu' or m.startswith('xerus_tpu.') for m in "
+        "sys.modules if sys.modules[m] is not None)\n"
+        "print(len(mods))\n")
+    proc = _run(["-c", code])
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.strip()) >= 40
+
+
+def test_no_port_file_names_jax():
+    """No module of the port, and not chip_smoke.py, imports jax or the
+    JAX package."""
+    root = os.path.dirname(xerus_tpu_torch.__file__)
+    files = [os.path.join(REPO, "chip_smoke.py")] + [
+        os.path.join(d, f) for d, _, fs in os.walk(root) for f in fs
+        if f.endswith(".py")]
+    for path in files:
+        with open(path) as fh:
+            for line in fh:
+                words = line.split()
+                if words[:1] in (["import"], ["from"]) and len(words) > 1:
+                    mod = words[1].split(".")[0].rstrip(",")
+                    assert mod not in ("jax", "jaxlib", "xerus_tpu"), \
+                        (path, line)
+
+
+def test_object_layer_defaults():
+    assert xerus_tpu_torch.config.device == torch.device("cuda")
+    assert xerus_tpu_torch.value_dtype() == np.float64
+    assert xerus_tpu_torch.config.value_dtype == np.float64
+
+
+def test_object_computation_needs_the_card_outside_host(monkeypatch):
+    """Without a card an object computation raises, and never falls back
+    to the CPU; inside host() it runs there."""
+    xt = xerus_tpu_torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    A = xt.Tensor.random([4, 4])         # building on the host is fine
+    i, j, k = xt.indices(3)
+    for compute in (A.frob_norm, lambda: A + A,
+                    lambda: xt.calculate_svd(A, 1),
+                    lambda: xt.contract(A, A, 1),
+                    lambda: xt.contract(xt.Tensor.random([4, 4], n=3), A, 1),
+                    lambda: xt.Tensor()(i, k) << A(i, j) * A(j, k)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            compute()
+    with xt.host():
+        assert xt.config.device == torch.device("cpu")
+        assert A.frob_norm() > 0
+        C = xt.Tensor()
+        C(i, k) << A(i, j) * A(j, k)
+        assert C.to_torch().device.type == "cpu"
+    assert xt.config.device == torch.device("cuda")
+    with pytest.raises(RuntimeError):
+        A.frob_norm()
+
+
+@pytest.mark.parametrize("case", ["sparse x dense", "dense x sparse^T",
+                                  "sparse x sparse", "pseudo_inverse"])
+def test_sparse_computation_needs_the_card_outside_host(monkeypatch, case):
+    """A contraction with a sparse operand raises without a card too,
+    below DEVICE_SPARSE_THRESHOLD as above it; under host() it runs."""
+    xt = xerus_tpu_torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    S, D = xt.Tensor.random([4, 4], n=5), xt.Tensor.random([4, 4])
+    compute = {"sparse x dense": lambda: xt.contract(S, D, 1),
+               "dense x sparse^T": lambda: xt.contract(D, S, 1,
+                                                       rhs_trans=True),
+               "sparse x sparse": lambda: xt.contract(S, S, 1),
+               "pseudo_inverse": lambda: xt.pseudo_inverse(S, 1)}[case]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        compute()
+    with xt.host():
+        assert compute().dimensions == [4, 4]
 
 
 def test_precision_guard_is_applied():

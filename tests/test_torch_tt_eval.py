@@ -347,3 +347,26 @@ def test_check_refuses_cores_whose_ranks_do_not_chain():
         te._check([tc[0], tc[1][:1], tc[2]], torch.from_numpy(P))
     with pytest.raises(ValueError, match="contiguous"):
         te._check(tc, torch.from_numpy(P).T.contiguous().T)
+
+
+@pytest.mark.parametrize("bad", ["negative index", "index equal to n",
+                                 "bond rank mismatch"])
+def test_cpu_route_rejects_bad_input_like_the_card(bad):
+    """The CPU route checks its input as the card's does and raises
+    ValueError: a negative index does not wrap, an index equal to its mode
+    size does not surface as IndexError, mismatched bond ranks do not
+    surface as an einsum error."""
+    cores, P = _instance([3, 4, 5], [2, 3], 6, 1)
+    cores = [torch.from_numpy(c) for c in cores]
+    P = torch.from_numpy(P)
+    if bad == "negative index":
+        P[2, 1] = -1
+    elif bad == "index equal to n":
+        P[4, 2] = 5
+    else:
+        cores[1] = torch.zeros((2, 4, 4), dtype=torch.float64)
+    calls = te.tt_eval_at_points.calls
+    with pytest.raises(ValueError):
+        te.tt_eval_at_points(cores, P)
+    assert te.tt_eval_at_points.calls == calls + 1
+    assert te.tt_eval_at_points.launches == 0

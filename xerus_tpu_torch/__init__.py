@@ -8,9 +8,34 @@ one-pass double-word matvec (``ops.df_matvec``, ``csrc/df_matvec.cu``);
 deterministic and randomized TT rounding at core level
 (``ops.round_kernels.tt_round_sweep_segmented``, ``_round_randomized``)
 with its hand kernel K2, the certified GEMM-only truncation
-(``ops.gemm_exact``, ``csrc/gemm_exact.cu``).
+(``ops.gemm_exact``, ``csrc/gemm_exact.cu``); tensor completion at core
+level (``algorithms``) with its hand kernel K3 (``ops.tt_eval``,
+``csrc/tt_eval.cu``); and the object layer below the tensor network:
+``misc``, the dense + sparse ``Tensor`` with contraction, factorizations
+and solves (``core``), and the indexed-expression frontend
+(``indexing``), under the JAX package's top-level names.  Object
+computations run on the card unless the caller enters ``host()``.
 """
 
-from . import config
-from .config import cuda_device, require
+from .config import (config, EPSILON, set_value_dtype, value_dtype, host,
+                     cuda_device, require)
+
+from .core import (Tensor, Representation, Initialisation, reshuffle,
+                   approx_equal, approx_entrywise_equal,
+                   contract, calculate_svd, calculate_qr, calculate_rq,
+                   calculate_qc, calculate_cq, pseudo_inverse, solve,
+                   solve_least_squares, entrywise_product)
+from .indexing import Index, indices, SVD, QR, RQ, QC, CQ
+from .indexing import Factorisation as TensorFactorisation
+from .misc import (FileFormat, save_to_file, load_from_file, LogHistogram,
+                   set_seed, log, xethrow)
+from .core import serialization as _serialization  # registers Tensor I/O
 from . import convert, examples, ops
+
+
+def frob_norm(x) -> float:
+    return x.frob_norm()
+
+
+def one_norm(x) -> float:
+    return x.one_norm()

@@ -1,17 +1,18 @@
-"""Carrying TT cores between numpy and the port's tensors.
+"""Carrying TT cores and Tensors between numpy and the port's tensors.
 
 Instances are built on the host with numpy (``examples/poisson.py``) and
-the tests hand the JAX package's results to the port as numpy arrays;
-these helpers are the only crossings.
+the tests hand the JAX package's results to the port as numpy arrays or
+plain fields; these helpers are the only crossings.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from .core.tensor import Representation, Tensor
 from .ops.df32 import DF, df_from_f64, df_to_f64
 
 
@@ -34,3 +35,26 @@ def cores_to_df(np_cores_f64: Sequence[np.ndarray], device
 def df_to_numpy(df_cores: Sequence[DF]) -> List[np.ndarray]:
     """(hi, lo) pairs -> host f64 cores hi + lo."""
     return [df_to_f64(h, l) for (h, l) in df_cores]
+
+
+def tensor_from_state(dimensions: Sequence[int], factor: float,
+                      dense: Optional[np.ndarray] = None,
+                      sparse: Optional[Dict[int, float]] = None,
+                      device=None) -> Tensor:
+    """The port's Tensor from a JAX-package tensor's plain fields: its
+    dimension list, its ``factor`` and either its dense data (factor not
+    applied) or its ``{position: value}`` dict.  Dense data is copied,
+    onto ``device`` when one is given, else kept on the host until a
+    computation moves it to the compute device."""
+    if (dense is None) == (sparse is None):
+        raise ValueError("tensor_from_state: give either dense or sparse")
+    if sparse is not None:
+        t = Tensor(dimensions, Representation.Sparse)
+        t._sparse = {int(p): float(v) for p, v in sparse.items()}
+    else:
+        t = Tensor(dimensions, Representation.Dense,
+                   data=np.array(dense, copy=True))
+        if device is not None:
+            t._dense = torch.tensor(t._dense, device=device)
+    t.factor = float(factor)
+    return t

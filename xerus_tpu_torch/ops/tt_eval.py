@@ -702,17 +702,22 @@ def tt_eval_at_points(cores: Sequence[torch.Tensor],
     ``tt_eval_at_points.calls`` counts every call;
     ``tt_eval_at_points.launches`` counts the kernel launches, and only
     those; ``tt_eval_at_points.route`` describes the last launch's plan.
-    On the card an index outside its site's mode size raises ValueError
-    after the launch (one read of the blocks' counts, under 1 KB, to the
-    host)."""
+    An index outside its site's mode size raises ValueError on both
+    routes: on the card after the launch (one read of the blocks' counts,
+    under 1 KB, to the host), on the CPU before the plain version runs."""
     tt_eval_at_points.calls += 1
+    _check(cores, positions)
     device = cores[0].device
     if device.type == "cpu":
+        dims = torch.tensor([c.shape[1] for c in cores])
+        if positions.numel() and bool(((positions < 0)
+                                       | (positions >= dims)).any()):
+            raise ValueError("tt_eval_at_points: positions lie outside the "
+                             "mode sizes")
         return tt_eval_at_points_reference(cores, positions)
     if device.type != "cuda":
         raise RuntimeError(f"tt_eval_at_points: no kernel for device "
                            f"{device}")
-    _check(cores, positions)
     out, bad = _launch(cores, positions)
     n_bad = int(bad.cpu().sum())
     if n_bad:
