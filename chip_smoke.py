@@ -25,7 +25,17 @@ full width:
   least-squares solves of ``x(i) << b(j) / A(j, i)``, a contraction and a
   planned chain, sparse x dense on the device, file round trips and the
   gesdd fixture, each object call timed beside the bare torch call, then
-  rerun under ``host()`` and held against the card's results.
+  rerun under ``host()`` and held against the card's results;
+- the tensor network and the TT classes in float64 through the public
+  names: the rounding instance as a ``TTTensor`` rounded by
+  ``round_fast(128, "gemm_exact")`` (K2, counted), ``round_fast(128,
+  "svd")`` and the object ``round(128)``; the Poisson residual of the
+  solve's solution as ``frob_norm(A(i/2, j/2) * x(j&0) - b(i&0))`` in TT
+  form; inner products as the TT sweep, through the DSL's planned order
+  and as a lazy network on the native path optimizer's order; the TT-SVD
+  round trip of the completion truth; a BINARY file round trip; K2's
+  float64 bonds beside their bound and float64 gesvd; then the same at
+  d=12 on the card and under ``host()``, held against each other.
 
 It checks the host-f64 residual of the solve, the f32-vs-f64 log-norm
 of every rounding and the completion's residuals against the JAX
@@ -139,12 +149,13 @@ JAX_D10_RESIDUAL = 0.6785049587588636
 JAX_D10_GRID_ERR = 2.597094923462056
 IHT_ITERATIONS = 5
 
-# NVIDIA's H100 SXM data sheet: HBM rate, FP32 and FP64 rates without
-# tensor cores; a kernel's bound is the larger of its bytes (each input
-# read once, each output written once) over the first and its operations
-# over the rate of its type
+# NVIDIA's H100 SXM data sheet: HBM rate, the FP32 rate without tensor
+# cores (their TF32 is inexact) and the FP64 rate of the tensor cores
+# (DMMA, exact IEEE float64); a kernel's bound is the larger of its bytes
+# (each input read once, each output written once) over the first and its
+# operations over the rate of its type
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+PEAK_FLOPS = {"float32": 67e12, "float64": 67e12}
 # K1's FP32 operations per matrix element: df_mul (3 multiplies, 1 FMA
 # counted 2, 2 adds, fast_two_sum's 3) and df_add (two_sum's 6, 2 adds,
 # fast_two_sum's 3), csrc/df_matvec.cu
@@ -312,7 +323,7 @@ def phase_slice(dev):
     if launches != EXPECTED_K1_LAUNCHES:
         raise AssertionError(f"K1 launched {launches} times in the solve, "
                              f"expected {EXPECTED_K1_LAUNCHES}")
-    return launches
+    return launches, sol, res
 
 
 def phase_breakdown(dev):
@@ -403,6 +414,14 @@ def _k2_run(cur, keep, cap, kernel):
                     ns=ge._gemm_exact_body.ns_iters - ns0,
                     ns_rows=ge._gemm_exact_body.ns_row_iters - rows0)
     return ge._finish_gemm_exact(vt0, vt_bal, info["okp"], mask), info
+
+
+def _proj_dist(vt, ref):
+    """||vt^T vt - ref^T ref||_F / ||ref^T ref||_F in float64: the distance
+    of two kept row spaces, whatever their bases."""
+    a, b = vt.double(), ref.double()
+    P = b.T @ b
+    return float(((a.T @ a - P).norm() / P.norm()).item())
 
 
 def _trunc_err(cur, vt):
@@ -570,11 +589,13 @@ def phase_round_slice(dev):
              "randomized": rk.randomized_round_flops(shapes, ROUND_TARGET,
                                                      OVERSAMPLE)}
     k2_launches = 0
+    refs = {}
     for inst, cs in (("random", host), ("cliff", cliff_instance(host))):
         t0 = time.perf_counter()
         ref = host_tt_log_norm(cpu_round_sweep(cs, ROUND_TARGET))
         print(f"round {inst}: f64 LAPACK chain log-norm {ref:.9f} "
               f"({time.perf_counter() - t0:.2f} s on the host)")
+        refs[inst] = ref
         cores = list(cores_to_torch(cs, dev))
         lnorm, walls = {}, {}
         methods = ("gemm_exact", "svd") + (("randomized",)
@@ -604,6 +625,8 @@ def phase_round_slice(dev):
                                      f"{ROUND_TARGET}")
             lnorm[method] = host_tt_log_norm(h)
             rel = abs(lnorm[method] - ref) / abs(ref)
+            if (inst, method) == ("random", "gemm_exact"):
+                ge_f32 = rel
             fl = flops["randomized" if method == "randomized" else "det"]
             print(f"round {inst} {method} d={ROUND_D} rank {ROUND_RANK}->"
                   f"{ROUND_TARGET}: wall {wall:.4f} s / {wall2:.4f} s (two "
@@ -645,13 +668,14 @@ def phase_round_slice(dev):
             if not above <= RAND_VS_SVD_BAR:
                 raise AssertionError("randomized rounding log-norm above "
                                      "the svd chain's")
-    return k2_launches
+    return k2_launches, refs["random"], ge_f32
 
 
-def _k2_bond_times(cores):
+def _k2_bond_times(cores, inputs=None):
     """K2's device time in one gemm_exact rounding: CUDA events around each
     call of the wrapper (its output allocation and flag fill included,
-    a few us), with each bond's shape, column bucket and flags."""
+    a few us), with each bond's shape, column bucket and flags.  A list
+    ``inputs`` receives each launch's (cur, keep, keep_cap, outputs)."""
     import torch
     from xerus_tpu_torch.ops import gemm_exact as ge
     kernel = ge.gemm_exact_kernel
@@ -662,6 +686,8 @@ def _k2_bond_times(cores):
         start.record()
         out = kernel(cur, keep, cap)
         end.record()
+        if inputs is not None:
+            inputs.append((cur.clone(), keep, cap, out))
         bonds.append((tuple(cur.shape), cap, start, end, out[2]))
         return out
 
@@ -1369,6 +1395,404 @@ def phase_objects(dev, smi):
         raise AssertionError("objects: card and CPU disagree")
 
 
+# the tensor network and TT classes (phase_tt_objects): the full-width
+# instances of the first three slices through the public names, in
+# float64, and the same at d=12 on the card and under host()
+TT_SMALL = (12, 32, 16)                  # d, rank, target of the rerun
+TT_LOGNORM_BAR = 1e-10     # svd round_fast and round() vs the host f64 chain
+# gemm_exact vs svd log-norm: tighter than JAX's contract of 1e-8
+# (tt/ttnetwork.py:746-748), between the float64 reading and the float32
+# rounding's, which the phase requires this bar to refuse
+TT_GE_BAR = 1e-10
+# K2 against its plain version on each float64 bond of the rounding, set
+# between the float64 readings and those of K2 run in float32 on the same
+# bonds, which the phase requires these bars to refuse:
+# ||P_kernel - P_plain||_F / ||P_plain||_F of the kept projectors
+# P = vt^T vt (no gap at rank 128: the kept space turns by up to 4.5e-7
+# where the two stop a few outer steps apart; float32 1.4e-3 and more),
+# and the relative difference of the truncation errors
+# ||cur - cur P||^2 / ||cur||^2 (float64 3e-14 at most, float32 1e-6 and
+# more; NVIDIA H100, PERF.md)
+K2_F64_PROJ_BAR = 1e-5
+K2_F64_ERR_BAR = 1e-10
+TT_DIFF_BAR = 1e-10        # frob_norm(z - w) / frob_norm(w) in TT form
+TT_RESIDUAL_BAR = 1e-10    # the Poisson residual through objects
+TT_RESIDUAL_ABS = 1e-12    # ... against the host-f64 residual of the slice
+TT_REL = 1e-12             # inner routes, TT-SVD round trip, card vs host()
+# results at the level of rounding noise: card and host() are each held
+# to the bar, not to each other (y - w, gemm_exact against round(), is
+# printed; gemm_exact is held to svd by its log-norm)
+TT_NOISE = {"z - w": TT_DIFF_BAR, "TT-SVD error": TT_REL,
+            "truth cast error": TT_REL}
+TT_UNCOMPARED = ("y - w", "K2 launches")
+
+
+def _tt_objects_cases(xt, round_host, target, poisson, truth, timer):
+    """Steps 1-3 of the phase on the current compute device: the three
+    object roundings of ``round_host``'s cores, the Poisson residual of
+    ``poisson`` = (x, A, b) cores through the DSL, the three inner-product
+    routes, the TT-SVD round trip of ``truth`` and a file round trip.
+    Returns the gauge-free results; ``timer(name, fn)`` runs a timed
+    call and returns its value."""
+    import math
+    import tempfile
+    import numpy as np
+    from xerus_tpu_torch.examples import host_full_tensor
+    from xerus_tpu_torch.indexing import evaluate as ev
+    from xerus_tpu_torch.network import heuristics, native
+    from xerus_tpu_torch.ops import gemm_exact as ge
+    from xerus_tpu_torch.tt import dsl as tt_dsl
+    tt = xt.convert.tt_from_numpy
+    out = {}
+    fallbacks0 = tt_dsl.tt_assign.dense_fallbacks
+
+    # 1. rounding through objects
+    y, z, w = (tt(round_host) for _ in range(3))
+    ge.reset_counters()
+    timer("y.round_fast(gemm_exact)",
+          lambda: y.round_fast(target, method="gemm_exact"))
+    out["K2 launches"] = ge.gemm_exact_kernel.launches
+    out["K2 svd fallbacks"] = ge.trunc_step_gemm_exact.svd_fallbacks
+    timer("z.round_fast(svd)", lambda: z.round_fast(target, method="svd"))
+    timer("w.round", lambda: w.round(target))
+    i, j = xt.indices(2)
+    for name, t in (("y", y), ("z", z), ("w", w)):
+        out[f"{name} log-norm"] = math.log(t.frob_norm())
+        out[f"{name} ranks"] = t.ranks()
+        out[f"{name} flags"] = (t.canonicalized, t.corePosition)
+    w_norm = w.frob_norm()
+    out["z - w"] = xt.frob_norm(z(i & 0) - w(i & 0)) / w_norm
+    out["y - w"] = xt.frob_norm(y(i & 0) - w(i & 0)) / w_norm
+
+    # 2. the Poisson residual through objects
+    xs, A_c, b_c = poisson
+    x, A, b = tt(xs), tt(A_c, operator=True), tt(b_c)
+    out["residual"] = timer("Poisson residual", lambda: xt.frob_norm(
+        A(i / 2, j / 2) * x(j & 0) - b(i & 0))) / b.frob_norm()
+
+    # 3. networks and conversions: inner(y, x) three ways
+    out["inner sweep"] = timer("inner sweep", lambda: xt.tt.inner(y, x))
+    s = xt.Tensor()
+    timer("inner DSL", lambda: s() << y(i & 0) * x(i & 0))
+    out["inner DSL"] = float(s[0])
+    terms = [t for f in (y(i & 0), x(i & 0)) for t in ev._resolve_term(f)]
+    mapping = {}
+    ops = tuple(tuple(mapping.setdefault(l, len(mapping)) for l in t.labels)
+                for t in terms)
+    shapes = tuple(tuple(t.tensor.dimensions) for t in terms)
+    out["DSL plan FLOPs"] = ev.plan_flops(
+        ops, shapes, ev.contraction_plan(ops, (), shapes))
+    net = xt.TensorNetwork()
+    net() << y(i & 0) * x(i & 0)
+    ids = {n for n, node in enumerate(net.nodes) if not node.erased}
+    heuristics._PATH_CACHE.clear()
+    calls0 = native.native_best_order.calls
+    order = heuristics.best_contraction_order(net, ids)
+    out["native search"] = native.native_best_order.calls > calls0
+    graph = heuristics._Graph(net, ids)
+    out["network plan FLOPs"] = int(2 * sum(graph.merge(a, c)
+                                            for a, c in order))
+    out["inner network"] = float(timer("inner network",
+                                       lambda: net.to_tensor()[0]))
+    out["|y| |x|"] = y.frob_norm() * x.frob_norm()
+    out["inner y.w"] = xt.tt.inner(y, w)
+    s2 = xt.Tensor()
+    s2() << y(i & 0) * w(i & 0)
+    out["inner y.w DSL"] = float(s2[0])
+
+    # TT-SVD round trip of the completion truth
+    T = xt.Tensor(tt(truth))
+    ref = host_full_tensor(truth)
+    out["truth cast error"] = _rel(T.to_ndarray().reshape(-1), ref)
+    svd = timer("TT-SVD 4^10", lambda: xt.TTTensor(T, eps=1e-12))
+    out["TT-SVD ranks"] = svd.ranks()
+    back = xt.Tensor(svd)
+    out["TT-SVD error"] = (back - T).frob_norm() / T.frob_norm()
+
+    # file round trip of y
+    build = os.path.join(HERE, "xerus_tpu_torch", "_build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        path = os.path.join(tmp, "y.BINARY")
+        xt.save_to_file(y, path, xt.FileFormat.BINARY)
+        back_y = xt.load_from_file(path)
+        out["file bitwise"] = (
+            type(back_y) is type(y)
+            and (back_y.canonicalized, back_y.corePosition)
+            == (y.canonicalized, y.corePosition)
+            and all(np.array_equal(a.to_ndarray(), c.to_ndarray())
+                    for a, c in zip(back_y.components, y.components)))
+    out["dense fallbacks"] = tt_dsl.tt_assign.dense_fallbacks - fallbacks0
+    return out
+
+
+def _tt_objects_bars(r, ref=None, host_residual=None):
+    """The bars every run of the cases is held to."""
+    fails = []
+    if ref is not None:
+        for name in ("z", "w"):
+            rel = abs(r[f"{name} log-norm"] - ref) / abs(ref)
+            if not rel <= TT_LOGNORM_BAR:
+                fails.append(f"{name} log-norm {rel:.3e} from the f64 chain")
+    ge_rel = abs(r["y log-norm"] - r["z log-norm"]) / abs(r["z log-norm"])
+    if not ge_rel <= TT_GE_BAR:
+        fails.append(f"gemm_exact log-norm {ge_rel:.3e} from svd's")
+    if not r["y ranks"] == r["z ranks"] == r["w ranks"]:
+        fails.append("the three roundings' ranks differ")
+    if any(r[f"{n} flags"] != (True, 0) for n in "yzw"):
+        fails.append("a rounding is not canonical at core 0")
+    for key, bar in TT_NOISE.items():
+        if not r[key] <= bar:
+            fails.append(f"{key} {r[key]:.3e} above {bar:g}")
+    if host_residual is not None:
+        if not (r["residual"] <= TT_RESIDUAL_BAR and abs(
+                r["residual"] - host_residual) <= TT_RESIDUAL_ABS):
+            fails.append(f"residual {r['residual']:.3e} vs host "
+                         f"{host_residual:.3e}")
+    scale = r["|y| |x|"]
+    for key in ("inner DSL", "inner network"):
+        if not abs(r[key] - r["inner sweep"]) <= TT_REL * scale:
+            fails.append(f"{key} {r[key]!r} vs the sweep "
+                         f"{r['inner sweep']!r}")
+    if not abs(r["inner y.w DSL"] - r["inner y.w"]) <= TT_REL * abs(
+            r["inner y.w"]):
+        fails.append("inner(y, w) routes differ")
+    if not r["native search"]:
+        fails.append("the native path optimizer did not plan the network")
+    if not max(r["TT-SVD ranks"]) <= 8:
+        fails.append(f"TT-SVD ranks {r['TT-SVD ranks']} above 8")
+    if not r["file bitwise"]:
+        fails.append("BINARY round trip of y not bitwise")
+    if r["dense fallbacks"]:
+        fails.append(f"{r['dense fallbacks']} TT expressions went dense")
+    return fails
+
+
+def _tt_card_vs_host(card, cpu):
+    """(worst relative difference, failures) of the d=12 results on the
+    card against the same under host(): each run held to the bars, ranks,
+    flags and plans equal, values to TT_REL (log-norms absolutely, the
+    norms' relative difference; the inner(y, x) routes relative to
+    |y| |x|)."""
+    fails = _tt_objects_bars(card) + _tt_objects_bars(cpu)
+    worst = 0.0
+    for key, value in card.items():
+        if key in TT_NOISE or key in TT_UNCOMPARED:
+            continue
+        if isinstance(value, float):
+            if key.endswith("log-norm"):
+                scale = 1.0
+            elif key in ("inner sweep", "inner DSL", "inner network"):
+                scale = card["|y| |x|"]
+            else:
+                scale = abs(cpu[key])
+            diff = abs(value - cpu[key]) / scale
+            worst = max(worst, diff)
+            if not diff <= TT_REL:
+                fails.append(f"{key}: card {value!r}, host {cpu[key]!r}")
+        elif value != cpu[key]:
+            fails.append(f"{key}: card {value!r}, host {cpu[key]!r}")
+    return worst, fails
+
+
+def _k2_f64_against_plain(inputs):
+    """K2 against its plain version on each captured float64 bond
+    (``_k2_bond_times``' inputs): by decision, and by output through the
+    kept projectors and the truncation errors (gauge-free); the float32
+    control runs K2 on the same bond in float32.  Returns the plain
+    version's certification per bond and, per bond, the kernel's
+    {"proj", "err"} distances to the plain version and the control's
+    {"proj32", "err32"}."""
+    import torch
+    from xerus_tpu_torch.ops import gemm_exact as ge
+    plain_ok, dist = [], []
+    for n, (cur, keep, cap, (vt0, vt_bal, flags)) in enumerate(inputs):
+        fk = dict(zip(ge.FLAGS, flags.tolist()))
+        mask = (torch.arange(cap, device=cur.device) < keep).to(cur.dtype)
+        vk = ge._finish_gemm_exact(vt0, vt_bal, bool(fk["okp"]), mask)
+        vp, fp = _k2_run(cur, keep, cap, False)
+        v32, f32 = _k2_run(cur.float(), keep, cap, True)
+        plain_ok.append(fp["converged"])
+        ep = _trunc_err(cur, vp)
+        dist.append({"proj": _proj_dist(vk, vp),
+                     "err": abs(_trunc_err(cur, vk) - ep) / ep,
+                     "proj32": _proj_dist(v32, vp),
+                     "err32": abs(_trunc_err(cur, v32) - ep) / ep})
+        d = dist[-1]
+        print(f"tt objects K2 f64 bond {n} against its plain version: "
+              f"projector distance {d['proj']:.3e} (bar "
+              f"{K2_F64_PROJ_BAR:g}), float32 control {d['proj32']:.3e}; "
+              f"truncation error {d['err']:.3e} relative (bar "
+              f"{K2_F64_ERR_BAR:g}), float32 control {d['err32']:.3e}; "
+              f"outer kernel {fk['outer']}, plain {fp['outer']}, float32 "
+              f"{f32['outer']}")
+    return plain_ok, dist
+
+
+def phase_tt_objects(dev, smi, solution, host_residual, round_ref,
+                     ge_f32):
+    """The tensor network and the TT classes (network/, tt/) through the
+    public names in float64: the d=32 rank-256 TT rounded to 128 by
+    round_fast('gemm_exact') (K2, counted), round_fast('svd') and the
+    object round(); the d=32 Poisson residual of the slice's solution
+    through A(i/2, j/2) * x(j&0) - b(i&0) in TT form; inner products three
+    ways; the TT-SVD round trip of the completion truth; a BINARY file
+    round trip; K2's float64 bonds beside their bound and gesvd, each
+    held against its plain version by output; then the same at d=12 on
+    the card and under host(), held against each other.  ``ge_f32`` is
+    the float32 gemm_exact rounding's log-norm error on the same instance
+    (phase_round_slice), the control that TT_GE_BAR must refuse."""
+    import math
+    import numpy as np
+    import torch
+    import xerus_tpu_torch as xt
+    from xerus_tpu_torch.examples import (bench_round_instance,
+                                          completion_instance,
+                                          qtt_poisson_instance)
+    from xerus_tpu_torch.ops import gemm_exact as ge
+    from xerus_tpu_torch.ops import round_kernels as rk
+    t_phase = time.perf_counter()
+    if xt.config.device != dev:
+        raise AssertionError("tt objects: the default device is not the card")
+    walls = {}
+
+    def timer(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        value = fn()
+        torch.cuda.synchronize()
+        walls[name] = (time.perf_counter() - t0) * 1e3
+        return value
+
+    truth = completion_instance().truth
+    round_host = bench_round_instance(ROUND_D, ROUND_N, ROUND_RANK, SEED)
+    _xs, A_c, b_c = qtt_poisson_instance(D, RANK, SEED)
+    r = _tt_objects_cases(xt, round_host, ROUND_TARGET,
+                          (solution, A_c, b_c), truth, timer)
+    launches = r["K2 launches"]
+    print(f"tt objects d={ROUND_D} rank {ROUND_RANK}->{ROUND_TARGET} f64: "
+          f"log-norms gemm_exact {r['y log-norm']:.12f}, svd "
+          f"{r['z log-norm']:.12f}, round() {r['w log-norm']:.12f}, host "
+          f"f64 chain {round_ref:.12f} (bars {TT_LOGNORM_BAR:g} for svd "
+          f"and round(), {TT_GE_BAR:g} gemm_exact vs svd); frob_norm(z - w)"
+          f" / |w| {r['z - w']:.3e}, (y - w) {r['y - w']:.3e} (TT form, bar "
+          f"{TT_DIFF_BAR:g}); K2 launches {launches}, SVD fallbacks "
+          f"{r['K2 svd fallbacks']}; ranks {sorted(set(r['y ranks']))}")
+    print(f"tt objects Poisson d={D}: |A x - b| / |b| through objects "
+          f"{r['residual']:.6e} vs host f64 {host_residual:.6e} (bars "
+          f"{TT_RESIDUAL_BAR:g}, {TT_RESIDUAL_ABS:g} absolute); dense "
+          f"fallbacks {r['dense fallbacks']}")
+    print(f"tt objects inner(y, x): sweep {r['inner sweep']!r}, DSL "
+          f"{r['inner DSL']!r} ({r['DSL plan FLOPs']:,} FLOPs planned), "
+          f"network {r['inner network']!r} ({r['network plan FLOPs']:,} "
+          f"FLOPs, native search {r['native search']}); |y| |x| "
+          f"{r['|y| |x|']:.6e}; inner(y, w) sweep {r['inner y.w']!r}, DSL "
+          f"{r['inner y.w DSL']!r}")
+    print(f"tt objects conversions: completion truth cast error "
+          f"{r['truth cast error']:.3e}, TT-SVD(eps 1e-12) ranks "
+          f"{r['TT-SVD ranks']}, round trip error {r['TT-SVD error']:.3e}; "
+          f"BINARY file of y bitwise {r['file bitwise']}")
+    fails = _tt_objects_bars(r, round_ref, host_residual)
+    if launches != EXPECTED_K2_LAUNCHES:
+        fails.append(f"K2 launched {launches} times, expected "
+                     f"{EXPECTED_K2_LAUNCHES}")
+
+    # object calls beside the core-level sweep on the same cores
+    cores = [torch.from_numpy(np.asarray(c, np.float64)).to(dev)
+             for c in round_host]
+    for method in ("gemm_exact", "svd"):
+        timer(f"core-level {method}", lambda: rk.tt_round_sweep_segmented(
+            cores, ROUND_TARGET, method=method))
+    print("tt objects time (ms, one synchronized call each; "
+          f"{smi}): " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()))
+
+    # K2 in float64 bond by bond, and its largest bond alone
+    polish = ge._gemm_exact_tuning(torch.float64)[2]
+    inputs = []
+    bonds = _k2_bond_times(cores, inputs)
+    total = bound = 0.0
+    for n, ((B, M), cap, ms, f) in enumerate(bonds):
+        b_ms, _by = _bound((B * M + 2 * cap * M) * 8, ge.gemm_exact_flops(
+            B, M, cap, f["outer"], f["ns"], f["ns_rows"], polish), "float64")
+        total, bound = total + ms, bound + b_ms
+        print(f"tt objects K2 f64 bond {n} ({B}, {M}) cap {cap}: {ms:.3f} ms,"
+              f" bound {b_ms:.4f} ms; route "
+              f"{'cluster' if f['cluster_ctas'] else 'grid'}, outer "
+              f"{f['outer']}, Newton-Schulz {f['ns']}, certified "
+              f"{f['converged']}, okp {f['okp']}")
+    print(f"tt objects K2 f64: {total:.3f} ms of device time over "
+          f"{len(bonds)} launches per rounding, bound {bound:.3f} ms")
+    # a bond that does not certify within the reference's float64 cap
+    # takes the SVD fallback: the object path must fall back exactly where
+    # the plain version does
+    plain_ok, dist = _k2_f64_against_plain(inputs)
+    worst = {k: max(d[k] for d in dist) for k in ("proj", "err")}
+    least = {k: min(d[k] for d in dist) for k in ("proj32", "err32")}
+    kernel_ok = [bool(f["converged"]) for _s, _c, _ms, f in bonds]
+    print(f"tt objects K2 f64 certification, bond by bond: kernel "
+          f"{''.join('c' if ok else '-' for ok in kernel_ok)}, plain "
+          f"version {''.join('c' if ok else '-' for ok in plain_ok)} (c: "
+          f"certified within {ge._gemm_exact_tuning(torch.float64)[0]} "
+          f"outer steps, -: SVD fallback); object path fallbacks "
+          f"{r['K2 svd fallbacks']}; against the plain version at most "
+          f"{worst['proj']:.3e} in the projectors (float32 control at "
+          f"least {least['proj32']:.3e}, bar {K2_F64_PROJ_BAR:g}) and "
+          f"{worst['err']:.3e} in the truncation errors (control at least "
+          f"{least['err32']:.3e}, bar {K2_F64_ERR_BAR:g}); log-norm "
+          f"float32 control {ge_f32:.3e} (bar {TT_GE_BAR:g})")
+    if kernel_ok != plain_ok:
+        fails.append("K2 and its plain version certify different bonds")
+    if r["K2 svd fallbacks"] != plain_ok.count(False):
+        fails.append(f"{r['K2 svd fallbacks']} SVD fallbacks on the object "
+                     f"path, {plain_ok.count(False)} in the plain version")
+    for key, bar in (("proj", K2_F64_PROJ_BAR), ("err", K2_F64_ERR_BAR)):
+        if not worst[key] <= bar:
+            fails.append(f"K2's float64 {key} {worst[key]:.3e} from the "
+                         "plain version's")
+        if not least[key + "32"] > bar:
+            fails.append(f"the {key} bar does not refuse K2 in float32")
+    if not ge_f32 > TT_GE_BAR:
+        fails.append("the gemm_exact log-norm bar does not refuse the "
+                     "float32 rounding")
+    big = max(range(len(bonds)), key=lambda k: (
+        bonds[k][0][0] * bonds[k][0][1], bonds[k][2]))
+    cur, keep, cap, _out = inputs[big]
+    f = bonds[big][3]
+    kernel_ms = _time_ms(lambda: ge.gemm_exact_kernel(cur, keep, cap),
+                         reps=10, warmup=2)
+    gesvd_ms = _time_ms(lambda: torch.linalg.svd(
+        cur, full_matrices=False, driver="gesvd"), reps=10, warmup=2)
+    flops = ge.gemm_exact_flops(cur.shape[0], cur.shape[1], cap, f["outer"],
+                                f["ns"], f["ns_rows"], polish)
+    b_ms, by = _bound((cur.numel() + 2 * cap * cur.shape[1]) * 8, flops,
+                      "float64")
+    print(f"tt objects K2 f64 largest bond {tuple(cur.shape)} keep {keep} "
+          f"cap {cap} (the slowest of the equal shapes, certified "
+          f"{f['converged']}): kernel {kernel_ms:.3f} ms, gesvd f64 "
+          f"{gesvd_ms:.3f} ms (CUDA events, median of 10); "
+          f"{flops / 1e9:.3f} GFLOP, bound {b_ms:.4f} ms by {by} (FP64 "
+          f"tensor cores 67 TFLOP/s), {b_ms / kernel_ms:.2%} of it "
+          f"reached; {smi}")
+    if fails:
+        raise AssertionError("tt objects: " + "; ".join(fails))
+
+    # 4. card against host() at d=12
+    d, rank, target = TT_SMALL
+    small = (bench_round_instance(d, ROUND_N, rank, SEED),
+             target, qtt_poisson_instance(d, RANK, SEED), truth)
+    card = _tt_objects_cases(xt, *small, lambda name, fn: fn())
+    with xt.host():
+        cpu = _tt_objects_cases(xt, *small, lambda name, fn: fn())
+    worst, fails = _tt_card_vs_host(card, cpu)
+    print(f"tt objects card vs host() at d={d} rank {rank}->{target}: "
+          f"worst relative difference {worst:.3e} over {len(card)} results "
+          f"(bar {TT_REL:g}); K2 launches on the card {card['K2 launches']};"
+          f" phase {time.perf_counter() - t_phase:.1f} s")
+    if fails:
+        raise AssertionError("tt objects at d=12: " + "; ".join(fails))
+    return launches
+
+
 def main():
     sys.path.insert(0, HERE)
     smi = phase_environment()
@@ -1382,11 +1806,13 @@ def main():
     phase_small_agreement(dev)
     phase_small_rounding(dev)
     phase_completion_small(dev)
-    k1_launches = phase_slice(dev)
-    k2_launches = phase_round_slice(dev)
+    k1_launches, solution, host_residual = phase_slice(dev)
+    k2_launches, round_ref, ge_f32 = phase_round_slice(dev)
     k3_launches = phase_completion_slice(dev)
     phase_iht(dev)
     phase_objects(dev, smi)
+    k2_launches += phase_tt_objects(dev, smi, solution, host_residual,
+                                    round_ref, ge_f32)
     phase_breakdown(dev)
     phase_round_breakdown(dev)
     def entry(name, source, replaces, launches, max_abs, timing):

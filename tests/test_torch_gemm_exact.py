@@ -185,3 +185,51 @@ def test_flop_count_matches_flop_counter(dtype, B, M, keep, cap):
     assert bool(conv) and outer > 0 and 0 < ns_rows < ns
     assert fc.get_total_flops() == ge.gemm_exact_flops(
         B, M, cap, outer, ns, ns_rows, tuning[2])
+
+
+class _Captured(Exception):
+    pass
+
+
+@pytest.mark.slow
+def test_f64_uncertified_bond_is_the_references_decision():
+    """On the d=32 rank-256 -> 128 rounding instance in float64, bonds 6,
+    14 and 15 of the gemm_exact sweep do not certify within the
+    reference's float64 cap of 256 outer steps and take the SVD fallback;
+    every other bond up to 15 certifies.  The JAX package's own body
+    decides each of those bonds the same way on the same input, as the
+    plain version does (chip_smoke holds K2 to the plain version bond by
+    bond on the card)."""
+    from xerus_tpu_torch.examples import bench_round_instance
+    from xerus_tpu_torch.ops import round_kernels as rk
+    cores = [torch.from_numpy(np.asarray(c, np.float64))
+             for c in bench_round_instance(32, 2, 256, 0xBAADF00D)]
+    seen = []
+    body = ge._gemm_exact_body
+
+    def capture(cur, mask, *tuning):
+        if len(seen) == 16:
+            raise _Captured
+        out = body(cur, mask, *tuning)
+        seen.append((cur.clone(), mask.clone(), bool(out[3]), int(out[4])))
+        return out
+
+    capture.ns_iters = capture.ns_row_iters = 0
+    try:
+        ge._gemm_exact_body = capture
+        with pytest.raises(_Captured):
+            rk.tt_round_sweep_segmented(cores, 128, method="gemm_exact")
+    finally:
+        ge._gemm_exact_body = body
+    tuning = ge._gemm_exact_tuning(torch.float64)
+    assert tuning == jtk._gemm_exact_tuning(jnp.float64) == (256, 64, 16, 3)
+    uncertified = (6, 14, 15)
+    assert [k for k, (*_, ok, _it) in enumerate(seen) if not ok] \
+        == list(uncertified)
+    for k, (cur, mask, ok, it) in enumerate(seen):
+        j = jtk._gemm_exact_body(jnp.asarray(cur.numpy()),
+                                 jnp.asarray(mask.numpy()), jnp.float64,
+                                 1e-30, *tuning)
+        assert bool(j[3]) == ok == (k not in uncertified), k
+        if not ok:
+            assert it == int(j[4]) == tuning[0]

@@ -7,7 +7,8 @@ same ``set_seed``: results agree to 1e-12 of their largest entry in
 float64, raised error types exactly.  The README's quick-start block is the
 slice as a whole.  Also here: the contraction planner (numpy's greedy
 einsum path, cached per structure and shapes) against the left-to-right
-order, and the DSL's aliasing self-assignment."""
+order and numpy's own greedy path, and the DSL's aliasing
+self-assignment."""
 
 import numpy as np
 import pytest
@@ -49,7 +50,7 @@ def _same(a, b, rtol=1e-12):
 
 
 # -- the cases of tests/test_indexed_expressions.py (the TT-rank and
-#    network cases wait for ROADMAP items 4d and 4e)
+#    network cases are in tests/test_torch_tt_dsl.py)
 
 
 def c_basic_contraction(pkg):
@@ -207,7 +208,7 @@ def c_solve_inside_product_materializes(pkg):
 def c_matmul_tensor_contraction(pkg):
     """The DSL half of the matrix-multiplication-tensor stress test: a
     sparse order-6 T contracted with A and B reproduces A @ B (the TT
-    ranks of T wait for item 4e)."""
+    ranks of T: tests/test_torch_tt_dsl.py)."""
     out = {}
     for n in (2, 3):
         T = pkg.Tensor([n] * 6, pkg.Representation.Sparse)
@@ -434,9 +435,13 @@ def test_raises_like_jax(name):
 
 
 def test_network_operands_wait_for_their_step():
-    i, j = xt.indices(2)
-    with pytest.raises(NotImplementedError, match="4e"):
-        xt.Tensor()(i) << xt.indexing.IndexedTensor(object(), [i])
+    """Network and TT operands have landed (ROADMAP items 4d and 4e,
+    tests/test_torch_network.py, test_torch_tt_dsl.py); an operand that is
+    neither a Tensor nor a network fails as in the JAX package."""
+    for pkg in (xe, xt):
+        i, j = pkg.indices(2)
+        with pytest.raises(AttributeError):
+            pkg.Tensor()(i) << pkg.indexing.IndexedTensor(object(), [i])
 
 
 # -- the slice as a whole: README.md's quick-start block
@@ -492,6 +497,85 @@ def test_planned_chain_matches_jax():
         E = pkg.Tensor()
         E(i, m) << B(i, k, l) * D(k, j, l) * F(j, m)
         return {"E": E.to_ndarray()}
+    ref, got = _both(case)
+    _same(ref, got)
+
+
+def _random_product(rng):
+    """Canonical labels and shapes of a random product: each label on two
+    operands (a contraction), twice on one (a trace) or on one and the
+    output; some operands share nothing with the rest."""
+    n = int(rng.integers(3, 8))
+    ops = [[] for _ in range(n)]
+    out = []
+    for label in range(int(rng.integers(n, 2 * n))):
+        kind = rng.random()
+        a, b = (int(v) for v in rng.integers(0, n, size=2))
+        if kind < 0.6 and a != b:
+            ops[a].append(label)
+            ops[b].append(label)
+        elif kind < 0.7:
+            ops[a] += [label, label]
+        else:
+            ops[a].append(label)
+            out.append(label)
+    dims = rng.integers(1, 4, size=max(max(o, default=0) for o in ops) + 1)
+    shapes = tuple(tuple(int(dims[l]) for l in o) for o in ops)
+    return tuple(map(tuple, ops)), tuple(out), shapes
+
+
+def _groups(n, steps):
+    """The operand groups left after each step of an einsum_path-form
+    plan: the chosen operands leave the list, their union joins its end."""
+    state = [frozenset([k]) for k in range(n)]
+    seen = []
+    for step in steps:
+        merged = frozenset().union(*(state[i] for i in step))
+        state = [g for k, g in enumerate(state) if k not in step] + [merged]
+        seen.append(tuple(state))
+    return seen
+
+
+# an outer product of four: numpy leaves it to einsum in one step
+_OUTER4 = (((0,), (1,), (2,), (3,)), (0, 1, 2, 3), ((2,), (3,), (4,), (5,)))
+
+
+@pytest.mark.parametrize("seed", list(range(40)) + ["outer4"])
+def test_planner_takes_numpys_greedy_path(seed):
+    """contraction_plan takes np.einsum_path's greedy path on products it
+    can spell (52 labels or fewer): the same pairs in the same order, and
+    a step numpy leaves to einsum whole as pairwise steps over the same
+    operands; the plan runs to numpy's einsum."""
+    import string
+    import torch
+    ops, out, shapes = (_OUTER4 if seed == "outer4" else
+                        _random_product(np.random.default_rng(seed)))
+    subs = ",".join("".join(string.ascii_letters[l] for l in o) for o in ops)
+    subs += "->" + "".join(string.ascii_letters[l] for l in out)
+    views = [np.broadcast_to(np.zeros(()), s) for s in shapes]
+    path = np.einsum_path(subs, *views, optimize="greedy")[0][1:]
+    plan = ev.contraction_plan(ops, out, shapes)
+    assert all(len(step) <= 2 for step in plan)
+    ours = _groups(len(ops), plan)
+    k = 0
+    for step, state in zip(path, _groups(len(ops), path)):
+        k += max(len(step) - 1, 1)
+        assert ours[k - 1] == state, (step, plan)
+    assert k == len(plan)
+    rng = np.random.default_rng(0)
+    arrays = [torch.from_numpy(rng.normal(size=s)) for s in shapes]
+    got = ev._run_plan(arrays, ops, out, plan).numpy()
+    want = np.einsum(subs, *(a.numpy() for a in arrays), optimize="greedy")
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12)
+
+
+def test_outer_product_of_three_matches_jax():
+    def case(pkg):
+        a, b, c = (pkg.Tensor.random([n]) for n in (2, 3, 4))
+        i, j, k = pkg.indices(3)
+        C = pkg.Tensor()
+        C(i, j, k) << a(i) * b(j) * c(k)
+        return {"C": C.to_ndarray()}
     ref, got = _both(case)
     _same(ref, got)
 

@@ -178,3 +178,72 @@ def test_svd_retry_stays_on_the_card(cuda, monkeypatch):
     u, s, vt = fact._svd_robust(a.to(cuda))
     assert u.device.type == s.device.type == vt.device.type == "cuda"
     assert _rel(((u * s) @ vt).cpu().numpy(), a.numpy()) <= 1e-12
+
+
+# -- the tensor network and the TT classes on the card
+
+
+@pytest.mark.cuda
+def test_round_fast_gemm_exact_launches_k2(cuda):
+    """round_fast('gemm_exact') on a TT whose components live on the card
+    launches K2 for every truncation, certifies each (no SVD fallback),
+    and keeps the rounded cores on the card."""
+    from xerus_tpu_torch.ops import gemm_exact as ge
+    xt.set_seed(0xBAADF00D)
+    x = xt.TTTensor.random([2] * 8, 16)
+    assert x.components[1]._dense.device.type == "cuda"
+    ge.reset_counters()
+    y = x.copy()
+    y.round_fast(8, method="gemm_exact")
+    calls = ge.trunc_step_gemm_exact.calls
+    assert calls > 0 and ge.gemm_exact_kernel.launches == calls
+    assert ge.trunc_step_gemm_exact.svd_fallbacks == 0
+    assert all(c._dense.device.type == "cuda" for c in y.components)
+    assert y.canonicalized and y.corePosition == 0
+    with xt.host():
+        h = xt.TTTensor(x)
+        h.round_fast(8, method="svd")
+    a, b = y.to_tensor().to_ndarray(), h.to_tensor().to_ndarray()
+    assert y.ranks() == h.ranks()
+    assert _rel(a, b) <= 1e-8
+
+
+def _tt_case():
+    x = xt.TTTensor.random([2] * 8, 6)
+    z = xt.TTTensor.random([2] * 8, 3)
+    A = xt.TTOperator.random([2] * 16, 2)
+    i, j = xt.indices(2)
+    r = x.copy()
+    r.round(4)
+    f = x.copy()
+    f.round_fast(4, method="svd")
+    b = xt.TTTensor()
+    b(i & 0) << A(i / 2, j / 2) * x(j & 0)
+    svd = xt.TTTensor(xt.Tensor(x), eps=1e-12)
+    s = xt.Tensor()
+    s() << x(i & 0) * z(i & 0)
+    net = xt.TensorNetwork()
+    net() << x(i & 0) * z(i & 0)
+    return {"round": r.to_tensor().to_ndarray(), "round ranks": r.ranks(),
+            "round_fast": f.to_tensor().to_ndarray(),
+            "apply": b.to_tensor().to_ndarray(), "apply ranks": b.ranks(),
+            "residual": xt.frob_norm(A(i / 2, j / 2) * x(j & 0) - b(i & 0))
+            / b.frob_norm(),
+            "tt-svd": svd.to_tensor().to_ndarray(), "svd ranks": svd.ranks(),
+            "inner": np.array([xt.tt.inner(x, z), float(s[0]),
+                               float(net.to_tensor()[0])])}
+
+
+@pytest.mark.cuda
+def test_tt_card_matches_host(cuda):
+    """TT arithmetic, roundings, TT-SVD, the DSL residual and the three
+    inner-product routes on the card against the same under host()."""
+    card, cpu = _both(_tt_case)
+    for key, value in card.items():
+        if key == "residual":
+            assert value <= 1e-13 and cpu[key] <= 1e-13
+        elif isinstance(value, np.ndarray):
+            assert _rel(value, cpu[key]) <= 1e-12, key
+        else:
+            assert value == cpu[key], key
+    assert np.ptp(card["inner"]) <= 1e-12 * abs(card["inner"][0])

@@ -124,7 +124,7 @@ def test_every_module_imports_without_jax():
         "mods = [m.name for m in pkgutil.walk_packages(xt.__path__, "
         "'xerus_tpu_torch.')]\n"
         "for name in mods: importlib.import_module(name)\n"
-        "for name in ('misc', 'core', 'indexing'):\n"
+        "for name in ('misc', 'core', 'indexing', 'network', 'tt'):\n"
         "    assert any(m.startswith('xerus_tpu_torch.' + name + '.') "
         "for m in mods), name\n"
         "with xt.host():\n"
@@ -136,6 +136,16 @@ def test_every_module_imports_without_jax():
         "    rec(i, j) << U(i, r1) * S(r1, r2) * Vt(r2, j)\n"
         "    assert (rec(i, j) - A(i, j)).frob_norm() < 1e-12 * "
         "A.frob_norm()\n"
+        "    x = xt.TTTensor.random([2] * 6, 4); op = "
+        "xt.TTOperator.random([2] * 12, 2)\n"
+        "    y = xt.TTTensor(); y(i & 0) << op(i / 2, j / 2) * x(j & 0)\n"
+        "    assert xt.frob_norm(op(i / 2, j / 2) * x(j & 0) - y(i & 0)) "
+        "< 1e-12 * y.frob_norm()\n"
+        "    z = x.copy(); z.round_fast(2, method='gemm_exact'); "
+        "w = x.copy(); w.round(2)\n"
+        "    assert (z - w).frob_norm() < 1e-8 * w.frob_norm()\n"
+        "    net = xt.TensorNetwork(x); assert abs(net.frob_norm() - "
+        "x.frob_norm()) < 1e-12 * x.frob_norm()\n"
         "assert not any(m == 'jax' or m.startswith('jax.') or "
         "m == 'xerus_tpu' or m.startswith('xerus_tpu.') for m in "
         "sys.modules if sys.modules[m] is not None)\n"
@@ -191,6 +201,33 @@ def test_object_computation_needs_the_card_outside_host(monkeypatch):
     assert xt.config.device == torch.device("cuda")
     with pytest.raises(RuntimeError):
         A.frob_norm()
+
+
+def test_tt_and_network_computation_needs_the_card_outside_host(
+        monkeypatch):
+    """TT and network computations run on the card too: without one they
+    raise outside host() and run inside it."""
+    xt = xerus_tpu_torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with xt.host():
+        x = xt.TTTensor.random([2] * 5, 3)
+        op = xt.TTOperator.random([2] * 10, 2)
+        net = xt.TensorNetwork(x)
+    i, j = xt.indices(2)
+    for compute in (x.frob_norm, lambda: x.copy().move_core(3),
+                    lambda: x.copy().round(2),
+                    lambda: x.copy().round_fast(2, method="gemm_exact"),
+                    lambda: xt.apply_operator(op, x),
+                    lambda: xt.frob_norm(op(i / 2, j / 2) * x(j & 0)),
+                    lambda: xt.TTTensor.random([2] * 5, 3),
+                    net.to_tensor, lambda: net.copy().transfer_core(0, 1)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            compute()
+    with xt.host():
+        assert abs(net.frob_norm() - x.frob_norm()) < 1e-12 * x.frob_norm()
+        y = x.copy()
+        y.round_fast(2, method="gemm_exact")
+        assert y.ranks() == [2, 2, 2, 2]
 
 
 @pytest.mark.parametrize("case", ["sparse x dense", "dense x sparse^T",

@@ -273,7 +273,7 @@ def c_reshuffle_sparse_preserves_rep(pkg):
 
 def c_binding_ctor_overloads(pkg):
     """Tensor(int degree) and the deep-copying Tensor(Tensor); the
-    Tensor(TTTensor) cast waits for the TT classes (ROADMAP item 4e)."""
+    Tensor(TTTensor) cast is in tests/test_torch_tt.py."""
     t3 = pkg.Tensor(3)
     src = pkg.Tensor.random([2, 5])
     cp = pkg.Tensor(src)

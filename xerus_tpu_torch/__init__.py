@@ -12,8 +12,10 @@ with its hand kernel K2, the certified GEMM-only truncation
 level (``algorithms``) with its hand kernel K3 (``ops.tt_eval``,
 ``csrc/tt_eval.cu``); and the object layer below the tensor network:
 ``misc``, the dense + sparse ``Tensor`` with contraction, factorizations
-and solves (``core``), and the indexed-expression frontend
-(``indexing``), under the JAX package's top-level names.  Object
+and solves (``core``), the indexed-expression frontend (``indexing``), the
+tensor network (``network``) and the TT classes with their arithmetic and
+roundings (``tt``; ``TTTensor.round_fast(..., method="gemm_exact")`` runs
+K2 on the card), under the JAX package's top-level names.  Object
 computations run on the card unless the caller enters ``host()``.
 """
 
@@ -24,9 +26,25 @@ from .core import (Tensor, Representation, Initialisation, reshuffle,
                    approx_equal, approx_entrywise_equal,
                    contract, calculate_svd, calculate_qr, calculate_rq,
                    calculate_qc, calculate_cq, pseudo_inverse, solve,
-                   solve_least_squares, entrywise_product)
+                   solve_least_squares)
+from .core import entrywise_product as _tensor_entrywise_product
 from .indexing import Index, indices, SVD, QR, RQ, QC, CQ
 from .indexing import Factorisation as TensorFactorisation
+from .network import TensorNetwork, TensorNode
+from .network import Link as TensorNetworkLink
+from .tt import (TTNetwork, TTTensor, TTOperator, dyadic_product,
+                 apply_operator)
+from .tt import entrywise_product as _tt_entrywise_product
+
+
+def entrywise_product(a, b):
+    """Hadamard product for Tensors or TT networks (overloaded like the
+    reference's xerus::entrywise_product)."""
+    if isinstance(a, TTNetwork):
+        return _tt_entrywise_product(a, b)
+    return _tensor_entrywise_product(a, b)
+
+
 from .misc import (FileFormat, save_to_file, load_from_file, LogHistogram,
                    set_seed, log, xethrow)
 from .core import serialization as _serialization  # registers Tensor I/O

@@ -58,3 +58,45 @@ def tensor_from_state(dimensions: Sequence[int], factor: float,
             t._dense = torch.tensor(t._dense, device=device)
     t.factor = float(factor)
     return t
+
+
+def tt_from_numpy(cores: Sequence[np.ndarray], operator: bool = False,
+                  canonicalized: bool = False, core_position: int = 0,
+                  device=None):
+    """The port's TTTensor (TTOperator with ``operator``) from host cores,
+    for example a JAX TT's ``[c.to_ndarray() for c in tt.components]`` or
+    the cores of a solve: each core is copied, onto ``device`` when one is
+    given.  ``canonicalized`` / ``core_position`` carry the source's
+    canonical flags across unchecked."""
+    from .tt import TTOperator, TTTensor
+    cls = TTOperator if operator else TTTensor
+    comps = [tensor_from_state(list(np.shape(c)), 1.0, dense=c,
+                               device=device) for c in cores]
+    return cls._make(comps, bool(canonicalized), int(core_position))
+
+
+def network_from_numpy(dimensions: Sequence[int],
+                       external_links: Sequence[Sequence[int]],
+                       nodes: Sequence, device=None):
+    """The port's TensorNetwork from a network's plain fields: its
+    dimension list, its external links as (node, position, dimension) and
+    per node either None (an erased node) or (dense data, links as
+    (other, position, dimension, external)); the data is copied, onto
+    ``device`` when one is given."""
+    from .network import Link, TensorNetwork, TensorNode
+    net = TensorNetwork.__new__(TensorNetwork)
+    net.dimensions = [int(d) for d in dimensions]
+    net.external_links = [Link(int(o), int(p), int(d), False)
+                          for o, p, d in external_links]
+    net.nodes = []
+    for node in nodes:
+        if node is None:
+            net.nodes.append(TensorNode(None))
+            continue
+        data, links = node
+        net.nodes.append(TensorNode(
+            tensor_from_state(list(np.shape(data)), 1.0, dense=data,
+                              device=device),
+            [Link(int(o), int(p), int(d), bool(e)) for o, p, d, e in links]))
+    net.require_valid_network(check_erased=False)
+    return net

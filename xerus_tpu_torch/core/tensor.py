@@ -77,6 +77,18 @@ class Tensor:
             self._dense = src._dense
             self._sparse = src._sparse
             return
+        elif hasattr(dimensions, "to_tensor"):
+            # cast ctor: contract a TensorNetwork/TTNetwork to a single
+            # tensor (python binding `xerus.Tensor(ttA)`; tensorNetwork.h
+            # conversion operator)
+            src = dimensions.to_tensor()
+            self.dimensions = list(src.dimensions)
+            self.factor = src.factor
+            self.representation = src.representation
+            self._dense = src._dense
+            self._sparse = (dict(src._sparse)
+                            if src._sparse is not None else None)
+            return
         self.dimensions: List[int] = [int(d) for d in dimensions]
         self.factor: float = 1.0
         self.representation = representation

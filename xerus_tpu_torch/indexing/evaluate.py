@@ -6,10 +6,10 @@ src/xerus/indexedTensorWritable.cpp:60-80,
 src/xerus/indexedTensor_tensor_evaluate.cpp:248,
 src/xerus/tensorNetwork.cpp:1253).  At assignment the expression tree is
 resolved to labelled operands, and their contraction order is planned once
-per (structure, shapes) signature and cached: numpy's greedy einsum path
-on the shapes (the JAX package's ``jnp.einsum(optimize="auto")`` plans
-with opt_einsum, which the card's machine lacks, and torch.einsum without
-it contracts left to right).  The plan runs as traces and
+per (structure, shapes) signature and cached: numpy's greedy einsum
+path rule on the shapes, for any number of indices (the JAX package's
+``jnp.einsum(optimize="auto")`` plans with opt_einsum, which the card's
+machine lacks, and torch.einsum without it contracts left to right).  The plan runs as traces and
 ``torch.tensordot`` steps on the compute device.
 
 Sparse-representation-preserving fast paths (permutations, pairwise
@@ -18,7 +18,8 @@ contractions) route through core.contract / core.reshuffle instead.
 
 from __future__ import annotations
 
-import string
+import itertools
+import math
 from functools import lru_cache
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -35,8 +36,6 @@ from .expressions import (Expression, IndexedTensor, Product, Sum, SolveExpr,
 Label = Tuple[int, int]
 Plan = Tuple[Tuple[int, ...], ...]
 
-_LETTERS = string.ascii_letters
-
 
 # ---------------------------------------------------------------------------
 # Planned contraction
@@ -46,16 +45,104 @@ _LETTERS = string.ascii_letters
 def contraction_plan(op_labels: Tuple[Tuple[int, ...], ...],
                      out_labels: Tuple[int, ...],
                      shapes: Tuple[Tuple[int, ...], ...]) -> Plan:
-    """The greedy pairwise order for operands with canonical int labels:
-    a sequence of operand-position tuples in numpy's einsum_path form (the
-    chosen operands leave the list, their product joins its end)."""
-    require(max((max(l, default=-1) for l in op_labels), default=-1)
-            < len(_LETTERS), "more than 52 distinct indices in a product")
-    subs = ",".join("".join(_LETTERS[l] for l in labs) for labs in op_labels)
-    subs += "->" + "".join(_LETTERS[l] for l in out_labels)
-    views = [np.broadcast_to(np.zeros(()), shape) for shape in shapes]
-    path, _ = np.einsum_path(subs, *views, optimize="greedy")
-    return tuple(tuple(step) for step in path[1:])
+    """The pairwise order for operands with canonical int labels, in
+    numpy's einsum_path form (the chosen operands leave the list, their
+    product joins its end): the path ``np.einsum_path(...,
+    optimize="greedy")`` takes, for any number of indices (numpy's einsum
+    takes at most 52, a TT expanded into its cores at d > 17 has more).
+    A step that numpy leaves to einsum whole (nothing to sum, or no pair
+    within its memory and cost limits) runs as pairwise steps in order."""
+    dims: Dict[int, int] = {}
+    for labs, shape in zip(op_labels, shapes):
+        dims.update(zip(labs, shape))
+    sets = [frozenset(labs) for labs in op_labels]
+    if len(sets) <= 2 or set(dims) == set(out_labels):
+        path = [tuple(range(len(sets)))]
+    else:
+        limit = max(_size(labs, dims) for labs in op_labels + (out_labels,))
+        path = _greedy_path(sets, frozenset(out_labels), dims, limit)
+    plan = []
+    n = len(sets)
+    for step in path:
+        step = list(step)
+        while len(step) > 2:
+            a, b = step[:2]
+            plan.append((a, b))
+            n -= 1
+            step = [p - (p > a) - (p > b) for p in step[2:]] + [n - 1]
+        plan.append(tuple(step))
+        n -= len(step) - 1
+    return tuple(plan)
+
+
+def _size(labels, dims) -> int:
+    return math.prod(dims[l] for l in labels)
+
+
+def _greedy_path(sets, out, dims, limit):
+    """numpy's ``_greedy_path`` (numpy/_core/einsumfunc.py) on label sets:
+    contract the pair that removes the most elements, then the cheaper
+    one, among pairs sharing a label whose result fits in ``limit``
+    (outer products only when no such pair is left), skipping pairs that
+    would cost more than contracting everything at once; candidates found
+    earlier are kept, in their order, for the next step."""
+
+    def flops(contract, removed, n_terms):
+        return _size(contract, dims) * (max(1, n_terms - 1) + bool(removed))
+
+    def find(positions, sets):
+        contract = frozenset().union(*(sets[p] for p in positions))
+        rest = [s for k, s in enumerate(sets) if k not in positions]
+        result = contract & out.union(*rest)
+        return result, rest + [result], contract - result, contract
+
+    everything = frozenset().union(*sets)
+    naive = flops(everything, everything - out, len(sets))
+
+    def parse(positions, sets, path_cost):
+        result, new_sets, removed, contract = find(positions, sets)
+        new_size = _size(result, dims)
+        if new_size > limit:
+            return None
+        removed_size = sum(_size(sets[p], dims) for p in positions) - new_size
+        cost = flops(contract, removed, len(positions))
+        if path_cost + cost > naive:
+            return None
+        return (-removed_size, cost), positions, new_sets
+
+    known, path, path_cost = [], [], 0
+    pairs = itertools.combinations(range(len(sets)), 2)
+    for _ in range(len(sets) - 1):
+        for pos in pairs:
+            if not sets[pos[0]].isdisjoint(sets[pos[1]]):
+                known.append(parse(pos, sets, path_cost))
+        known = [r for r in known if r is not None]
+        if not known:
+            known = [parse(pos, sets, path_cost) for pos in
+                     itertools.combinations(range(len(sets)), 2)]
+            known = [r for r in known if r is not None]
+            if not known:
+                path.append(tuple(range(len(sets))))
+                break
+        best = min(known, key=lambda r: r[0])
+        bx, by = best[1]
+        moved = []
+        for key, (x, y), con_sets in known:
+            if x in best[1] or y in best[1]:
+                continue
+            con_sets = list(con_sets)
+            del con_sets[by - (by > x) - (by > y)]
+            del con_sets[bx - (bx > x) - (bx > y)]
+            con_sets.insert(-1, best[2][-1])
+            moved.append((key, (x - (x > bx) - (x > by),
+                                y - (y > bx) - (y > by)), con_sets))
+        known = moved
+        sets = best[2]
+        new = len(sets) - 1
+        pairs = ((k, new) for k in range(new))
+        path.append(best[1])
+        path_cost += best[0][1]
+    return path
 
 
 def left_to_right_plan(n_operands: int) -> Plan:
@@ -160,23 +247,31 @@ class _Term:
 
 
 def _resolve_term(it: IndexedTensor) -> List[_Term]:
-    """Resolve one IndexedTensor into a concrete (Tensor, labels) operand,
-    applying fixed indices."""
-    if not isinstance(it.obj, Tensor):
-        raise NotImplementedError(
-            f"indexed {type(it.obj).__name__} operands are not ported yet: "
-            "TensorNetwork and TTNetwork arrive with ROADMAP Queue 1 items "
-            "4d and 4e")
+    """Resolve one IndexedTensor into concrete (Tensor, labels) operands,
+    applying fixed indices and expanding networks into their nodes."""
     labels, fixed = it.resolved()
-    t = it.obj
-    if any(f is not None for f in fixed):
-        t = t.copy()
-        # fix from the last mode so positions stay valid
-        for m in reversed(range(len(fixed))):
-            if fixed[m] is not None:
-                t.fix_mode(m, fixed[m])
-        labels = [l for l, f in zip(labels, fixed) if f is None]
-    return [_Term(t, list(labels))]
+    obj = it.obj
+
+    if isinstance(obj, Tensor):
+        t = obj
+        if any(f is not None for f in fixed):
+            t = t.copy()
+            # fix from the last mode so positions stay valid
+            for m in reversed(range(len(fixed))):
+                if fixed[m] is not None:
+                    t.fix_mode(m, fixed[m])
+            labels = [l for l, f in zip(labels, fixed) if f is None]
+        return [_Term(t, list(labels))]
+
+    # TensorNetwork-like objects expand into their nodes; external link k of
+    # the network carries the resolved outer label labels[k], internal links
+    # get fresh labels shared by their two endpoints.
+    if hasattr(obj, "einsum_operands"):
+        require(all(f is None for f in fixed),
+                "fixed indices on networks: fix the network first")
+        return [_Term(t, list(ls)) for t, ls in obj.einsum_operands(labels)]
+
+    raise TypeError(f"cannot evaluate object of type {type(obj)!r}")
 
 
 def _open_labels(terms: List[_Term]) -> List[Label]:
@@ -339,6 +434,11 @@ def _eval_solve(expr: SolveExpr, x_labels: Optional[List[Label]]) -> Tuple[Tenso
 
 def assign(lhs: IndexedTensor, rhs: Expression) -> None:
     target = lhs.obj
+    # Specialized targets (TTNetwork, TensorNetwork) intercept here.
+    hook = getattr(target, "assign_indexed", None)
+    if hook is not None:
+        hook(lhs, rhs)
+        return
     require(isinstance(target, Tensor), f"cannot assign to {type(target)!r}")
     # Resolve LHS labels against the RHS-implied degree: spans like i&0 need
     # the result's degree, which equals the RHS open-label count.

@@ -5,8 +5,9 @@ expression-template frontend (include/xerus/indexedTensor*.h,
 src/xerus/indexedTensor*.cpp): a small Python expression tree, evaluated on
 assignment (``lhs << rhs``, the Python binding's operator,
 src/xerus/python/indexedTensor.cpp:102-147) as a cached plan of pairwise
-contractions (indexing/evaluate.py).  Operands are Tensors; network and TT
-operands arrive with ROADMAP Queue 1 items 4d and 4e.
+contractions (indexing/evaluate.py).  Operands are Tensors,
+TensorNetworks and TTNetworks; an expression of TTs keeps its norm in TT
+form (``Expression.frob_norm``).
 
 Supported grammar (indexedTensorReadOnly.h:112-166):
   expr := IndexedTensor | expr * expr | expr +/- expr | scalar * expr
@@ -68,7 +69,32 @@ class Expression:
         from .evaluate import evaluate_to_tensor
         return evaluate_to_tensor(self, None)
 
+    def _try_tt(self):
+        """Structured TT evaluation of this expression: a TTNetwork, or
+        None where the expression is not TT-shaped.  Keeps
+        frob_norm(A(..)*x(..) - b(..)) in TT form instead of densifying
+        (the reference's TTStack lazy path).  Unlike the JAX package, which
+        returns None on any exception and then densifies, an error raised
+        while evaluating a TT-shaped expression reaches the caller: at
+        d=32 the dense route would need 2^32 entries on the card."""
+        from ..tt.ttnetwork import TTTensor, TTOperator
+        from ..tt.dsl import _try_tt_eval
+        labels = _open_label_order(self)
+        if labels is None:
+            return None
+        for cls in (TTTensor, TTOperator):
+            out = _try_tt_eval(cls, labels, self)
+            if out is not None:
+                return out
+        return None
+
     def frob_norm(self) -> float:
+        tt = self._try_tt()
+        if tt is not None:
+            return tt.frob_norm()
+        if _has_tt_operand(self):
+            from ..tt.dsl import tt_assign
+            tt_assign.dense_fallbacks += 1
         return self._to_tensor().frob_norm()
 
     def __float__(self) -> float:
@@ -79,6 +105,34 @@ class Expression:
     @property
     def value(self) -> float:
         return float(self)
+
+
+def _open_label_order(expr: "Expression"):
+    """Open labels of an expression in appearance order, or None."""
+    from .evaluate import _resolve_term, _open_labels
+    if isinstance(expr, Sum):
+        return _open_label_order(expr.terms[0][1])
+    if isinstance(expr, IndexedTensor):
+        expr = Product([expr])
+    if not isinstance(expr, Product):
+        return None
+    terms = []
+    for f in expr.factors:
+        terms.extend(_resolve_term(f))
+    return _open_labels(terms)
+
+
+def _has_tt_operand(expr: "Expression") -> bool:
+    from ..tt.ttnetwork import TTNetwork
+    if isinstance(expr, IndexedTensor):
+        return isinstance(expr.obj, TTNetwork)
+    if isinstance(expr, Product):
+        return any(_has_tt_operand(f) for f in expr.factors)
+    if isinstance(expr, Sum):
+        return any(_has_tt_operand(t) for _, t in expr.terms)
+    if isinstance(expr, SolveExpr):
+        return _has_tt_operand(expr.A) or _has_tt_operand(expr.b)
+    return False
 
 
 def _scaled(expr: "Expression", s: float) -> "Expression":
@@ -94,9 +148,9 @@ def _scaled(expr: "Expression", s: float) -> "Expression":
 class IndexedTensor(Expression):
     """A tensor-like object together with its index tuple.
 
-    ``obj`` is a core Tensor; writability follows the reference's
-    IndexedTensor vs IndexedTensorReadOnly split: here every IndexedTensor
-    may be an assignment target via ``<<``.
+    ``obj`` is a core Tensor, a TensorNetwork or a TTNetwork; writability
+    follows the reference's IndexedTensor vs IndexedTensorReadOnly split:
+    here every IndexedTensor may be an assignment target via ``<<``.
     """
 
     def __init__(self, obj, indices: Sequence):
