@@ -35,7 +35,16 @@ full width:
   and as a lazy network on the native path optimizer's order; the TT-SVD
   round trip of the completion truth; a BINARY file round trip; K2's
   float64 bonds beside their bound and float64 gesvd; then the same at
-  d=12 on the card and under ``host()``, held against each other.
+  d=12 on the card and under ``host()``, held against each other;
+- the algorithms layer through the public names: the north-star solve by
+  ``xt.als_spd_fused`` on the instance's objects (K1, counted) against
+  the core-level run, ``xt.ALS_SPD`` in float64 at d=32 rank 30 with its
+  residual in TT form, the README's Quick start against a dense solve,
+  ALS / ALS_SPD_CG / ASD_SPD / DMRG_SPD / als_spd_mixed at d=8 on the
+  card and under ``host()``, completion on ``TTTensor``s (the d=10
+  instance through ``xt.ADFVariant`` with K3 counted, workload 5 through
+  the host-bump loop, IHT), the largest entry of the d=10 truth against
+  its full grid, and UQ-ADF on the card and under ``host()``.
 
 It checks the host-f64 residual of the solve, the f32-vs-f64 log-norm
 of every rounding and the completion's residuals against the JAX
@@ -323,7 +332,7 @@ def phase_slice(dev):
     if launches != EXPECTED_K1_LAUNCHES:
         raise AssertionError(f"K1 launched {launches} times in the solve, "
                              f"expected {EXPECTED_K1_LAUNCHES}")
-    return launches, sol, res
+    return launches, sol, res, {"hist": hist[:cnt].tolist(), "wall": wall}
 
 
 def phase_breakdown(dev):
@@ -922,9 +931,10 @@ def phase_k3(dev):
 
 def _adf(inst, dev, max_iterations):
     import torch
-    from xerus_tpu_torch.algorithms import ADFVariant
+    from xerus_tpu_torch.algorithms import ADFVariant, adf_cores
     from xerus_tpu_torch.convert import cores_to_torch
-    return ADFVariant(max_iterations, COMPLETION_TARGET, 0.9999)(
+    return adf_cores(
+        ADFVariant(max_iterations, COMPLETION_TARGET, 0.9999),
         list(cores_to_torch(inst.start, dev, torch.float64)),
         inst.measurements, max_ranks=inst.max_ranks, check_every="device")
 
@@ -936,14 +946,14 @@ def phase_completion_small(dev):
     recovered tensors alike."""
     import numpy as np
     import torch
-    from xerus_tpu_torch.algorithms import find_largest_entry
+    from xerus_tpu_torch.algorithms import find_largest_entry_cores
     from xerus_tpu_torch.examples import host_full_tensor, workload5_instance
     full = {}
     for name, device in (("card", dev), ("CPU", torch.device("cpu"))):
         inst = workload5_instance()
         t0 = time.perf_counter()
         out = _adf(inst, device, 400)
-        pos = find_largest_entry(out.cores, accuracy=0.05)
+        pos = find_largest_entry_cores(out.cores, accuracy=0.05)
         wall = time.perf_counter() - t0
         h = [c.cpu().numpy() for c in out.cores]
         arr = np.abs(host_full_tensor(h))
@@ -1027,7 +1037,9 @@ def phase_completion_slice(dev):
         raise AssertionError(f"K3 launched {launches} times in the "
                              f"completion path, expected "
                              f"{EXPECTED_K3_LAUNCHES}")
-    return launches
+    return launches, {"residual": out.residual, "iterations": out.iterations,
+                      "ranks": out.ranks, "grid error": grid_err,
+                      "wall": wall}
 
 
 def phase_iht(dev):
@@ -1035,7 +1047,7 @@ def phase_iht(dev):
     per step-size trial) against the same on the CPU."""
     import numpy as np
     import torch
-    from xerus_tpu_torch.algorithms import IHT
+    from xerus_tpu_torch.algorithms import iht_cores
     from xerus_tpu_torch.convert import cores_to_torch
     from xerus_tpu_torch.examples import workload5_instance
     from xerus_tpu_torch.examples.completion import random_tt
@@ -1048,7 +1060,7 @@ def phase_iht(dev):
         x0 = list(cores_to_torch(start, device, torch.float64))
         te.reset_counters()
         t0 = time.perf_counter()
-        _x, res[name] = IHT(x0, inst.measurements, IHT_ITERATIONS)
+        _x, res[name] = iht_cores(x0, inst.measurements, IHT_ITERATIONS)
         wall = time.perf_counter() - t0
         print(f"IHT workload 5 on the {name}: {IHT_ITERATIONS} iterations "
               f"from a random unit-norm rank-3 TT, residual "
@@ -1059,6 +1071,7 @@ def phase_iht(dev):
                                  "iteration and step-size trial")
     if not abs(res["card"] - res["CPU"]) <= 1e-8 * res["CPU"]:
         raise AssertionError("card and CPU disagree on IHT")
+    return res["card"]
 
 
 # the object layer (misc/, core/, indexing/) through its public names, in
@@ -1793,6 +1806,331 @@ def phase_tt_objects(dev, smi, solution, host_residual, round_ref,
     return launches
 
 
+# the algorithms layer through the public names (phase_algorithms), in
+# float64 unless stated: the north-star solve through als_spd_fused, the
+# float64 ALS at full width, the README's Quick start, the other solvers
+# at d=8 on the card and under host(), completion, search and UQ-ADF on
+# TTTensors
+ALG_FUSED_HIST_REL = 1e-6      # als_spd_fused's f32 history vs phase_slice's
+ALG_FUSED_RES_ABS = 1e-13      # its host-f64 residual vs phase_slice's
+ALG_ALS64 = (32, 30, 1e-14)    # d, rank, convergence epsilon of ALS_SPD
+ALG_QUICKSTART = (9, 3, 1e-6)  # d, rank, bar against numpy.linalg.solve
+ALG_SMALL_D = 8                # the other solvers, card and host()
+ALG_CARD_HOST = 1e-10          # their residuals, card vs host()
+ALG_UQ_ERR = 1e-3              # UQ-ADF's prediction error on its samples
+
+
+def _poisson_objects(xt, d, rank, dev):
+    """The QTT Poisson instance of ``qtt_poisson_instance`` as objects:
+    x (canonical at 0), A, b."""
+    from xerus_tpu_torch.examples import qtt_poisson_instance
+    xs, A, b = qtt_poisson_instance(d, rank, SEED)
+    tt = xt.convert.tt_from_numpy
+    return (tt(xs, canonicalized=True, device=dev),
+            tt(A, operator=True, device=dev), tt(b, device=dev))
+
+
+def _tt_residual(xt, A, x, b):
+    """frob_norm(A x - b) / frob_norm(b) through the DSL in TT form."""
+    i, j = xt.indices(2)
+    return xt.frob_norm(A(i / 2, j / 2) * x(j & 0) - b(i & 0)) / b.frob_norm()
+
+
+def _other_solvers(xt, d):
+    """ALS (normal equations), ALS_SPD_CG, ASD_SPD, DMRG_SPD and
+    als_spd_mixed on the d-site QTT Poisson system from one seed, on the
+    current compute device: each solver's TT residual, ranks and wall."""
+    import torch
+    out = {}
+    solvers = (("ALS", lambda A, x, b: (xt.ALS(A, x, b, 1e-12), x)[1]),
+               ("ALS_SPD_CG", lambda A, x, b:
+                (xt.ALS_SPD_CG(A, x, b, 1e-12), x)[1]),
+               ("ASD_SPD", lambda A, x, b: (xt.ASD_SPD(A, x, b, 40), x)[1]),
+               ("DMRG_SPD", lambda A, x, b:
+                (xt.DMRG_SPD(A, x, b, 1e-12), x)[1]),
+               ("als_spd_mixed", lambda A, x, b: xt.als_spd_mixed(A, x, b,
+                                                                  4)))
+    for name, solve in solvers:
+        xt.set_seed(SEED)
+        A = xt.examples.laplace_operator([2] * d)
+        b = xt.TTTensor.ones([2] * d)
+        b /= b.frob_norm()
+        x = xt.TTTensor.random([2] * d, 4)
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x = solve(A, x, b)
+        res = _tt_residual(xt, A, x, b)
+        out[name] = (res, x.ranks(), time.perf_counter() - t0)
+    return out
+
+
+def _uq_case(xt):
+    """UQ-ADF on a seeded instance (a [4, 3, 3] rank-2 truth, 120
+    samples): the recovered TT on the host and its mean prediction error
+    on the samples."""
+    import numpy as np
+    xt.set_seed(SEED)
+    truth = xt.TTTensor.random([4, 3, 3], 2)
+    truth /= truth.frob_norm()
+    arr = truth.to_tensor().to_ndarray()
+    rng = xt.misc.randomEngine
+    rvs, sols = [], []
+    for _ in range(120):
+        rv = [float(rng.normal()), float(rng.normal())]
+        w = [xt.algorithms.randvar_to_position(v, 3) for v in rv]
+        rvs.append(rv)
+        sols.append(xt.Tensor.from_ndarray(np.einsum("abc,b,c->a", arr, *w)))
+    x = xt.TTTensor.random([4, 3, 3], 2)
+    xt.uq_adf(x, rvs, sols)
+    got = x.to_tensor().to_ndarray()
+    err = float(np.mean([np.linalg.norm(np.einsum(
+        "abc,b,c->a", got, *[xt.algorithms.randvar_to_position(v, 3)
+                             for v in rv]) - s.to_ndarray())
+        for rv, s in zip(rvs, sols)]))
+    return got, err
+
+
+def phase_algorithms(dev, smi, slice_run, slice_residual, completion,
+                     iht_residual):
+    """The algorithms layer on the card through the public names
+    (``import xerus_tpu_torch as xt``): the north-star solve by
+    ``xt.als_spd_fused`` (K1, counted) against phase_slice's core-level
+    run, ``xt.ALS_SPD`` in float64 on the same d=32 rank-30 system, the
+    README's Quick start against a dense solve, ALS / ALS_SPD_CG / ASD_SPD /
+    DMRG_SPD / als_spd_mixed at d=8 on the card and under host(), then
+    completion on TTTensors (the d=10 instance through ``xt.ADFVariant``
+    with K3 counted, workload 5 through the host-bump loop, IHT), the
+    largest entry of the d=10 truth against the argmax of its full grid,
+    and UQ-ADF on the card and under host()."""
+    import numpy as np
+    import torch
+    import xerus_tpu_torch as xt
+    from xerus_tpu_torch.examples import (completion_instance,
+                                          full_grid_positions,
+                                          host_full_tensor,
+                                          host_poisson_residual,
+                                          workload5_instance)
+    from xerus_tpu_torch.examples.completion import random_tt
+    from xerus_tpu_torch.ops import round_kernels as rk
+    from xerus_tpu_torch.ops import tt_eval as te
+    from xerus_tpu_torch.ops.df_matvec import df_matvec
+    from xerus_tpu_torch.tt import dsl as tt_dsl
+    t_phase = time.perf_counter()
+    fails = []
+
+    def sync():
+        torch.cuda.synchronize()
+
+    # 1. the north-star solve through the public entry; the symmetry
+    # check it pays first, timed alone on a copy of the operator
+    x, A, b = _poisson_objects(xt, D, RANK, dev)
+    A_copy = _poisson_objects(xt, D, RANK, dev)[1]
+    sync()
+    t0 = time.perf_counter()
+    symmetric = A_copy.is_symmetric()
+    sync()
+    sym_wall = time.perf_counter() - t0
+    df_matvec.launches = 0
+    t0 = time.perf_counter()
+    sol, hist = xt.als_spd_fused(A, x, b, MAX_F32_SWEEPS, DF_SWEEPS)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = df_matvec.launches
+    from xerus_tpu_torch.examples import qtt_poisson_instance
+    _xs, A64, b64 = qtt_poisson_instance(D, RANK, SEED)
+    res = host_poisson_residual([c.to_ndarray() for c in sol.components],
+                                A64, b64)
+    ref = slice_run["hist"]
+    hist_rel = max(abs(h - r) / r for h, r in zip(hist, ref)) \
+        if len(hist) == len(ref) else float("inf")
+    print(f"algorithms: xt.als_spd_fused d={D} rank {RANK}: host-f64 "
+          f"residual {res:.3e} (bar {RESIDUAL_BAR:g}; core-level "
+          f"{slice_residual:.3e}, bar {ALG_FUSED_RES_ABS:g} apart), f32 "
+          f"half-sweeps {len(hist)} (core-level {len(ref)}), history within "
+          f"{hist_rel:.3e} relative of the core-level run's (bar "
+          f"{ALG_FUSED_HIST_REL:g}), K1 launches {launches}, wall "
+          f"{wall:.3f} s (core-level {slice_run['wall']:.3f} s; the "
+          f"operator's symmetry check alone {sym_wall:.3f} s, symmetric "
+          f"{symmetric}); {smi}")
+    if not (res <= RESIDUAL_BAR
+            and abs(res - slice_residual) <= ALG_FUSED_RES_ABS):
+        fails.append("als_spd_fused's residual")
+    if not (len(hist) == len(ref) == 4 and hist_rel <= ALG_FUSED_HIST_REL):
+        fails.append("als_spd_fused's f32 half-sweeps")
+    if launches != EXPECTED_K1_LAUNCHES:
+        fails.append(f"K1 launched {launches} times in als_spd_fused, "
+                     f"expected {EXPECTED_K1_LAUNCHES}")
+
+    # 2. the float64 ALS at full width
+    d, rank, eps = ALG_ALS64
+    x, A, b = _poisson_objects(xt, d, rank, dev)
+    perf = xt.PerformanceData()
+    fallbacks0 = tt_dsl.tt_assign.dense_fallbacks
+    reads0 = rk.host_bool.reads
+    sync()
+    t0 = time.perf_counter()
+    ret = xt.ALS_SPD(A, x, b, eps, perf)
+    sync()
+    wall = time.perf_counter() - t0
+    reads = rk.host_bool.reads - reads0
+    res = _tt_residual(xt, A, x, b)
+    dense = tt_dsl.tt_assign.dense_fallbacks - fallbacks0
+    on_card = x.components[0]._torch().device.type == dev.type
+    print(f"algorithms: xt.ALS_SPD float64 d={d} rank {rank} eps {eps:g}: "
+          f"residual in TT form {res:.3e} (bar {RESIDUAL_BAR:g}; returned "
+          f"{ret:.3e}), half-sweeps {len(perf.data)}, host reads {reads}, "
+          f"ranks max {max(x.ranks())}, dense fallbacks {dense}, cores on "
+          f"the card {on_card}, wall {wall:.3f} s; {smi}")
+    if not (res <= RESIDUAL_BAR and dense == 0 and on_card):
+        fails.append("ALS_SPD in float64 at d=32")
+
+    # 3. the README's Quick start, on xt
+    d, rank, bar = ALG_QUICKSTART
+    xt.set_seed(SEED)
+    A = xt.examples.laplace_operator([2] * d)   # rank-2 MPO
+    b = xt.TTTensor.ones([2] * d)
+    x = xt.TTTensor.random([2] * d, rank)
+    xt.ALS_SPD(A, x, b, 1e-12)
+    i, j = xt.indices(2)
+    residual = (A(i / 2, j / 2) * x(j & 0) - b(i & 0)).frob_norm()
+    n = 2 ** d
+    ref = np.linalg.solve(A.to_tensor().to_ndarray().reshape(n, n),
+                          np.ones(n))
+    got = x.to_tensor().to_ndarray().reshape(n)
+    err = float(np.linalg.norm(got - ref) / np.linalg.norm(ref))
+    print(f"algorithms: Quick start d={d}: residual {residual:.3e}, "
+          f"against numpy.linalg.solve {err:.3e} (bar {bar:g})")
+    if not err <= bar:
+        fails.append("the Quick start")
+
+    # 4. the other solvers at d=8, card against host()
+    card = _other_solvers(xt, ALG_SMALL_D)
+    with xt.host():
+        cpu = _other_solvers(xt, ALG_SMALL_D)
+    for name, (r_card, ranks, w) in card.items():
+        r_cpu, ranks_cpu, w_cpu = cpu[name]
+        print(f"algorithms: {name} d={ALG_SMALL_D}: residual card "
+              f"{r_card:.3e}, host() {r_cpu:.3e}, ranks {ranks} / "
+              f"{ranks_cpu}, wall card {w:.3f} s, host() {w_cpu:.3f} s")
+        if not (abs(r_card - r_cpu) <= ALG_CARD_HOST and ranks == ranks_cpu
+                and np.isfinite(r_card)):
+            fails.append(f"{name}: card and host() disagree")
+
+    # 5. completion on TTTensors
+    inst = completion_instance()
+    ms = inst.measurements
+    tt = xt.convert.tt_from_numpy
+    truth = tt(inst.truth, canonicalized=True, device=dev)
+    x = tt(inst.start, canonicalized=True, device=dev)
+    grid = xt.SinglePointMeasurementSet.from_arrays(
+        full_grid_positions(truth.dimensions))
+    sync()
+    te.reset_counters()
+    ms.measure(truth)
+    t0 = time.perf_counter()
+    res = xt.ADFVariant(2000, COMPLETION_TARGET, 0.9999)(
+        x, ms, max_ranks=inst.max_ranks, check_every="device")
+    sync()
+    wall = time.perf_counter() - t0
+    test = ms.test(x)
+    grid.measure(truth)
+    t_grid = grid.measuredValues
+    grid_err = grid.test(x)
+    sync()
+    k3 = te.tt_eval_at_points.launches
+    host_err = _rel(host_full_tensor([c.to_ndarray() for c in x.components]),
+                    host_full_tensor(inst.truth))
+    res_bar = max(COMPLETION_TARGET, 10 * JAX_D10_RESIDUAL)
+    err_bar = max(COMPLETION_TARGET, 10 * JAX_D10_GRID_ERR)
+    print(f"algorithms: xt.ADFVariant on a TTTensor, d=10 n=4 rank 8, 20000 "
+          f"samples, check_every='device': residual {res:.3e} (bar "
+          f"{res_bar:g}), test {test:.3e}, full-grid rel err {grid_err:.3e} "
+          f"(host f64 {host_err:.3e}; bar {err_bar:g}), ranks {x.ranks()}, "
+          f"wall {wall:.3f} s, K3 launches {k3} (at least "
+          f"{EXPECTED_K3_LAUNCHES}); core-level run: residual "
+          f"{completion['residual']:.3e}, {completion['iterations']} "
+          f"iterations, ranks {completion['ranks']}, wall "
+          f"{completion['wall']:.3f} s; {smi}")
+    if not (res <= res_bar and test <= res_bar and grid_err <= err_bar
+            and abs(grid_err - host_err) <= 1e-12 * max(host_err, 1e-300)
+            + 1e-15 and x.ranks() == completion["ranks"]
+            and np.all(np.isfinite(t_grid))):
+        fails.append("completion on TTTensors")
+    if k3 < EXPECTED_K3_LAUNCHES:
+        fails.append(f"K3 launched {k3} times on the object path")
+
+    # workload 5 drawn through the public names in the benchmark's order
+    # (the same instance as workload5_instance), so that the host-bump
+    # kicks that follow come from the engine state they have there
+    inst5 = workload5_instance()
+    xt.set_seed(SEED + 5)
+    truth5 = xt.TTTensor.random([4] * 5, 3)
+    truth5 /= truth5.frob_norm()
+    ms5 = xt.SinglePointMeasurementSet.random(400, [4] * 5)
+    ms5.measure(truth5)
+    x5 = xt.TTTensor.random([4] * 5, 1)
+    same = (np.array_equal(ms5.positions, inst5.measurements.positions)
+            and _rel(x5.to_tensor().to_ndarray().reshape(-1),
+                     host_full_tensor(inst5.start)) <= 1e-14)
+    t0 = time.perf_counter()
+    perf = xt.PerformanceData()
+    res5 = xt.ADFVariant(400, COMPLETION_TARGET, 0.9999)(
+        x5, ms5, max_ranks=[3] * 4, perf_data=perf)
+    wall = time.perf_counter() - t0
+    pos = xt.find_largest_entry(x5, accuracy=0.05)
+    arr = np.abs(x5.to_tensor().to_ndarray()).reshape(-1)
+    frac = float(arr[pos] / arr.max())
+    bumps = len({tuple(p.ranks) for p in perf.data}) - 1
+    print(f"algorithms: workload 5 through the host-bump loop "
+          f"(check_every=1): residual {res5:.3e} (target "
+          f"{COMPLETION_TARGET:g}), {len(perf.data)} iterations, {bumps} "
+          f"rank bumps, ranks {x5.ranks()}, largest entry {pos}, "
+          f"found_entry_frac_of_max {frac}, wall {wall:.3f} s; the "
+          f"instance is workload5_instance's: {same}")
+    if not (res5 < COMPLETION_TARGET and x5.ranks() == [3] * 4
+            and frac == 1.0 and same):
+        fails.append("workload 5 through the host-bump loop")
+
+    start = random_tt([4] * 5, 3, np.random.default_rng(SEED))
+    start[0] = start[0] / np.linalg.norm(start[0])
+    xi = tt(start, canonicalized=True, device=dev)
+    te.reset_counters()
+    r_iht = xt.IHT(xi, inst5.measurements, max_iterations=IHT_ITERATIONS)
+    k3_iht = te.tt_eval_at_points.launches
+    print(f"algorithms: xt.IHT on a TTTensor, workload 5: residual "
+          f"{r_iht:.9e} (core-level {iht_residual:.9e}), K3 launches "
+          f"{k3_iht}")
+    if not (abs(r_iht - iht_residual) <= 1e-8 * iht_residual
+            and k3_iht == (8 * IHT_ITERATIONS if dev.type == "cuda" else 0)):
+        fails.append("IHT on a TTTensor")
+
+    # 6. search and UQ-ADF
+    t0 = time.perf_counter()
+    pos = xt.find_largest_entry(truth, accuracy=0.05)
+    wall = time.perf_counter() - t0
+    full = np.abs(t_grid)
+    frac = float(full[pos] / full.max())
+    print(f"algorithms: xt.find_largest_entry of the d=10 rank-8 truth "
+          f"({full.size} entries, the squaring iteration, accuracy 0.05): "
+          f"position {pos}, argmax of the full grid {int(full.argmax())}, "
+          f"found_entry_frac_of_max {frac}, wall {wall:.3f} s")
+    if not frac >= 1 - 0.05:
+        fails.append("the largest entry of the d=10 truth")
+    got_card, err_card = _uq_case(xt)
+    with xt.host():
+        got_cpu, err_cpu = _uq_case(xt)
+    diff = _rel(got_card.reshape(-1), got_cpu.reshape(-1))
+    print(f"algorithms: xt.uq_adf [4, 3, 3] rank 2, 120 samples: prediction "
+          f"error card {err_card:.3e}, host() {err_cpu:.3e} (bar "
+          f"{ALG_UQ_ERR:g}), card vs host() {diff:.3e} (bar "
+          f"{ALG_CARD_HOST:g}); phase {time.perf_counter() - t_phase:.1f} s")
+    if not (err_card <= ALG_UQ_ERR and diff <= ALG_CARD_HOST):
+        fails.append("uq_adf")
+    if fails:
+        raise AssertionError("algorithms: " + "; ".join(fails))
+
+
 def main():
     sys.path.insert(0, HERE)
     smi = phase_environment()
@@ -1806,13 +2144,15 @@ def main():
     phase_small_agreement(dev)
     phase_small_rounding(dev)
     phase_completion_small(dev)
-    k1_launches, solution, host_residual = phase_slice(dev)
+    k1_launches, solution, host_residual, slice_run = phase_slice(dev)
     k2_launches, round_ref, ge_f32 = phase_round_slice(dev)
-    k3_launches = phase_completion_slice(dev)
-    phase_iht(dev)
+    k3_launches, completion = phase_completion_slice(dev)
+    iht_residual = phase_iht(dev)
     phase_objects(dev, smi)
     k2_launches += phase_tt_objects(dev, smi, solution, host_residual,
                                     round_ref, ge_f32)
+    phase_algorithms(dev, smi, slice_run, host_residual, completion,
+                     iht_residual)
     phase_breakdown(dev)
     phase_round_breakdown(dev)
     def entry(name, source, replaces, launches, max_abs, timing):

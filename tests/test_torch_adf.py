@@ -223,7 +223,7 @@ def test_bump_cores_with_the_reference_vectors():
 # -- whole solves ----------------------------------------------------------
 
 def _port_solve(variant, x0, ms, **kw):
-    return variant(_t(_np_cores(x0)), ms, **kw)
+    return tadf.adf_cores(variant, _t(_np_cores(x0)), ms, **kw)
 
 
 def test_fixed_rank_device_run_matches_reference():
@@ -366,10 +366,20 @@ def test_adaptive_rank_one_run_reaches_the_target():
 
 
 def test_host_bump_path_waits_for_the_object_layer():
+    """At core level the K=1 and chained drivers solve at the cores' ranks:
+    the rank growth of the host-bump loop belongs to the object layer
+    (ADFVariant.__call__ on a TTTensor, tests/test_torch_algorithms.py),
+    which reaches the maximal ranks."""
     jms, ms, x0 = _completion([4] * 4, 2, 150, 0xBAADF00D, start_rank=1)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        _port_solve(tadf.ADFVariant(30, 1e-8, 0.999), x0, ms,
-                    max_ranks=[2] * 3)
+    for check_every in (1, 4):
+        out = _port_solve(tadf.ADFVariant(30, 1e-8, 0.999), x0, ms,
+                          max_ranks=[2] * 3, check_every=check_every)
+        assert out.ranks == [1, 1, 1] and 0 < out.iterations <= 30
+    import xerus_tpu_torch as xt
+    with xt.host():
+        x = xt.convert.tt_from_numpy(_np_cores(x0))
+        res = tadf.ADFVariant(300, 1e-8, 0.999)(x, ms, max_ranks=[2] * 3)
+    assert x.ranks() == [2, 2, 2] and res < 1e-6
 
 
 def test_reduce_to_maximal_ranks_matches_reference():
@@ -390,7 +400,7 @@ def test_iht_matches_reference():
     x0 = TTTensor.random([3] * 3, 2)
     xj = x0.copy()
     rj = xe.IHT(xj, jms, max_iterations=3)
-    cores, rt = tiht.IHT(_t(_np_cores(x0)), ms, max_iterations=3)
+    cores, rt = tiht.iht_cores(_t(_np_cores(x0)), ms, max_iterations=3)
     np.testing.assert_allclose(rt, rj, rtol=1e-8)
     assert _rel(_dense(cores), _dense(_np_cores(xj))) < 1e-8
     # at the solution the residual stays tiny
@@ -398,7 +408,7 @@ def test_iht_matches_reference():
                                                       jms.measuredValues)
     xs = TTTensor.random([3] * 3, 2)
     target_ms.measure(_t(_np_cores(xs)))
-    _, r = tiht.IHT(_t(_np_cores(xs)), target_ms, max_iterations=3)
+    _, r = tiht.iht_cores(_t(_np_cores(xs)), target_ms, max_iterations=3)
     assert np.isfinite(r) and r < 1e-8
 
 
@@ -419,13 +429,16 @@ def test_iht_large_x_matches_reference():
 def test_largest_entry_matches_reference():
     xe.set_seed(31)
     small = TTTensor.random([4] * 5, 3)
-    assert (tle.find_largest_entry(_t(_np_cores(small)))
+    assert (tle.find_largest_entry_cores(_t(_np_cores(small)))
             == xe.find_largest_entry(small))
     rank1 = TTTensor.random([4] * 9, 1)       # 262,144 entries, rank one
-    assert (tle.find_largest_entry(_t(_np_cores(rank1)))
-            == xe.find_largest_entry(rank1))
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tle.find_largest_entry(_t(_np_cores(TTTensor.random([4] * 9, 2))))
+    general = TTTensor.random([4] * 9, 2)    # the squaring iteration
+    import xerus_tpu_torch as xt
+    with xt.host():                          # TTs past 65,536 entries
+        assert (tle.find_largest_entry_cores(_t(_np_cores(rank1)))
+                == xe.find_largest_entry(rank1))
+        assert (tle.find_largest_entry_cores(_t(_np_cores(general)), 0.1)
+                == xe.find_largest_entry(general, 0.1))
 
 
 def test_workload5_instance_equals_the_reference_instance():
@@ -451,8 +464,9 @@ def test_workload5_instance_equals_the_reference_instance():
 
 def _workload5_port():
     inst = workload5_instance()
-    out = tadf.ADFVariant(400, 1e-8, 0.9999)(
-        _t(inst.start), inst.measurements, max_ranks=inst.max_ranks,
+    out = tadf.adf_cores(
+        tadf.ADFVariant(400, 1e-8, 0.9999), _t(inst.start),
+        inst.measurements, max_ranks=inst.max_ranks,
         check_every="device")
     return inst, out
 
@@ -463,7 +477,7 @@ def test_workload5_on_the_port():
     inst, out = _workload5_port()
     assert out.residual < 1e-8 and out.ranks == [3, 3, 3, 3]
     arr = np.abs(_dense(out.cores))
-    pos = tle.find_largest_entry(out.cores, accuracy=0.05)
+    pos = tle.find_largest_entry_cores(out.cores, accuracy=0.05)
     assert arr[pos] == arr.max()
 
 
@@ -483,5 +497,5 @@ def test_workload5_in_both_packages():
     inst, out = _workload5_port()
     assert rj < 1e-8 and out.residual < 1e-8
     assert xj.ranks() == out.ranks == [3, 3, 3, 3]
-    assert (tle.find_largest_entry(out.cores, accuracy=0.05)
+    assert (tle.find_largest_entry_cores(out.cores, accuracy=0.05)
             == xe.find_largest_entry(xj, accuracy=0.05))

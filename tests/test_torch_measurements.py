@@ -29,7 +29,7 @@ def _cores(tt):
 def test_same_seed_same_positions(num, dims):
     xe.set_seed(1234 + num)
     j = xe.SinglePointMeasurementSet.random(num, dims)
-    t = tm.SinglePointMeasurementSet.random(num, dims, _gen(1234 + num))
+    t = tm.SinglePointMeasurementSet.random(num, dims, rng=_gen(1234 + num))
     np.testing.assert_array_equal(t.positions, j.positions)
     assert t.positions.dtype == np.int64
     assert t.size() == num and t.degree() == len(dims)
@@ -38,7 +38,7 @@ def test_same_seed_same_positions(num, dims):
 def test_same_seed_same_rank_one_weights():
     xe.set_seed(77)
     j = xe.RankOneMeasurementSet.random(10, [3, 4, 3])
-    t = tm.RankOneMeasurementSet.random(10, [3, 4, 3], _gen(77))
+    t = tm.RankOneMeasurementSet.random(10, [3, 4, 3], rng=_gen(77))
     for a, b in zip(t.positions, j.positions):
         np.testing.assert_array_equal(a, b)
 
@@ -79,7 +79,7 @@ def test_rank_one_measure_and_test_on_cores_and_dense():
     tt = TTTensor.random(dims, 2)
     j = xe.RankOneMeasurementSet.random(10, dims)
     j.measure(tt)
-    t = tm.RankOneMeasurementSet.random(10, dims, _gen(8 + 1))
+    t = tm.RankOneMeasurementSet.random(10, dims, rng=_gen(8 + 1))
     t.positions = j.positions
     t.measure(_cores(tt))
     np.testing.assert_allclose(t.measuredValues, j.measuredValues, rtol=0,
@@ -171,7 +171,7 @@ def test_positions_reach_a_device_once_and_are_range_checked():
 
 def test_too_many_measurements_and_bad_values_raise():
     with pytest.raises(ValueError, match="more measurements"):
-        tm.SinglePointMeasurementSet.random(10, [3, 3], _gen(0))
+        tm.SinglePointMeasurementSet.random(10, [3, 3], rng=_gen(0))
     with pytest.raises(ValueError, match="one value"):
         tm.SinglePointMeasurementSet.from_arrays([[0, 1]], [1.0, 2.0])
     with pytest.raises(TypeError, match="cannot measure"):

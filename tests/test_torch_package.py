@@ -86,9 +86,9 @@ def test_completion_imports_without_jax():
     code = (
         "import sys; sys.modules['jax'] = None\n"
         "import numpy as np, torch\n"
-        "from xerus_tpu_torch.algorithms import (ADFVariant, IHT, "
+        "from xerus_tpu_torch.algorithms import (ADFVariant, adf_cores, "
         "RankOneMeasurementSet, SinglePointMeasurementSet, "
-        "find_largest_entry)\n"
+        "find_largest_entry_cores, iht_cores)\n"
         "from xerus_tpu_torch.examples import (workload5_instance, "
         "full_grid_positions, host_full_tensor)\n"
         "from xerus_tpu_torch.ops import adf_kernels, stacking, tt_eval\n"
@@ -100,11 +100,12 @@ def test_completion_imports_without_jax():
         "vals = tt_eval.tt_eval_at_points(cs, grid).numpy()\n"
         "assert np.abs(vals - host_full_tensor(inst.truth)).max() < 1e-14\n"
         "assert inst.measurements.test(cs) < 1e-14\n"
-        "out = ADFVariant(20, 1e-8, 0.9999)(list(cores_to_torch(inst.start, "
-        "torch.device('cpu'), torch.float64)), inst.measurements, "
-        "max_ranks=inst.max_ranks, check_every='device')\n"
+        "out = adf_cores(ADFVariant(20, 1e-8, 0.9999), "
+        "list(cores_to_torch(inst.start, torch.device('cpu'), "
+        "torch.float64)), inst.measurements, max_ranks=inst.max_ranks, "
+        "check_every='device')\n"
         "assert out.iterations == 20 and np.isfinite(out.residual)\n"
-        "assert 0 <= find_largest_entry(out.cores) < 4 ** 5\n"
+        "assert 0 <= find_largest_entry_cores(out.cores) < 4 ** 5\n"
         "assert not any(m == 'jax' or m.startswith('jax.') or "
         "m.startswith('xerus_tpu.') for m in sys.modules "
         "if sys.modules[m] is not None)\n"
@@ -124,9 +125,9 @@ def test_every_module_imports_without_jax():
         "mods = [m.name for m in pkgutil.walk_packages(xt.__path__, "
         "'xerus_tpu_torch.')]\n"
         "for name in mods: importlib.import_module(name)\n"
-        "for name in ('misc', 'core', 'indexing', 'network', 'tt'):\n"
-        "    assert any(m.startswith('xerus_tpu_torch.' + name + '.') "
-        "for m in mods), name\n"
+        "for name in ('misc', 'core', 'indexing', 'network', 'tt', "
+        "'algorithms', 'examples', 'models'):\n"
+        "    assert any(m.split('.')[1] == name for m in mods), name\n"
         "with xt.host():\n"
         "    A = xt.Tensor.random([8, 8]); b = xt.Tensor.random([8])\n"
         "    i, j, r1, r2 = xt.indices(4)\n"
@@ -146,6 +147,14 @@ def test_every_module_imports_without_jax():
         "    assert (z - w).frob_norm() < 1e-8 * w.frob_norm()\n"
         "    net = xt.TensorNetwork(x); assert abs(net.frob_norm() - "
         "x.frob_norm()) < 1e-12 * x.frob_norm()\n"
+        "    A = xt.examples.laplace_operator([2] * 6); b = "
+        "xt.TTTensor.ones([2] * 6); x = xt.TTTensor.random([2] * 6, 3)\n"
+        "    assert xt.ALS_SPD(A, x, b, 1e-12) < 1e-10\n"
+        "    assert xt.frob_norm(A(i / 2, j / 2) * x(j & 0) - b(i & 0)) "
+        "< 1e-10 * b.frob_norm()\n"
+        "    xt.set_seed(0)\n"
+        "    truth, ms, x0 = xt.models.completion_problem([4] * 4, 2, 150)\n"
+        "    assert xt.ADF(x0, ms) < 1e-6 and ms.test(x0) < 1e-6\n"
         "assert not any(m == 'jax' or m.startswith('jax.') or "
         "m == 'xerus_tpu' or m.startswith('xerus_tpu.') for m in "
         "sys.modules if sys.modules[m] is not None)\n"
@@ -170,6 +179,116 @@ def test_no_port_file_names_jax():
                     mod = words[1].split(".")[0].rstrip(",")
                     assert mod not in ("jax", "jaxlib", "xerus_tpu"), \
                         (path, line)
+
+
+def _jax_package_top_level_names():
+    """The public names bound at the top of xerus_tpu/__init__.py, read
+    from its source (nothing of the JAX package is imported)."""
+    import ast
+    with open(os.path.join(REPO, "xerus_tpu", "__init__.py")) as fh:
+        tree = ast.parse(fh.read())
+    names = set()
+    for node in tree.body:
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            names |= {(a.asname or a.name).split(".")[0] for a in node.names}
+        elif isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.Assign):
+            names |= {t.id for t in node.targets if isinstance(t, ast.Name)}
+    return {n for n in names if not n.startswith("_")}
+
+
+def test_missing_top_level_names_are_roadmaps_list():
+    """The JAX package's top-level names the port lacks are exactly the
+    ones ROADMAP.md lists, each under the item that brings it; the names
+    this slice brings exist."""
+    import re
+    missing = {n for n in _jax_package_top_level_names()
+               if not hasattr(xerus_tpu_torch, n)}
+    with open(os.path.join(REPO, "ROADMAP.md")) as fh:
+        text = fh.read()
+    block = text.split("<!-- missing top-level names -->")[1]
+    listed = set(re.findall(r"`([A-Za-z_][A-Za-z0-9_]*)`", block.split(
+        "<!-- end -->")[0]))
+    assert missing == listed
+    for name in ("PerformanceData", "NoPerfData", "DataPoint", "ALSVariant",
+                 "ALS", "ALS_SPD", "ALS_SPD_CG", "DMRG", "DMRG_SPD", "ASD",
+                 "ASD_SPD", "SinglePointMeasurementSet",
+                 "RankOneMeasurementSet", "ADFVariant", "ADF", "IHT",
+                 "find_largest_entry", "UQMeasurementSet", "uq_adf", "uq_avg",
+                 "uq_mc", "als_spd_mixed", "als_spd_fused", "models",
+                 "examples"):
+        assert hasattr(xerus_tpu_torch, name), name
+
+
+@pytest.mark.cuda
+def test_als_spd_fused_launches_k1_on_the_card():
+    """xt.als_spd_fused on the d=12 rank-23 QTT Poisson system on the
+    card: K1 runs three refinement residuals per df half-sweep at each of
+    the 2 sites whose 1058-row local systems reach its 2^20 gate (12
+    launches; at d=8 no QTT site reaches it), the same count as the
+    core-level run on the same cores, whose history and solution it
+    reproduces; the solution is float64 quality."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from xerus_tpu_torch.ops.df_matvec import df_matvec
+    from xerus_tpu_torch.ops.mixed_precision import (als_f32_df_run,
+                                                     df_split)
+    xt = xerus_tpu_torch
+    xt.set_seed(0xBAADF00D)
+    dims = [2] * 12
+    A = xt.examples.laplace_operator(dims)
+    b = xt.TTTensor.ones(dims)
+    x = xt.TTTensor.random(dims, 23)
+    gated = sum(1 for c in x.components
+                if (c.dimensions[0] * c.dimensions[1] * c.dimensions[2]) ** 2
+                >= 2 ** 20)
+    df_matvec.launches = 0
+    sol, hist = xt.als_spd_fused(A, x, b)
+    launches = df_matvec.launches
+    assert gated == 2 and launches == gated * 3 * 2
+    i, j = xt.indices(2)
+    res = xt.frob_norm(A(i / 2, j / 2) * sol(j & 0) - b(i & 0)) \
+        / b.frob_norm()
+    assert res < 1e-10
+    y = x.copy()
+    y.move_core(0)
+    f32 = [tuple(c._torch().float() for c in t.components) for t in (y, A, b)]
+    df_matvec.launches = 0
+    out, chist, cnt = als_f32_df_run(
+        *f32, tuple(df_split(c._torch()) for c in A.components),
+        tuple(df_split(c._torch()) for c in b.components), 16, 2)
+    assert df_matvec.launches == launches and hist == chist[:cnt].tolist()
+    ref = xt.TTTensor._make([xt.Tensor._wrap(h.double() + l.double())
+                             for h, l in out])
+    assert (sol - ref).frob_norm() <= 1e-12 * ref.frob_norm()
+
+
+@pytest.mark.cuda
+def test_als_spd_on_the_card_matches_host():
+    """ALS_SPD and ALS on TT objects on the card against the same solves
+    under host(): residuals within 1e-10, the same ranks, the represented
+    tensors within 1e-10 in TT form."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    xt = xerus_tpu_torch
+
+    def solve(variant):
+        xt.set_seed(0xBAADF00D)
+        A = xt.examples.laplace_operator([2] * 8)
+        b = xt.TTTensor.ones([2] * 8)
+        x = xt.TTTensor.random([2] * 8, 4)
+        return variant(A, x, b, 1e-12), x
+
+    for variant in (xt.ALS_SPD, xt.ALS):
+        rc, xc = solve(variant)
+        assert xc.components[0]._torch().device.type == "cuda"
+        with xt.host():
+            rh, xh = solve(variant)
+            xc_host = xt.TTTensor._make([xt.Tensor.from_ndarray(
+                c.to_ndarray()) for c in xc.components])
+            assert (xc_host - xh).frob_norm() <= 1e-10 * xh.frob_norm()
+        assert abs(rc - rh) <= 1e-10 and xc.ranks() == xh.ranks()
 
 
 def test_object_layer_defaults():

@@ -15,8 +15,12 @@ level (``algorithms``) with its hand kernel K3 (``ops.tt_eval``,
 and solves (``core``), the indexed-expression frontend (``indexing``), the
 tensor network (``network``) and the TT classes with their arithmetic and
 roundings (``tt``; ``TTTensor.round_fast(..., method="gemm_exact")`` runs
-K2 on the card), under the JAX package's top-level names.  Object
-computations run on the card unless the caller enters ``host()``.
+K2 on the card); and the algorithms on those objects (``algorithms``:
+ALS / DMRG / ASD with ``ALS_SPD`` and ``als_spd_fused``, which runs K1;
+ADF, IHT, the largest-entry search and UQ-ADF on ``TTTensor``s, whose
+measurements run K3; ``PerformanceData``), with the problem generators
+(``examples``) and ``models``, under the JAX package's top-level names.
+Object computations run on the card unless the caller enters ``host()``.
 """
 
 from .config import (config, EPSILON, set_value_dtype, value_dtype, host,
@@ -48,7 +52,14 @@ def entrywise_product(a, b):
 from .misc import (FileFormat, save_to_file, load_from_file, LogHistogram,
                    set_seed, log, xethrow)
 from .core import serialization as _serialization  # registers Tensor I/O
-from . import convert, examples, ops
+
+from .algorithms import (PerformanceData, NoPerfData, DataPoint, ALSVariant,
+                         ALS, ALS_SPD, ALS_SPD_CG, DMRG, DMRG_SPD, ASD,
+                         ASD_SPD, SinglePointMeasurementSet,
+                         RankOneMeasurementSet, ADFVariant, ADF, IHT,
+                         find_largest_entry, UQMeasurementSet, uq_adf,
+                         uq_avg, uq_mc, als_spd_mixed, als_spd_fused)
+from . import algorithms, convert, examples, models, ops
 
 
 def frob_norm(x) -> float:

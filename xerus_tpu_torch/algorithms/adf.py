@@ -1,32 +1,40 @@
-"""ADF — alternating directional fitting for tensor completion, at core
-level.
+"""ADF — alternating directional fitting for tensor completion.
 
 Counterpart of ``xerus_tpu/algorithms/adf.py``: per sweep left to right,
 per core the projected gradient with slice-wise optimal steps; stop on the
 target residual or a stagnating residual decrease; grow the ranks by a
-small random rank-1 kick and solve again, up to the maximal ranks.  A TT
-is a list of (rl, n, rr) torch cores; the iterations run on the cores'
-device (``ops/adf_kernels.py``).
+small random rank-1 kick and solve again, up to the maximal ranks.
+
+``ADFVariant(...)(x, measurements, ...)`` takes a ``TTTensor``, updates it
+and returns the residual, as in the JAX package; its iterations run on the
+tensors of x's components, on the device the TT objects compute on (the
+card unless the caller entered ``host()``, ``ops/adf_kernels.py``).
+``adf_cores`` is the core-level solver underneath: a TT is a list of
+(rl, n, rr) torch cores and the result an ``ADFResult``.
 
 ``check_every`` chooses the driver, as in the JAX package: 1 reads the
 residual after every iteration, K chains K iterations between reads, and
 ``"device"`` runs a whole fixed-rank solve (or, with ranks below
 ``max_ranks``, the whole rank-adaptive solve) with one stop-flag read per
-iteration and no other host decision.  The host-bump adaptive loop of the
-other drivers needs ``TTTensor.round`` and waits for the object layer.
+iteration and no other host decision.  With the other drivers the ranks
+grow in the object layer: between fixed-rank solves, x gets a random
+rank-1 kick and ``TTTensor.round`` to the maximal ranks.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List, Optional, Sequence, Union
+from typing import Callable, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
-from ..config import require
+from ..config import config, require
+from ..core.tensor import Tensor
 from ..ops import adf_kernels as ak
+from ..tt.ttnetwork import TTTensor
 from .measurements import RankOneMeasurementSet
+from .performance_data import NoPerfData, PerformanceData
 
 # iterations per dispatch of the "device" drivers: the JAX package's
 # static compile bucket, kept because the adaptive run restarts its
@@ -34,17 +42,9 @@ from .measurements import RankOneMeasurementSet
 CAP = 512
 
 
-def reduce_to_maximal_ranks(ranks: Sequence[int],
-                            dimensions: Sequence[int]) -> List[int]:
-    """Clamp each bond rank to min(product of the mode sizes left of it,
-    product right of it)."""
-    dims = [int(n) for n in dimensions]
-    out = []
-    for i, r in enumerate(ranks):
-        left = int(np.prod(dims[:i + 1], dtype=object))
-        right = int(np.prod(dims[i + 1:], dtype=object))
-        out.append(min(int(r), left, right))
-    return out
+# each bond rank clamped to min(product of the mode sizes left of it,
+# product right of it)
+reduce_to_maximal_ranks = TTTensor.reduce_to_maximal_ranks
 
 
 def tt_ranks(cores: Sequence[torch.Tensor]) -> List[int]:
@@ -76,29 +76,105 @@ class ADFVariant:
         self.targetResidualNorm = target_residual
         self.minimalResidualNormDecrease = minimal_residual_decrease
 
-    def __call__(self, cores: Sequence[torch.Tensor], measurements,
+    def __call__(self, x: TTTensor, measurements,
                  max_ranks: Optional[Sequence[int]] = None,
-                 check_every: Union[int, str] = 1,
-                 generator: Optional[torch.Generator] = None) -> ADFResult:
-        """Complete the TT ``cores`` from ``measurements``.
+                 perf_data: PerformanceData = NoPerfData,
+                 mesh=None, check_every: Union[int, str] = 1) -> float:
+        """Complete ``x`` in place from ``measurements``; returns the
+        residual relative to the measured values' norm at the start of
+        the last iteration.  ``perf_data`` records every iteration's
+        residual.  The rank bumps of the adaptive device run draw from a
+        CPU ``torch.Generator`` of seed 0 (the JAX package draws from
+        jax.random); those of the other drivers from the library's
+        random engine, as in the JAX package."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "ADF with a mesh (the measurement axis sharded over "
+                "devices) is not ported yet (ROADMAP Queue 1 item 3b)")
+        max_ranks = reduce_to_maximal_ranks(
+            list(max_ranks) if max_ranks is not None else x.ranks(),
+            x.dimensions)
+        perf_data.start()
 
-        ``generator`` (a CPU ``torch.Generator``; seed 0 when None) draws
-        the rank-bump vectors of the adaptive device run."""
+        def record(iteration, residual):
+            perf_data.add(residual, x, 0, iteration=iteration)
+
+        def write_back():
+            x.components = [Tensor._wrap(c) for c in solver.cores]
+            x.assume_core_position(0)
+
+        adaptive = check_every == "device" and x.ranks() != max_ranks
+        if adaptive:
+            x.move_core(0, keep_rank=True)
+        else:
+            # rank-revealing: a bond above the TT's true rank shrinks
+            x.canonicalize_left()
         solver = _InternalSolver(
-            self, cores,
-            list(max_ranks) if max_ranks is not None else tt_ranks(cores),
-            measurements,
-            generator if generator is not None
-            else torch.Generator().manual_seed(0))
+            self, [c._torch() for c in x.components], max_ranks,
+            measurements, torch.Generator().manual_seed(0), record)
         solver.check_every = ("device" if check_every == "device"
                               else max(1, int(check_every)))
-        residual = solver.solve()
-        return ADFResult(list(solver.cores), residual, solver.history)
+        if adaptive:
+            residual = solver._solve_adaptive_device()
+            write_back()
+            return residual
+        solver._solve_current_ranks()
+        write_back()
+        while (solver.residual_norm > self.targetResidualNorm
+               and x.ranks() != max_ranks
+               and (self.maxIterations == 0
+                    or solver.iteration < self.maxIterations)):
+            # the reference's 1e-6 kick (adf.cpp:594), or 16x the rounding
+            # threshold of the value dtype where that is larger, so that
+            # the round keeps every bond's +1 in float32 too
+            x.move_core(0, keep_rank=True)
+            rnd = TTTensor.random(x.dimensions, [1] * (x.degree() - 1))
+            bump = max(1e-6, 16.0 * config.epsilon)
+            scale = bump * x.frob_norm() / (rnd.frob_norm() or 1.0)
+            bumped = x + scale * rnd
+            bumped.round(max_ranks)
+            x.components = bumped.components
+            x.canonicalized = bumped.canonicalized
+            x.corePosition = bumped.corePosition
+            solver.cores = tuple(c._torch() for c in x.components)
+            solver._solve_current_ranks()
+            write_back()
+        return solver.residual_norm
+
+
+def adf_cores(variant: ADFVariant, cores: Sequence[torch.Tensor],
+              measurements, max_ranks: Optional[Sequence[int]] = None,
+              check_every: Union[int, str] = 1,
+              generator: Optional[torch.Generator] = None) -> ADFResult:
+    """The core-level solve of ``variant`` on the TT ``cores``, on their
+    device.  With ``check_every="device"`` and ranks below ``max_ranks``
+    the whole rank-adaptive solve runs; otherwise the solve stays at the
+    cores' ranks (rank growth with the other drivers is the object
+    layer's, ``ADFVariant.__call__``).
+
+    ``generator`` (a CPU ``torch.Generator``; seed 0 when None) draws
+    the rank-bump vectors of the adaptive device run."""
+    solver = _InternalSolver(
+        variant, cores,
+        list(max_ranks) if max_ranks is not None else tt_ranks(cores),
+        measurements,
+        generator if generator is not None
+        else torch.Generator().manual_seed(0))
+    solver.check_every = ("device" if check_every == "device"
+                          else max(1, int(check_every)))
+    if (solver.check_every == "device"
+            and tt_ranks(solver.cores) != list(solver.max_ranks)):
+        residual = solver._solve_adaptive_device()
+    else:
+        solver._solve_current_ranks()
+        residual = solver.residual_norm
+    return ADFResult(list(solver.cores), residual, solver.history)
 
 
 class _InternalSolver:
     def __init__(self, variant: ADFVariant, cores, max_ranks: List[int],
-                 measurements, generator: torch.Generator):
+                 measurements, generator: torch.Generator,
+                 on_record: Optional[Callable[[int, float], None]] = None):
         self.v = variant
         self.cores = tuple(cores)
         self.dims = [int(c.shape[1]) for c in cores]
@@ -106,6 +182,7 @@ class _InternalSolver:
         self.meas = measurements
         self.rank_one = isinstance(measurements, RankOneMeasurementSet)
         self.generator = generator
+        self.on_record = on_record
         self.M = measurements.size()
         self.d = len(cores)
         require(self.d == measurements.degree(),
@@ -133,6 +210,8 @@ class _InternalSolver:
         self.last_residual = self.residual_norm
         self.residual_norm = rv / self.norm_values
         self.history.append(self.residual_norm)
+        if self.on_record is not None:
+            self.on_record(self.iteration, self.residual_norm)
 
     def _scalar(self, x):
         return torch.tensor(x, dtype=self.dtype, device=self.device)
@@ -241,17 +320,5 @@ class _InternalSolver:
         self.cores = tuple(out)
         return self.residual_norm
 
-    def solve(self) -> float:
-        if (self.check_every == "device"
-                and tt_ranks(self.cores) != list(self.max_ranks)):
-            return self._solve_adaptive_device()
-        self._solve_current_ranks()
-        if (self.residual_norm > self.v.targetResidualNorm
-                and tt_ranks(self.cores) != list(self.max_ranks)
-                and (self.v.maxIterations == 0
-                     or self.iteration < self.v.maxIterations)):
-            raise NotImplementedError(
-                "ADF rank growth on the host needs TTTensor.round (ROADMAP "
-                "Queue 1 item 4, the object layer); use check_every="
-                "'device' for the rank-adaptive solve")
-        return self.residual_norm
+
+ADF = ADFVariant(0, 1e-8, 0.999)

@@ -1,4 +1,4 @@
-"""IHT — iterative hard thresholding for tensor completion, at core level.
+"""IHT — iterative hard thresholding for tensor completion.
 
 Counterpart of ``xerus_tpu/algorithms/iht.py``: per iteration, build an
 augmented TT ``largeX`` whose extra rank slots carry one rank-1 update per
@@ -6,19 +6,23 @@ measurement scaled by the scaled residual, project it back to the ranks
 of x by one ALS-like sweep, and keep the step size that best reduces the
 sampled residual.  The TT is evaluated at the measurement positions by
 ``ops.tt_eval.tt_eval_at_points`` (kernel K3 on the card): once per
-iteration and once per step-size trial.
+iteration and once per step-size trial.  ``IHT`` takes a ``TTTensor``
+and updates it, as in the JAX package; ``iht_cores`` is the core-level
+loop underneath, on the cores' device.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
-import numpy as np
 import torch
 
+from ..core.tensor import Tensor
 from ..ops.adf_kernels import canonicalize_left_cores
 from ..ops.tt_eval import tt_eval_at_points
+from ..tt.ttnetwork import TTTensor
 from .measurements import SinglePointMeasurementSet
+from .performance_data import NoPerfData, PerformanceData
 
 _ALPHA_CHG = 1.1
 
@@ -79,11 +83,17 @@ def _project_to_x_ranks(cores: Sequence[torch.Tensor],
     return new_x
 
 
-def IHT(cores: Sequence[torch.Tensor],
-        measurements: SinglePointMeasurementSet,
-        max_iterations: int = 100) -> Tuple[List[torch.Tensor], float]:
-    """Returns (cores, residual): the best iterate and the absolute l2
-    residual at the positions.  One host read per step-size trial."""
+def iht_cores(cores: Sequence[torch.Tensor],
+              measurements: SinglePointMeasurementSet,
+              max_iterations: int = 100,
+              callback: Optional[Callable] = None
+              ) -> Tuple[List[torch.Tensor], float]:
+    """Returns (cores, residual): the last accepted iterate, canonical at
+    its last component (the input cores if no trial was accepted), and
+    the absolute l2 residual at the positions.  ``callback(iteration,
+    residual, cores, accepted)`` runs after every iteration; ``accepted``
+    says whether a step-size trial replaced the iterate.  One host read per
+    step-size trial."""
     dims = [int(c.shape[1]) for c in cores]
     device, dtype = cores[0].device, cores[0].dtype
     positions = measurements.positions_on(device, dims)
@@ -91,7 +101,7 @@ def IHT(cores: Sequence[torch.Tensor],
     x = list(cores)
     alpha = 1.0
     residual = 1.0
-    for _ in range(max_iterations):
+    for iteration in range(max_iterations):
         current = tt_eval_at_points(x, positions)
         best_residual = residual * 2
         new_alpha = alpha
@@ -112,6 +122,24 @@ def IHT(cores: Sequence[torch.Tensor],
             x = best_x
         residual = best_residual
         alpha = new_alpha
+        if callback is not None:
+            callback(iteration, residual, x, best_x is not None)
         if residual < 1e-10 * (measurements.frob_norm() or 1.0):
             break
     return x, residual
+
+
+def IHT(x: TTTensor, measurements: SinglePointMeasurementSet,
+        perf_data: PerformanceData = NoPerfData,
+        max_iterations: int = 100) -> float:
+    """IHT on ``x`` in place; returns the absolute l2 residual at the
+    positions.  ``perf_data`` records every iteration."""
+    def update(iteration, residual, cores, accepted):
+        if accepted:
+            x.components = [Tensor._wrap(c) for c in cores]
+            x.assume_core_position(x.num_components() - 1)
+        perf_data.add(residual, x, 0, iteration=iteration)
+
+    perf_data.start()
+    return iht_cores([c._torch() for c in x.components], measurements,
+                     max_iterations, update)[1]

@@ -1,28 +1,32 @@
-"""Measurement sets for tensor completion, at core level.
+"""Measurement sets for tensor completion.
 
-Counterpart of ``xerus_tpu/algorithms/measurements.py``.  A TT is a list
-of (rl, n, rr) torch cores on one device; there is no ``TTTensor`` object
-yet.  Positions and values live on the host as numpy arrays, as in the
-JAX package; the positions reach a device once per set and device (a
-cached copy, validated against the mode sizes on the host first, so an
-index out of range raises before anything reaches the card).  A TT is
-evaluated at the positions by ``ops.tt_eval.tt_eval_at_points``: kernel
-K3 on the card, its plain version on the CPU, at every M.
+Counterpart of ``xerus_tpu/algorithms/measurements.py``.  Positions and
+values live on the host as numpy arrays, as in the JAX package; the
+positions reach a device once per set and device (a cached copy, validated
+against the mode sizes on the host first, so an index out of range raises
+before anything reaches the card).  A ``TTTensor`` (or a list of (rl, n,
+rr) torch cores) is evaluated at the positions by
+``ops.tt_eval.tt_eval_at_points``: kernel K3 on the card, its plain version
+on the CPU, at every M; a ``Tensor`` is indexed on its device.
 
-Random positions and weights come from an explicit ``np.random.Generator``
-and are drawn in the JAX package's order, so one seed gives the same set
-in both packages.
+Random positions and weights come from the library's random engine
+(``misc.randomEngine``) unless a ``np.random.Generator`` is given, and are
+drawn in the JAX package's order, so one seed gives the same set in both
+packages.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from .. import misc as _misc
 from ..config import require
+from ..core.tensor import Tensor
 from ..ops.tt_eval import tt_eval_at_points
+from ..tt.ttnetwork import TTNetwork
 
 VALUE_DTYPE = np.float64
 
@@ -31,6 +35,27 @@ def _is_cores(solution) -> bool:
     return (isinstance(solution, (list, tuple)) and len(solution) > 0
             and all(isinstance(c, torch.Tensor) and c.dim() == 3
                     for c in solution))
+
+
+def _as_cores(solution):
+    """A TTTensor's component tensors (on the compute device), or the
+    list of cores itself; None for anything else."""
+    if isinstance(solution, TTNetwork):
+        require(not solution.is_operator, "cannot measure a TTOperator")
+        return [c._torch() for c in solution.components]
+    return list(solution) if _is_cores(solution) else None
+
+
+def _dims_or_solution(dimensions_or_solution):
+    """(mode sizes, the solution to measure or None) of the argument of
+    ``random``: a list of sizes, or a TT / Tensor whose sizes are used."""
+    if isinstance(dimensions_or_solution, (list, tuple)) and not _is_cores(
+            dimensions_or_solution):
+        return [int(d) for d in dimensions_or_solution], None
+    sol = dimensions_or_solution
+    if _is_cores(sol):
+        return [int(c.shape[1]) for c in sol], sol
+    return list(sol.dimensions), sol
 
 
 def _rel_error(vals: np.ndarray, ref: np.ndarray) -> float:
@@ -69,21 +94,29 @@ class SinglePointMeasurementSet:
         return out
 
     @classmethod
-    def random(cls, num: int, dimensions: Sequence[int],
-               rng: np.random.Generator,
-               solution=None) -> "SinglePointMeasurementSet":
-        """``num`` distinct random positions; measured on ``solution``
-        (cores, dense array or callback) when one is given."""
+    def random(cls, num: int, dimensions_or_solution,
+               callback: Optional[Callable] = None,
+               rng: Optional[np.random.Generator] = None
+               ) -> "SinglePointMeasurementSet":
+        """``num`` distinct random positions in a list of mode sizes
+        (measured on ``callback`` when one is given), or in the sizes of
+        a TT, cores or Tensor, which is then measured."""
         out = cls()
-        out.create_random_positions(num, dimensions, rng)
+        dims, solution = _dims_or_solution(dimensions_or_solution)
+        out.create_random_positions(num, dims, rng)
         if solution is not None:
             out.measure(solution)
+        elif callback is not None:
+            out.measure(callback)
         return out
 
     def create_random_positions(self, num: int, dimensions: Sequence[int],
-                                rng: np.random.Generator) -> None:
+                                rng: Optional[np.random.Generator] = None
+                                ) -> None:
         """Rejection-sample ``num`` distinct positions, one
-        ``rng.integers`` draw per mode in mode order, then sort them."""
+        ``rng.integers`` draw per mode in mode order (the library's random
+        engine when ``rng`` is None), then sort them."""
+        rng = _misc.randomEngine if rng is None else rng
         dims = [int(d) for d in dimensions]
         require(num <= int(np.prod(np.array(dims, dtype=np.int64))),
                 "more measurements than entries")
@@ -164,11 +197,17 @@ class SinglePointMeasurementSet:
         self.measuredValues = self._eval(solution)
 
     def _eval(self, solution) -> np.ndarray:
-        if _is_cores(solution):
-            dims = [c.shape[1] for c in solution]
-            vals = tt_eval_at_points(
-                list(solution), self.positions_on(solution[0].device, dims))
+        cores = _as_cores(solution)
+        if cores is not None:
+            dims = [c.shape[1] for c in cores]
+            vals = tt_eval_at_points(cores,
+                                     self.positions_on(cores[0].device, dims))
             return vals.to("cpu", torch.float64).numpy()
+        if isinstance(solution, Tensor):
+            arr = solution._torch()
+            P = self.positions_on(arr.device, list(arr.shape))
+            idx = tuple(P[:, k] for k in range(self.degree()))
+            return arr[idx].to("cpu", torch.float64).numpy()
         if isinstance(solution, (np.ndarray, torch.Tensor)):
             arr = np.asarray(solution.cpu() if isinstance(solution, torch.Tensor)
                              else solution)
@@ -216,13 +255,19 @@ class RankOneMeasurementSet:
         return out
 
     @classmethod
-    def random(cls, num: int, dimensions: Sequence[int],
-               rng: np.random.Generator,
-               solution=None) -> "RankOneMeasurementSet":
+    def random(cls, num: int, dimensions_or_solution,
+               callback: Optional[Callable] = None,
+               rng: Optional[np.random.Generator] = None
+               ) -> "RankOneMeasurementSet":
+        """As ``SinglePointMeasurementSet.random``, with Gaussian weight
+        vectors."""
         out = cls()
-        out.create_random_positions(num, dimensions, rng)
+        dims, solution = _dims_or_solution(dimensions_or_solution)
+        out.create_random_positions(num, dims, rng)
         if solution is not None:
             out.measure(solution)
+        elif callback is not None:
+            out.measure(callback)
         return out
 
     @classmethod
@@ -238,9 +283,12 @@ class RankOneMeasurementSet:
         return cls.from_arrays(ws, sp.measuredValues.copy())
 
     def create_random_positions(self, num: int, dimensions: Sequence[int],
-                                rng: np.random.Generator) -> None:
-        """Gaussian weights, one (num, n_k) draw per mode in mode order,
-        then normalized."""
+                                rng: Optional[np.random.Generator] = None
+                                ) -> None:
+        """Gaussian weights, one (num, n_k) draw per mode in mode order
+        (the library's random engine when ``rng`` is None), then
+        normalized."""
+        rng = _misc.randomEngine if rng is None else rng
         self.positions = [np.asarray(rng.normal(size=(num, int(d))),
                                      dtype=VALUE_DTYPE) for d in dimensions]
         self.measuredValues = np.zeros(num, dtype=VALUE_DTYPE)
@@ -316,20 +364,24 @@ class RankOneMeasurementSet:
         self.measuredValues = self._eval(solution)
 
     def _eval(self, solution) -> np.ndarray:
-        if _is_cores(solution):
-            ws = self.weights_on(solution[0].device, solution[0].dtype)
-            F = solution[0].new_ones((self.size(), 1))
-            for C, W in zip(solution, ws):
+        cores = _as_cores(solution)
+        if cores is not None:
+            ws = self.weights_on(cores[0].device, cores[0].dtype)
+            F = cores[0].new_ones((self.size(), 1))
+            for C, W in zip(cores, ws):
                 F = torch.einsum("ma,anb,mn->mb", F, C, W)
             return F[:, 0].to("cpu", torch.float64).numpy()
-        if isinstance(solution, (np.ndarray, torch.Tensor)):
-            out = torch.as_tensor(np.asarray(
-                solution.cpu() if isinstance(solution, torch.Tensor)
-                else solution), dtype=torch.float64)
+        if isinstance(solution, (Tensor, np.ndarray, torch.Tensor)):
+            if isinstance(solution, Tensor):
+                out = solution._torch()
+            else:
+                out = torch.as_tensor(np.asarray(
+                    solution.cpu() if isinstance(solution, torch.Tensor)
+                    else solution), dtype=torch.float64)
             out = out.expand((self.size(),) + tuple(out.shape))
-            for W in self.weights_on("cpu"):
+            for W in self.weights_on(out.device, out.dtype):
                 out = torch.einsum("mn...,mn->m...", out, W)
-            return out.numpy()
+            return out.to("cpu", torch.float64).numpy()
         if callable(solution):
             return np.array(
                 [solution([W[i] for W in self._positions])

@@ -79,9 +79,9 @@ def completion_instance(d: int = 10, n: int = 4, rank: int = 8,
     dims = [n] * d
     truth = random_tt(dims, rank, rng)
     truth[0] = truth[0] / np.linalg.norm(truth[0])   # canonical at 0
-    ms = SinglePointMeasurementSet.random(
-        num, dims, rng, list(cores_to_torch(truth, torch.device("cpu"),
-                                            torch.float64)))
+    ms = SinglePointMeasurementSet.random(num, dims, rng=rng)
+    ms.measure(list(cores_to_torch(truth, torch.device("cpu"),
+                                   torch.float64)))
     start = random_tt(dims, 1, rng)
     return CompletionInstance(truth, ms, start,
                               reduce_to_maximal_ranks([rank] * (d - 1), dims))

@@ -1,34 +1,76 @@
-"""Single-site SPD ALS half-sweeps and the cancellation-free TT residual.
+"""Single-site ALS half-sweeps, the cancellation-free TT residual and the
+whole-solve drivers.
 
-The ALS half of ``xerus_tpu/ops/tt_kernels.py``: ``_als_half_sweep``,
-``_als_half_sweep_rl``, ``_tt_log_norm_qr`` and ``tt_residual_rel``.  The
-JAX package traced each half-sweep into one XLA program; here the same
-einsums, local solves and QRs run eagerly on whatever device the cores are
-on.  Cores are (left rank, n, right rank) tensors; operator cores are
-(left rank, m, n, right rank).
+The ALS half of ``xerus_tpu/ops/tt_kernels.py`` (``:2138-2710``): the SPD
+half-sweeps ``_als_half_sweep`` / ``_als_half_sweep_rl`` (Cholesky or LU
+local solves), the matrix-free CG half-sweep, the ASD half-sweep, the
+normal-equations half-sweep for general operators, ``_tt_log_norm_qr`` and
+``tt_residual_rel``; then the drivers the JAX package compiled through its
+``make_*`` factories, here plain functions: ``als_sweep``,
+``als_sweep_res``, ``als_multi_sweep_res``, ``als_run``, ``als_run_rev``,
+``als_half_sweep_batched`` and ``als_sweep_flops``.  The JAX package
+traced each half-sweep into one XLA program; here the same einsums, local
+solves and QRs run eagerly on whatever device the cores are on.  Cores
+are (left rank, n, right rank) tensors; operator cores are (left rank, m,
+n, right rank).
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+import math
+from typing import List, Sequence, Tuple
 
 import torch
 
+from .round_kernels import host_bool
+
 Cores = Tuple[torch.Tensor, ...]
+
+_TINY = 1e-30
 
 
 def _local_solve(A: torch.Tensor, b: torch.Tensor, assume: str):
     """"pos": Cholesky (symmetric operators); "gen": LU.
 
     The ``_ex`` forms do not check the factorization on the host, so a
-    solve costs no device sync; a failed factorization gives NaNs, as
-    jax.scipy.linalg.solve does."""
+    solve costs no device sync.  A failed factorization gives NaNs, as
+    jax.scipy.linalg.solve does: LAPACK's and cuSOLVER's factorizations
+    stop at the failing pivot and leave finite values behind, so the
+    factorization's ``info`` selects NaNs on the device."""
     if assume == "pos":
-        L = torch.linalg.cholesky_ex(A)[0]
-        return torch.cholesky_solve(b[:, None], L)[:, 0]
-    if assume == "gen":
-        return torch.linalg.solve_ex(A, b)[0]
-    raise ValueError(f"assume must be 'pos' or 'gen', got {assume!r}")
+        L, info = torch.linalg.cholesky_ex(A)
+        x = torch.cholesky_solve(b[:, None], L)[:, 0]
+    elif assume == "gen":
+        x, info = torch.linalg.solve_ex(A, b)
+    else:
+        raise ValueError(f"assume must be 'pos' or 'gen', got {assume!r}")
+    return torch.where(info == 0, x, torch.full_like(x, math.nan))
+
+
+def _right_envs(x_cores, A_cores, b_cores):
+    """Right environments of the SPD sweeps: op_right[k] and rhs_right[k]
+    hold sites k..d-1 (op_right[d], rhs_right[d] are ones)."""
+    d = len(x_cores)
+    op_right = [None] * (d + 1)
+    rhs_right = [None] * (d + 1)
+    op_right[d] = x_cores[0].new_ones((1, 1, 1))
+    rhs_right[d] = x_cores[0].new_ones((1, 1))
+    for k in range(d - 1, 0, -1):
+        xc, Ac, bc = x_cores[k], A_cores[k], b_cores[k]
+        op_right[k] = torch.einsum("umU,amnb,vnV,UbV->uav", xc, Ac, xc,
+                                   op_right[k + 1])
+        rhs_right[k] = torch.einsum("umU,bmB,UB->ub", xc, bc,
+                                    rhs_right[k + 1])
+    return op_right, rhs_right
+
+
+def _move_right(x_cores: List[torch.Tensor], k: int, core: torch.Tensor
+                ) -> None:
+    """Core ``core`` at site k becomes its Q; R goes into site k + 1."""
+    rl, n, rr = core.shape
+    q, r = torch.linalg.qr(core.reshape(rl * n, rr))
+    x_cores[k] = q.reshape(rl, n, q.shape[1])
+    x_cores[k + 1] = torch.einsum("ab,bnc->anc", r, x_cores[k + 1])
 
 
 def _als_half_sweep(x_cores: Sequence[torch.Tensor],
@@ -37,22 +79,13 @@ def _als_half_sweep(x_cores: Sequence[torch.Tensor],
                     ) -> Cores:
     """Left-to-right single-site ALS half-sweep (energy-functional local
     problems); x canonicalized at site 0.  Returns the cores with the core
-    at site d-1."""
+    at site d-1.  ``assume`` picks the local solver: "pos" Cholesky
+    (symmetric operators), "gen" LU; the caller decides once per operator,
+    as the JAX package does."""
     d = len(x_cores)
-    one3 = x_cores[0].new_ones((1, 1, 1))
-    one2 = x_cores[0].new_ones((1, 1))
-    op_right = [None] * (d + 1)
-    rhs_right = [None] * (d + 1)
-    op_right[d] = one3
-    rhs_right[d] = one2
-    for k in range(d - 1, 0, -1):
-        xc, Ac, bc = x_cores[k], A_cores[k], b_cores[k]
-        op_right[k] = torch.einsum("umU,amnb,vnV,UbV->uav", xc, Ac, xc,
-                                   op_right[k + 1])
-        rhs_right[k] = torch.einsum("umU,bmB,UB->ub", xc, bc, rhs_right[k + 1])
-
+    op_right, rhs_right = _right_envs(x_cores, A_cores, b_cores)
     x_cores = list(x_cores)
-    op_left, rhs_left = one3, one2
+    op_left, rhs_left = op_right[d], rhs_right[d]
     for k in range(d):
         Ac, bc = A_cores[k], b_cores[k]
         Aloc = torch.einsum("uav,amnb,UbV->umUvnV", op_left, Ac,
@@ -63,10 +96,7 @@ def _als_half_sweep(x_cores: Sequence[torch.Tensor],
         core = _local_solve(Aloc.reshape(nn, nn), bloc.reshape(nn),
                             assume).reshape(shape)
         if k < d - 1:
-            rl, n, rr = core.shape
-            q, r = torch.linalg.qr(core.reshape(rl * n, rr))
-            x_cores[k] = q.reshape(rl, n, q.shape[1])
-            x_cores[k + 1] = torch.einsum("ab,bnc->anc", r, x_cores[k + 1])
+            _move_right(x_cores, k, core)
             op_left = torch.einsum("uav,umU,amnb,vnV->UbV", op_left,
                                    x_cores[k], Ac, x_cores[k])
             rhs_left = torch.einsum("ub,umU,bmB->UB", rhs_left, x_cores[k], bc)
@@ -120,6 +150,125 @@ def _als_half_sweep_rl(x_cores: Sequence[torch.Tensor],
     return tuple(x_cores)
 
 
+def _matrix_free_half_sweep(x_cores, A_cores, b_cores, step) -> Cores:
+    """Left-to-right SPD half-sweep whose local update never forms the
+    local operator: ``step(x_k, b_loc, apply_loc)`` returns the new core,
+    ``apply_loc`` applies the local operator through the environments
+    (three small einsums).  x canonicalized at site 0."""
+    d = len(x_cores)
+    op_right, rhs_right = _right_envs(x_cores, A_cores, b_cores)
+    x_cores = list(x_cores)
+    op_left, rhs_left = op_right[d], rhs_right[d]
+    for k in range(d):
+        Ac, bc, xc = A_cores[k], b_cores[k], x_cores[k]
+        opR = op_right[k + 1]
+
+        def apply_loc(v, opL=op_left, Ak=Ac, opRk=opR):
+            t = torch.einsum("uav,vnV->uanV", opL, v)
+            t = torch.einsum("amnb,uanV->umbV", Ak, t)
+            return torch.einsum("UbV,umbV->umU", opRk, t)
+
+        bloc = torch.einsum("ub,bmB,UB->umU", rhs_left, bc, rhs_right[k + 1])
+        core = step(xc, bloc, apply_loc)
+        if k < d - 1:
+            _move_right(x_cores, k, core)
+            op_left = torch.einsum("uav,umU,amnb,vnV->UbV", op_left,
+                                   x_cores[k], Ac, x_cores[k])
+            rhs_left = torch.einsum("ub,umU,bmB->UB", rhs_left, x_cores[k], bc)
+        else:
+            x_cores[k] = core
+    return tuple(x_cores)
+
+
+def _safe_ratio(num, den):
+    """num / den where den > 1e-30, else 0 (on the device)."""
+    return torch.where(den > _TINY, num / torch.clamp_min(den, _TINY),
+                       torch.zeros_like(num))
+
+
+def _als_half_sweep_cg(x_cores: Sequence[torch.Tensor],
+                       A_cores: Sequence[torch.Tensor],
+                       b_cores: Sequence[torch.Tensor], cg_iters: int = 24
+                       ) -> Cores:
+    """Single-site SPD half-sweep with matrix-free CG local solves: a fixed
+    ``cg_iters`` CG steps from the current core (warm start) instead of
+    forming and factoring the (r n r)^2 local operator, O(cg_iters r^3 n^2
+    a) flops and O(r^2 n a) memory per site.  x canonicalized at site 0;
+    left to right only (the drivers reverse the sites for the other
+    direction)."""
+    def step(xc, bloc, apply_loc):
+        rv = bloc - apply_loc(xc)
+        xv, pv, rs = xc, rv, torch.sum(rv * rv)
+        for _ in range(cg_iters):
+            Ap = apply_loc(pv)
+            alpha = _safe_ratio(rs, torch.sum(pv * Ap))
+            xv = xv + alpha * pv
+            rv = rv - alpha * Ap
+            rs2 = torch.sum(rv * rv)
+            pv = rv + _safe_ratio(rs2, rs) * pv
+            rs = rs2
+        return xv
+
+    return _matrix_free_half_sweep(x_cores, A_cores, b_cores, step)
+
+
+def _asd_half_sweep(x_cores: Sequence[torch.Tensor],
+                    A_cores: Sequence[torch.Tensor],
+                    b_cores: Sequence[torch.Tensor]) -> Cores:
+    """Single-site SPD ASD half-sweep (the reference's ASD_solver,
+    als.cpp:73-92): one exact-stepsize gradient step per site,
+    x_k += alpha (b_loc - A_loc x_k), alpha = <g,g> / <g, A_loc g>.
+    x canonicalized at site 0; left to right only."""
+    def step(xc, bloc, apply_loc):
+        grad = bloc - apply_loc(xc)
+        alpha = _safe_ratio(torch.sum(grad * grad),
+                            torch.sum(grad * apply_loc(grad)))
+        return xc + alpha * grad
+
+    return _matrix_free_half_sweep(x_cores, A_cores, b_cores, step)
+
+
+def _als_half_sweep_nonspd(x_cores: Sequence[torch.Tensor],
+                           A_cores: Sequence[torch.Tensor],
+                           b_cores: Sequence[torch.Tensor]) -> Cores:
+    """Normal-equations (A^T A x = A^T b) left-to-right half-sweep for
+    general operators (the reference's non-SPD energy functional), with
+    Cholesky local solves; x canonicalized at site 0."""
+    d = len(x_cores)
+    op_right = [None] * (d + 1)
+    rhs_right = [None] * (d + 1)
+    op_right[d] = x_cores[0].new_ones((1, 1, 1, 1))
+    rhs_right[d] = x_cores[0].new_ones((1, 1, 1))
+    for k in range(d - 1, 0, -1):
+        xc, Ac, bc = x_cores[k], A_cores[k], b_cores[k]
+        op_right[k] = torch.einsum("umU,pzmq,rznt,vnV,UqtV->uprv", xc, Ac,
+                                   Ac, xc, op_right[k + 1])
+        rhs_right[k] = torch.einsum("bzB,azmq,umU,BqU->bau", bc, Ac, xc,
+                                    rhs_right[k + 1])
+
+    x_cores = list(x_cores)
+    op_left, rhs_left = op_right[d], rhs_right[d]
+    for k in range(d):
+        Ac, bc = A_cores[k], b_cores[k]
+        Aloc = torch.einsum("uprv,pzmq,rznt,UqtV->umUvnV", op_left, Ac, Ac,
+                            op_right[k + 1])
+        bloc = torch.einsum("bau,bzB,azmq,BqU->umU", rhs_left, bc, Ac,
+                            rhs_right[k + 1])
+        shape = bloc.shape
+        nn = shape[0] * shape[1] * shape[2]
+        core = _local_solve(Aloc.reshape(nn, nn), bloc.reshape(nn),
+                            "pos").reshape(shape)
+        if k < d - 1:
+            _move_right(x_cores, k, core)
+            op_left = torch.einsum("uprv,umU,pzmq,rznt,vnV->UqtV", op_left,
+                                   x_cores[k], Ac, Ac, x_cores[k])
+            rhs_left = torch.einsum("bau,bzB,azmq,umU->BqU", rhs_left, bc,
+                                    Ac, x_cores[k])
+        else:
+            x_cores[k] = core
+    return tuple(x_cores)
+
+
 def _tt_log_norm_qr(cores: Sequence[torch.Tensor]) -> torch.Tensor:
     """log ||TT||_F by a log-scaled left-to-right QR sweep: no Gram
     quadratic form, so no cancellation; the norm is read off the final
@@ -167,3 +316,169 @@ def tt_residual_rel(x_cores: Sequence[torch.Tensor],
             bot = torch.cat([ax.new_zeros((bl, m, ar * xr)), bc], dim=2)
             z_cores.append(torch.cat([top, bot], dim=0))
     return torch.exp(_tt_log_norm_qr(z_cores) - _tt_log_norm_qr(b_cores))
+
+
+# ---------------------------------------------------------------------------
+# Drivers: the JAX package's make_* factories as plain functions
+# ---------------------------------------------------------------------------
+
+def reverse_tt(cores: Sequence[torch.Tensor]) -> Cores:
+    """Site reversal of a TT (exact transposes)."""
+    return tuple(c.permute(2, 1, 0) for c in reversed(cores))
+
+
+def reverse_op(cores: Sequence[torch.Tensor]) -> Cores:
+    """Site reversal of a TT operator (exact transposes)."""
+    return tuple(c.permute(3, 1, 2, 0) for c in reversed(cores))
+
+
+def _sweep_body(direction: str = "lr", spd: bool = True,
+                solver: str = "lapack", local_assume: str = "pos"):
+    """The half-sweep the JAX package's make_als_sweep(_res) picks: ASD
+    and CG exist left to right only (callers reverse the sites), as does
+    the normal-equations sweep of a general operator."""
+    if solver == "asd":
+        return _asd_half_sweep
+    if solver == "cg":
+        return _als_half_sweep_cg
+    if not spd:
+        return _als_half_sweep_nonspd
+    raw = _als_half_sweep if direction == "lr" else _als_half_sweep_rl
+    return lambda x, A, b: raw(x, A, b, assume=local_assume)
+
+
+def als_sweep(x_cores, A_cores, b_cores, direction: str = "lr",
+              spd: bool = True, solver: str = "lapack",
+              local_assume: str = "pos") -> Cores:
+    """One half-sweep (``make_als_sweep``)."""
+    return _sweep_body(direction, spd, solver, local_assume)(
+        x_cores, A_cores, b_cores)
+
+
+def als_sweep_res(x_cores, A_cores, b_cores, direction: str = "lr",
+                  spd: bool = True, solver: str = "lapack",
+                  local_assume: str = "pos"):
+    """One half-sweep and the relative residual after it, a 0-d tensor on
+    the cores' device (``make_als_sweep_res``): nothing is read back."""
+    out = als_sweep(x_cores, A_cores, b_cores, direction, spd, solver,
+                    local_assume)
+    return out, tt_residual_rel(out, A_cores, b_cores)
+
+
+def als_multi_sweep_res(x_cores, A_cores, b_cores, n_half_sweeps: int,
+                        spd: bool = True, local_assume: str = "pos"):
+    """``n_half_sweeps`` alternating half-sweeps (lr first; general
+    operators run the normal-equations sweep each time, as the JAX
+    package does) with the relative residual after each
+    (``make_als_multi_sweep_res``).  Returns (cores, (n,) residuals); x
+    enters canonicalized at site 0."""
+    cores, hist = tuple(x_cores), []
+    for s in range(n_half_sweeps):
+        if spd:
+            cores = als_sweep(cores, A_cores, b_cores,
+                              "lr" if s % 2 == 0 else "rl",
+                              local_assume=local_assume)
+        else:
+            cores = _als_half_sweep_nonspd(cores, A_cores, b_cores)
+        hist.append(tt_residual_rel(cores, A_cores, b_cores))
+    return cores, torch.stack(hist)
+
+
+def _run_loop(x_cores, A_cores, b_cores, conv_eps, parity0: int,
+              remaining: int, last0: float, last20: float, max_sweeps: int,
+              sweep_even, sweep_odd):
+    """The carry protocol of ``make_als_run`` / ``make_als_run_rev``:
+    half-sweep i runs ``sweep_even`` when (parity0 + i) is even, else
+    ``sweep_odd``; after each, the relative residual goes into hist[i] and
+    the two-back stagnation test |last - res| < eps or |last2 - res| < eps
+    decides the stop, at most min(max_sweeps, remaining) half-sweeps.
+    One boolean is read to the host per half-sweep (the JAX package's
+    lax.while_loop kept it on the device)."""
+    cores = tuple(x_cores)
+    ref = cores[0]
+    hist = torch.full((max_sweeps,), math.inf, dtype=ref.dtype,
+                      device=ref.device)
+    eps = torch.as_tensor(conv_eps, dtype=ref.dtype, device=ref.device)
+    last = torch.as_tensor(last0, dtype=ref.dtype, device=ref.device)
+    last2 = torch.as_tensor(last20, dtype=ref.dtype, device=ref.device)
+    limit = min(int(max_sweeps), int(remaining))
+    i = 0
+    while i < limit:
+        sweep = sweep_even if (int(parity0) + i) % 2 == 0 else sweep_odd
+        cores = sweep(cores)
+        res = tt_residual_rel(cores, A_cores, b_cores)
+        hist[i] = res
+        stop = ((last - res).abs() < eps) | ((last2 - res).abs() < eps)
+        last2, last = last, res
+        i += 1
+        if host_bool(stop):
+            break
+    return cores, hist, i
+
+
+def als_run(x_cores, A_cores, b_cores, conv_eps, parity0: int,
+            remaining: int, last0: float, last20: float, max_sweeps: int,
+            local_assume: str = "pos"):
+    """The whole fixed-rank SPD ALS solve (``make_als_run``): lr and rl
+    half-sweeps alternating by parity, the relative residual after each,
+    stopped by the two-back stagnation test or after min(max_sweeps,
+    remaining) half-sweeps.
+
+    ``parity0`` continues the alternation and ``last0`` / ``last20`` the
+    stagnation history across calls (pass inf on the first); the caller
+    calls again while the count equals the bucket ``max_sweeps``.  Returns
+    (cores, hist, count): hist is (max_sweeps,), hist[i] the residual after
+    half-sweep i for i < count, inf past it.  Reads one boolean to the host
+    per half-sweep."""
+    return _run_loop(
+        x_cores, A_cores, b_cores, conv_eps, parity0, remaining, last0,
+        last20, max_sweeps,
+        lambda cs: _als_half_sweep(cs, A_cores, b_cores, assume=local_assume),
+        lambda cs: _als_half_sweep_rl(cs, A_cores, b_cores,
+                                      assume=local_assume))
+
+
+def als_run_rev(x_cores, A_cores, b_cores, conv_eps, parity0: int,
+                remaining: int, last0: float, last20: float,
+                max_sweeps: int, solver: str = "nonspd"):
+    """``als_run`` for the half-sweeps that exist left to right only
+    (``make_als_run_rev``): the normal equations (``solver="nonspd"``),
+    ASD (``"asd"``) and matrix-free CG (``"cg"``).  Odd half-sweeps run
+    the lr sweep on the site-reversed system.  Cores enter canonicalized
+    at site 0 and leave with the core at d-1 after an even executed count
+    (parity0 + count), at 0 after an odd one.  Same carry protocol and
+    host reads as ``als_run``."""
+    body = _sweep_body("lr", spd=(solver != "nonspd"),
+                       solver=solver if solver in ("asd", "cg") else "lapack")
+    A_rev, b_rev = reverse_op(A_cores), reverse_tt(b_cores)
+    return _run_loop(
+        x_cores, A_cores, b_cores, conv_eps, parity0, remaining, last0,
+        last20, max_sweeps,
+        lambda cs: body(cs, A_cores, b_cores),
+        lambda cs: reverse_tt(body(reverse_tt(cs), A_rev, b_rev)))
+
+
+def als_half_sweep_batched(x_batch, A_cores, b_batch, direction: str = "lr",
+                           local_assume: str = "pos"):
+    """One SPD half-sweep over a batch of systems that share the operator:
+    ``x_batch`` / ``b_batch`` are per-site tensors with a leading batch
+    axis, every instance of the same core shapes.  The JAX package vmapped
+    the sweep into one program; here the instances run one after another
+    and the results are stacked per site."""
+    B = x_batch[0].shape[0]
+    outs = [als_sweep([c[i] for c in x_batch], A_cores,
+                      [c[i] for c in b_batch], direction,
+                      local_assume=local_assume) for i in range(B)]
+    return tuple(torch.stack([o[k] for o in outs])
+                 for k in range(len(x_batch)))
+
+
+def als_sweep_flops(x_shapes, A_shapes) -> float:
+    """Rough FLOP count of one half-sweep (environments and local
+    solves)."""
+    total = 0.0
+    for (rl, n, rr), (al, _m, _m2, ar) in zip(x_shapes, A_shapes):
+        total += 4.0 * rl * rr * al * ar * n * n
+        loc = rl * n * rr
+        total += 2.0 * loc * loc * max(al, ar) + (2.0 / 3.0) * loc ** 3
+    return total

@@ -4,11 +4,12 @@ residuals without float64 compute.
 Counterpart of ``xerus_tpu/ops/mixed_precision.py``: df tensor
 contractions, a thin df QR (CGS2) and the single-site SPD ALS half-sweep
 in df precision, whose only f32-approximate step is the Cholesky
-preconditioner inside the refined local solves; and ``als_f32_df_run``,
-the whole mixed-precision solve (f32 half-sweeps to the f32 plateau, then
-df half-sweeps).  The JAX package compiled that solve into one XLA
-program; here it runs eagerly, with one host read per odd f32 half-sweep
-for the stop rule.
+preconditioner inside the refined local solves (``df_als_sweep``,
+``df_als_multi_sweep``); ``als_f32_df_run``, the whole mixed-precision
+solve (f32 half-sweeps to the f32 plateau, then df half-sweeps); and
+``als_spd_mixed``, df half-sweeps on TT objects.  The JAX package compiled
+each into one XLA program; here they run eagerly, with one host read per
+odd f32 half-sweep for the stop rule and none in the df phase.
 """
 
 from __future__ import annotations
@@ -228,6 +229,39 @@ def _reverse_df(cores: Sequence[DF], op: bool = False) -> Tuple[DF, ...]:
     return tuple((h.permute(perm), l.permute(perm)) for (h, l) in reversed(cores))
 
 
+df_als_sweep = _als_half_sweep_df
+
+
+def df_als_multi_sweep(x_df: Sequence[DF], A_df: Sequence[DF],
+                       b_df: Sequence[DF], n_half_sweeps: int,
+                       refine_iters: int = 3) -> Tuple[DF, ...]:
+    """``n_half_sweeps`` df half-sweeps alternating direction by site
+    reversal (exact transposes), starting left to right; x enters
+    canonicalized at site 0 and leaves unreversed
+    (``make_df_als_multi_sweep``)."""
+    x_df, A_df, b_df = tuple(x_df), tuple(A_df), tuple(b_df)
+    for _ in range(n_half_sweeps):
+        x_df = _als_half_sweep_df(x_df, A_df, b_df, refine_iters=refine_iters)
+        x_df = _reverse_df(x_df)
+        A_df = _reverse_df(A_df, op=True)
+        b_df = _reverse_df(b_df)
+    if n_half_sweeps % 2 == 1:
+        x_df = _reverse_df(x_df)
+    return x_df
+
+
+def df_split(t: torch.Tensor) -> DF:
+    """A float64 tensor as its (hi, lo) float32 pair on its device, the
+    split of ``df32.df_from_f64``."""
+    hi = t.to(torch.float32)
+    return hi, (t - hi.to(torch.float64)).to(torch.float32)
+
+
+def df_join(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """hi + lo in float64 on their device."""
+    return hi.to(torch.float64) + lo.to(torch.float64)
+
+
 # ---------------------------------------------------------------------------
 # The whole mixed-precision solve
 # ---------------------------------------------------------------------------
@@ -267,11 +301,27 @@ def als_f32_df_run(x32: Sequence[torch.Tensor], A32: Sequence[torch.Tensor],
             break
 
     x_df = tuple((c, torch.zeros_like(c)) for c in cores)
-    for _ in range(df_sweeps):
-        x_df = _als_half_sweep_df(x_df, A_df, b_df, refine_iters=refine_iters)
-        x_df = _reverse_df(x_df)
-        A_df = _reverse_df(A_df, op=True)
-        b_df = _reverse_df(b_df)
-    if df_sweeps % 2 == 1:
-        x_df = _reverse_df(x_df)
-    return x_df, hist, i
+    return (df_als_multi_sweep(x_df, A_df, b_df, df_sweeps, refine_iters),
+            hist, i)
+
+
+def als_spd_mixed(A, x, b, num_half_sweeps: int = 6) -> List[torch.Tensor]:
+    """Mixed-precision single-site SPD ALS on TT objects: the float64
+    components split into df pairs on their device, then df half-sweeps
+    in pairs (each pair starts and ends unreversed; an odd count rounds up
+    to the next even, as in the JAX package).  ``x`` is not changed.
+    Returns the refined cores as float64 tensors on the device; verify the
+    residual in float64 (the df quadratic form would cancel below
+    ~1e-7)."""
+    from ..config import require
+    require(A.is_symmetric(),
+            "als_spd_mixed requires a symmetric operator; "
+            "use ALS_SPD for general operators")
+    x = x.copy()
+    x.move_core(0)
+    x_df = tuple(df_split(c._torch()) for c in x.components)
+    A_df = tuple(df_split(c._torch()) for c in A.components)
+    b_df = tuple(df_split(c._torch()) for c in b.components)
+    for _ in range((int(num_half_sweeps) + 1) // 2):
+        x_df = df_als_multi_sweep(x_df, A_df, b_df, 2)
+    return [df_join(h, l) for (h, l) in x_df]
