@@ -44,7 +44,16 @@ full width:
   card and under ``host()``, completion on ``TTTensor``s (the d=10
   instance through ``xt.ADFVariant`` with K3 counted, workload 5 through
   the host-bump loop, IHT), the largest entry of the d=10 truth against
-  its full grid, and UQ-ADF on the card and under ``host()``.
+  its full grid, and UQ-ADF on the card and under ``host()``;
+- the eigensolver and the rest of the algorithms layer through the public
+  names, in float64: workload 4 (the d=32 Heisenberg chain's ground state
+  at max_rank 16) by ``xt.smallest_eigenvalue`` with the dense local eigh
+  and with the card's default Lanczos sweeps, against the recorded CPU
+  energy and residual and the JAX package's CPU Lanczos energy, then at
+  max_rank 32 and 64; ``xt.dmrg_solve``, the fused apply + round on
+  slice 2's rank-256 TT, the Riemannian kit, SD, CG,
+  ``decomposition_als``, ``randomTTSVD`` and the cascade example on the
+  card and under ``host()``.
 
 It checks the host-f64 residual of the solve, the f32-vs-f64 log-norm
 of every rounding and the completion's residuals against the JAX
@@ -2131,6 +2140,362 @@ def phase_algorithms(dev, smi, slice_run, slice_residual, completion,
         raise AssertionError("algorithms: " + "; ".join(fails))
 
 
+# the eigensolver and the rest of the algorithms layer through the public
+# names (phase_eigensolver), float64: workload 4 of
+# benchmarks/all_workloads.py (the d=32 Heisenberg chain, max_rank 16, 6
+# sweeps) by the dense local eigh and by the card's default Lanczos
+# sweeps, the rank 16 / 32 / 64 cell, dmrg_solve on the north-star
+# objects, the fused apply + round, the Riemannian kit and the cascade
+EIG_D = 32                     # workload 4's chain length
+EIG_E_EXACT = -13.99725789     # CPU f64 solver="exact", WORKLOADS.md:10
+EIG_RES_EXACT = 1.055e-02      # its eig_residual ||H g - E g||
+# the JAX package's own CPU float64 Lanczos run (shift 0) of the same
+# instance: benchmarks/eigensolver_jax_reference.py
+EIG_E_JAX_LANCZOS = -13.997257888144015
+EIG_E_BAR = 1e-6               # absolute, on both energies
+EIG_RES_REL = 0.05             # eig_residual of the exact run vs 1.055e-02
+EIG_RANK_CELL = (16, 32, 64)   # Lanczos max ranks of the measurement cell
+EIG_SOLVE = (30, 8)            # dmrg_solve: max_rank, half-sweeps
+# dmrg_solve on test_als.py:146-165's instance (d=10, rank 2 -> 8, 12
+# half-sweeps) with its bars, on the card and under host(): residual,
+# max rank, error against the truth
+EIG_SOLVE_SMALL = (10, 8, 12)
+EIG_SOLVE_BAR = 1e-10
+EIG_APPLY = (256, 128)         # slice 2's TT rank, the apply + round target
+EIG_QUASI = 4.0                # test_kernels.py:451-453's bar
+EIG_APPLY_EXACT = 1e-10        # relative, where the target holds the product
+EIG_CARD_HOST = 1e-10          # the kit and the cascade, card vs host()
+EIG_CASCADE = (10, 32, 10)     # proteins, copies per site, Euler steps
+EIG_PHASE_S = 150.0
+
+
+def _workload4(xt, max_rank, count_syncs=False, **kw):
+    """Workload 4 (benchmarks/all_workloads.py:243-285) through
+    ``xt.smallest_eigenvalue``: energy, eig_residual in TT form, ranks,
+    half-sweeps, host reads (energy reads, eigh/svd info checks, and with
+    ``count_syncs`` the syncs torch's sync debug mode reports), wall, and
+    the singular values at the middle bond."""
+    import torch
+    from xerus_tpu_torch.ops import dmrg_kernels as dk
+    from xerus_tpu_torch.ops import round_kernels as rk
+    xt.set_seed(SEED + 4)
+    H = xt.examples.heisenberg_mpo(EIG_D)
+    g = xt.TTTensor.random([2] * EIG_D, 4)
+    perf = xt.PerformanceData()
+    reads0, checks0 = rk.host_bool.reads, dk.linalg_host_checks()
+    fallbacks0 = dk._eigh.fallbacks
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        if count_syncs:
+            torch.cuda.set_sync_debug_mode("warn")
+        t0 = time.perf_counter()
+        try:
+            lam = xt.smallest_eigenvalue(H, g, sites=2, max_rank=max_rank,
+                                         num_sweeps=6, perf_data=perf, **kw)
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        wall = time.perf_counter() - t0
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    reads = rk.host_bool.reads - reads0
+    exact = kw.get("solver") == "exact"
+    var = (xt.apply_operator(H, g) - lam * g).frob_norm()
+    g.move_core(EIG_D // 2)
+    core = g.components[EIG_D // 2]._torch()
+    sv = torch.linalg.svdvals(core.reshape(core.shape[0], -1))
+    return {"E": lam, "res": var, "rank": max(g.ranks()),
+            "half_sweeps": len(perf.data) if exact else reads,
+            "reads": reads, "checks": dk.linalg_host_checks() - checks0,
+            "fallbacks": dk._eigh.fallbacks - fallbacks0,
+            "syncs": syncs if count_syncs else None, "wall": wall,
+            "sv": [float(v) for v in sv[12:20]],
+            "on_card": core.device.type == "cuda"}
+
+
+def _w4_line(name, r):
+    return (f"eigensolver: workload 4 {name}: E {r['E']!r} (gap to "
+            f"{EIG_E_EXACT} {r['E'] - EIG_E_EXACT:+.3e}), eig_residual "
+            f"{r['res']:.6e}, max rank {r['rank']}, half-sweeps "
+            f"{r['half_sweeps']}, host reads {r['reads']} + "
+            f"{r['checks']} eigh/svd info checks"
+            + (f" ({r['syncs']} syncs by torch's sync debug mode)"
+               if r["syncs"] is not None else "")
+            + f", eigh retries {r['fallbacks']}, wall {r['wall']:.3f} s; "
+            f"singular values 13.. at the middle bond "
+            + ", ".join(f"{v:.6e}" for v in r["sv"]))
+
+
+def _timed(fn):
+    """(fn(), its wall in s), synchronized before and after."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _dmrg_solve_case(xt, dev):
+    """xt.dmrg_solve on the north-star objects and on test_als.py's d=10
+    instance, on the current compute device: (residual, ranks, wall) and
+    (residual, ranks, error against the truth, wall)."""
+    max_rank, half_sweeps = EIG_SOLVE
+    x, A, b = _poisson_objects(xt, D, RANK, dev)
+    res, wall = _timed(lambda: xt.dmrg_solve(A, x, b, max_rank=max_rank,
+                                            num_half_sweeps=half_sweeps))
+    d, max_rank, half_sweeps = EIG_SOLVE_SMALL
+    xt.set_seed(SEED)
+    L = xt.examples.laplace_operator([2] * d)
+    truth = xt.TTTensor.random([2] * d, 4)
+    b = xt.apply_operator(L, truth)
+    b.round(max_rank)
+    y = xt.TTTensor.random([2] * d, 2)
+    res_s, wall_s = _timed(lambda: xt.dmrg_solve(
+        L, y, b, max_rank=max_rank, num_half_sweeps=half_sweeps))
+    err = (y - truth).frob_norm() / truth.frob_norm()
+    return (res, x.ranks(), wall), (res_s, y.ranks(), err, wall_s)
+
+
+def _kit_cases(xt, timer):
+    """The Riemannian kit and the remaining algorithms on the current
+    compute device, at the sizes of the JAX package's tests:
+    SteepestDescent (test_riemannian.py:101-118), GeometricCG (:121-137),
+    a tangent vector with HOSVDRetractionI and the vector transport,
+    decomposition_als and randomTTSVD (test_other_algorithms.py:11-31,
+    randomTTSVD at a representable rank), and the reference's cascade
+    example (``cascade_operator(10, 32)``, 10 implicit-Euler steps).
+    Returns {name: (values, ranks)}."""
+    import numpy as np
+    from xerus_tpu_torch.examples import cascade
+
+    def dense(tt):
+        return tt.to_tensor().to_ndarray().reshape(-1)
+
+    def sd():
+        dims = [2] * 4
+        A = xt.TTOperator.identity(dims + dims)
+        b = xt.TTTensor.random(dims, 2)
+        b /= b.frob_norm()
+        x = xt.TTTensor.random(dims, 2)
+        r = xt.SteepestDescentVariant(30, 1e-10, True)(A, x, b, 30)
+        return np.append(dense(x), r), x.ranks()
+
+    def cg():
+        A = xt.examples.laplace_operator([3] * 3)
+        b = xt.TTTensor.ones([3] * 3)
+        b /= b.frob_norm()
+        x = xt.TTTensor.random([3] * 3, 3)
+        r = xt.GeometricCGVariant(40, 1e-10, True)(A, x, b, 40)
+        return np.append(dense(x), r), x.ranks()
+
+    def retraction():
+        base = xt.TTTensor.random([3] * 3, 2)
+        tv = xt.TTTangentVector(base, xt.TTTensor.random([3] * 3, 2))
+        stepped = base.copy()
+        xt.HOSVDRetractionI(stepped, tv * 1e-3)
+        xt.ProjectiveVectorTransport(stepped, tv)
+        return (np.concatenate([dense(stepped), dense(tv.to_tttensor()),
+                                [tv.frob_norm()]]), stepped.ranks())
+
+    def decomposition():
+        target = xt.Tensor.random([4, 4, 4])
+        x = xt.TTTensor.random([4, 4, 4], 2)
+        xt.decomposition_als(x, target)
+        low = xt.TTTensor.random([3, 4, 4, 3], 2).to_tensor()
+        y = xt.randomTTSVD(low, 2)
+        return np.concatenate([dense(x), dense(y)]), x.ranks() + y.ranks()
+
+    def casc():
+        num, n, steps = EIG_CASCADE
+        res = []
+        A = cascade.cascade_operator(num, n)
+        start = xt.TTTensor.dirac([n] * num, 0)
+        start.use_dense_representations()
+        start += 1e-14 * xt.TTTensor.random(list(start.dimensions),
+                                            [2] * (num - 1))
+        out = cascade.implicit_euler(A, start, 1.0, steps, residuals=res)
+        table = cascade.mean_concentration_table(out)
+        return np.concatenate([table.reshape(-1), res]), out[-1].ranks()
+
+    out = {}
+    for name, fn in (("SteepestDescent", sd), ("GeometricCG", cg),
+                     ("HOSVDRetractionI + transport", retraction),
+                     ("decomposition_als + randomTTSVD", decomposition),
+                     ("cascade", casc)):
+        xt.set_seed(SEED)
+        out[name] = timer(name, fn)
+    return out
+
+
+def phase_eigensolver(dev, smi):
+    """The eigensolver and the rest of the algorithms layer on the card
+    through the public names, in float64: workload 4 by
+    ``solver="exact"`` (one timed run) and by the card's default solver,
+    Lanczos with shift 0 (a warm run that also counts the syncs, then a
+    timed run), against the recorded CPU float64 energy and residual and
+    the JAX package's CPU float64 Lanczos energy; the rank 16 / 32 / 64
+    cell; ``xt.dmrg_solve`` on the d=32 rank-30 Poisson objects on the
+    card and under ``host()``; ``xt.ops.apply_operator_rounded`` of the
+    north-star operator on slice 2's rank-256 TT against
+    ``apply_operator`` and its svd rounding; the Riemannian kit,
+    decomposition_als, randomTTSVD and the cascade on the card and under
+    ``host()``."""
+    import numpy as np
+    import torch
+    import xerus_tpu_torch as xt
+    from xerus_tpu_torch.examples import bench_round_instance
+    t_phase = time.perf_counter()
+    fails = []
+
+    # 1. workload 4, the dense local eigh
+    r = _workload4(xt, 16, solver="exact")
+    print(_w4_line("solver='exact'", r) + f"; {smi}")
+    if not (abs(r["E"] - EIG_E_EXACT) <= EIG_E_BAR
+            and abs(r["res"] - EIG_RES_EXACT) <= EIG_RES_REL * EIG_RES_EXACT
+            and r["on_card"] and r["fallbacks"] == 0):
+        fails.append(f"workload 4 by the exact local eigh: E {r['E']!r}, "
+                     f"eig_residual {r['res']:.6e}")
+
+    # 2. the card's default solver (Lanczos), warm then timed
+    warm = _workload4(xt, 16, count_syncs=True, shift=0.0)
+    print(_w4_line("default solver, shift 0, warm run", warm))
+    r = _workload4(xt, 16, shift=0.0)
+    print(_w4_line("default solver, shift 0", r)
+          + f"; JAX CPU f64 Lanczos {EIG_E_JAX_LANCZOS!r}, gap "
+          f"{r['E'] - EIG_E_JAX_LANCZOS:+.3e}; {smi}")
+    if not (abs(r["E"] - EIG_E_JAX_LANCZOS) <= EIG_E_BAR
+            and r["reads"] > 0 and r["on_card"]
+            and warm["fallbacks"] == r["fallbacks"] == 0):
+        fails.append(f"workload 4 by Lanczos: E {r['E']!r}")
+
+    # 3. the measurement cell: is 1.055e-02 the rank-16 floor?
+    for rank in EIG_RANK_CELL:
+        c = r if rank == 16 else _workload4(xt, rank, solver="lanczos",
+                                             shift=0.0)
+        print(_w4_line(f"cell, Lanczos max_rank {rank}", c))
+        if c["fallbacks"]:
+            fails.append(f"{c['fallbacks']} eigh retries at rank {rank}")
+
+    # 4. dmrg_solve, card and host(): on the north-star objects the
+    # reference's fixed 32 CG steps a site meet local systems of condition
+    # about 1e19, and the split's SVD routine decides where the solve lands
+    # (gesvd on the card converges, gesdd under host() does not; ROADMAP
+    # Queue 3 fault 11), so the two residuals are printed and held to no
+    # bar; test_als.py's instance is held to its bars on both
+    card, small_c = _dmrg_solve_case(xt, dev)
+    with xt.host():
+        cpu, small_h = _dmrg_solve_case(xt, torch.device("cpu"))
+    print(f"eigensolver: xt.dmrg_solve d={D} rank {RANK} Poisson objects, "
+          f"max_rank {EIG_SOLVE[0]}, {EIG_SOLVE[1]} half-sweeps: residual "
+          f"card {card[0]!r}, host() {cpu[0]!r} (no bar: ROADMAP Queue 3 "
+          f"fault 11), max ranks {max(card[1])} / {max(cpu[1])}, wall "
+          f"card {card[2]:.3f} s, host() {cpu[2]:.3f} s")
+    d, max_rank, half_sweeps = EIG_SOLVE_SMALL
+    print(f"eigensolver: xt.dmrg_solve test_als.py's d={d} instance, rank 2 "
+          f"-> {max_rank}, {half_sweeps} half-sweeps: residual card "
+          f"{small_c[0]:.3e}, host() {small_h[0]:.3e}, error against the "
+          f"truth {small_c[2]:.3e} / {small_h[2]:.3e} (bar "
+          f"{EIG_SOLVE_BAR:g}), ranks {small_c[1]} / {small_h[1]}, wall "
+          f"card {small_c[3]:.3f} s, host() {small_h[3]:.3f} s")
+    for r in (small_c, small_h):
+        if not (r[0] < EIG_SOLVE_BAR and r[2] < EIG_SOLVE_BAR
+                and max(r[1]) == max_rank and r[1] == small_h[1]):
+            fails.append("dmrg_solve on test_als.py's instance")
+
+    # 5. the fused apply + round: quasi-optimal against apply_operator and
+    # its svd rounding (a loose bar here, where the svd rounding itself
+    # leaves half of ||Ax||), the same TT on the card and under host()
+    # from the same sketches, and exact where the product's rank fits the
+    # target (A times the rank-30 start: rank <= 30 a < 128)
+    rank, target = EIG_APPLY
+    x30, A = _poisson_objects(xt, D, RANK, dev)[:2]
+    x_np = bench_round_instance(D, 2, rank, SEED)
+    x = xt.convert.tt_from_numpy(x_np, device=dev)
+
+    y, w_fused = _timed(lambda: xt.ops.apply_operator_rounded(A, x, target))
+    Ax, w_apply = _timed(lambda: xt.apply_operator(A, x))
+    z = Ax.copy()
+    _, w_round = _timed(lambda: z.round_fast(target, method="svd"))
+    inner = xt.tt.inner
+    nAx2 = inner(Ax, Ax)
+
+    def err(t):
+        # ||t - Ax|| from inner products in TT form (the errors are far
+        # above the cancellation floor sqrt(eps) ||Ax||)
+        return max(inner(t, t) - 2 * inner(t, Ax) + nAx2, 0.0) ** 0.5
+
+    e_fused, e_svd = err(y), err(z)
+    nAx = nAx2 ** 0.5
+    bar = EIG_QUASI * e_svd + 1e-12 * nAx
+    print(f"eigensolver: xt.ops.apply_operator_rounded(A, x, {target}), A "
+          f"the d={D} Poisson operator, x slice 2's rank-{rank} TT: error "
+          f"{e_fused:.6e} against apply_operator(A, x) (||Ax|| {nAx:.6e}), "
+          f"round_fast({target}, 'svd') of the product {e_svd:.6e}, bar "
+          f"{bar:.6e}; max rank {max(y.ranks())}; wall fused "
+          f"{w_fused:.3f} s, apply_operator {w_apply:.3f} s + round_fast "
+          f"{w_round:.3f} s")
+    if not (e_fused <= bar and max(y.ranks()) <= target
+            and e_svd > 1e-6 * nAx):
+        fails.append("apply_operator_rounded's quasi-optimality")
+    Ax30 = xt.apply_operator(A, x30)
+    e_exact = ((xt.ops.apply_operator_rounded(A, x30, target) - Ax30)
+               .frob_norm() / Ax30.frob_norm())
+    rng = np.random.default_rng(SEED)
+    l = target + 8                         # apply_operator_rounded's l
+    sketches = [torch.from_numpy(rng.standard_normal((l, 2, l)))
+                for _ in range(D - 1)]
+    y = xt.ops.apply_operator_rounded(A, x, target,
+                                      sketches=[t.to(dev) for t in sketches])
+    cpu_dev = torch.device("cpu")
+    with xt.host():
+        A_h = _poisson_objects(xt, D, RANK, cpu_dev)[1]
+        x_h = xt.convert.tt_from_numpy(x_np, device=cpu_dev)
+        y_h, w_host = _timed(lambda: xt.ops.apply_operator_rounded(
+            A_h, x_h, target, sketches=sketches))
+        y_c = xt.convert.tt_from_numpy(
+            [c._torch().cpu().numpy() for c in y.components], device=cpu_dev)
+        d_host = (y_c - y_h).frob_norm() / y_h.frob_norm()
+    print(f"eigensolver: apply_operator_rounded card vs host() on the same "
+          f"sketches {d_host:.3e} (bar {EIG_CARD_HOST:g}), ranks "
+          f"{max(y.ranks())} / {max(y_h.ranks())}, wall host() "
+          f"{w_host:.3f} s; A times the rank-{RANK} start at target "
+          f"{target}, max product rank {max(Ax30.ranks())}: error "
+          f"{e_exact:.3e} relative (bar {EIG_APPLY_EXACT:g})")
+    if not (d_host <= EIG_CARD_HOST and y.ranks() == y_h.ranks()):
+        fails.append("apply_operator_rounded: card and host() disagree")
+    if not (e_exact <= EIG_APPLY_EXACT and max(Ax30.ranks()) <= target):
+        fails.append("apply_operator_rounded is not exact at a "
+                     "representable rank")
+
+    # 6. the Riemannian kit, decomposition_als, randomTTSVD, the cascade
+    walls = {}
+
+    def timer(name, fn):
+        out, wall = _timed(fn)
+        walls.setdefault(name, []).append(wall)
+        return out
+
+    card = _kit_cases(xt, timer)
+    with xt.host():
+        cpu = _kit_cases(xt, timer)
+    for name, (v_card, ranks) in card.items():
+        v_cpu, ranks_cpu = cpu[name]
+        diff = _rel(v_card, v_cpu)
+        print(f"eigensolver: {name}: card vs host() {diff:.3e} (bar "
+              f"{EIG_CARD_HOST:g}), ranks {ranks} / {ranks_cpu}, wall card "
+              f"{walls[name][0]:.3f} s, host() {walls[name][1]:.3f} s")
+        if not (diff <= EIG_CARD_HOST and ranks == ranks_cpu
+                and np.all(np.isfinite(v_card))):
+            fails.append(f"{name}: card and host() disagree")
+    wall = time.perf_counter() - t_phase
+    print(f"eigensolver: phase {wall:.1f} s (bar {EIG_PHASE_S:g} s)")
+    if wall > EIG_PHASE_S:
+        fails.append(f"the phase took {wall:.1f} s")
+    if fails:
+        raise AssertionError("eigensolver: " + "; ".join(fails))
+
+
 def main():
     sys.path.insert(0, HERE)
     smi = phase_environment()
@@ -2153,6 +2518,7 @@ def main():
                                     round_ref, ge_f32)
     phase_algorithms(dev, smi, slice_run, host_residual, completion,
                      iht_residual)
+    phase_eigensolver(dev, smi)
     phase_breakdown(dev)
     phase_round_breakdown(dev)
     def entry(name, source, replaces, launches, max_abs, timing):

@@ -180,6 +180,23 @@ def test_svd_retry_stays_on_the_card(cuda, monkeypatch):
     assert _rel(((u * s) @ vt).cpu().numpy(), a.numpy()) <= 1e-12
 
 
+@pytest.mark.cuda
+def test_eigh_failure_on_the_card_is_raised(cuda, monkeypatch):
+    """An eigh that does not converge on the card raises: the scipy retry
+    of the DMRG sweeps is for the CPU only and moves nothing to the
+    host."""
+    from xerus_tpu_torch.ops import dmrg_kernels as dk
+
+    def refuse(A):
+        raise torch.linalg.LinAlgError("failed to converge")
+
+    monkeypatch.setattr(torch.linalg, "eigh", refuse)
+    before = dk._eigh.fallbacks
+    with pytest.raises(torch.linalg.LinAlgError):
+        dk._eigh(torch.eye(4, dtype=torch.float64, device=cuda))
+    assert dk._eigh.fallbacks == before
+
+
 # -- the tensor network and the TT classes on the card
 
 
@@ -247,3 +264,54 @@ def test_tt_card_matches_host(cuda):
         else:
             assert value == cpu[key], key
     assert np.ptp(card["inner"]) <= 1e-12 * abs(card["inner"][0])
+
+
+def _eigen_case():
+    """The d=8 Heisenberg ground state three ways (the exact local eigh,
+    Lanczos with shift 0, the auto-shifted Lanczos on the PSD Laplace),
+    the d=8 two-site SPD solve, and the fused apply + round."""
+    from xerus_tpu_torch.ops import dmrg_kernels as dk
+    out = {}
+    H = xt.examples.heisenberg_mpo(8)
+    for solver, kw in (("exact", {}), ("lanczos", {"shift": 0.0})):
+        x = xt.TTTensor.random([2] * 8, 4)
+        e = xt.smallest_eigenvalue(H, x, sites=2, max_rank=16,
+                                   num_sweeps=6, solver=solver, **kw)
+        out[solver] = np.array([e, (xt.apply_operator(H, x) - e * x)
+                                .frob_norm()])
+        out[solver + " ranks"] = x.ranks()
+    A = xt.examples.laplace_operator([2] * 8)
+    x = xt.TTTensor.random([2] * 8, 4)
+    out["psd"] = np.array([dk.dmrg_groundstate_scan(
+        A, x, num_half_sweeps=8, solver="lanczos")])
+    b = xt.TTTensor.ones([2] * 8)
+    x = xt.TTTensor.random([2] * 8, 2)
+    out["dmrg_solve"] = np.array([xt.dmrg_solve(A, x, b, max_rank=6)])
+    out["dmrg_solve ranks"] = x.ranks()
+    y = xt.ops.apply_operator_rounded(A, xt.TTTensor.random([2] * 8, 3), 4)
+    out["apply ranks"] = y.ranks()
+    return out
+
+
+@pytest.mark.cuda
+def test_eigensolver_and_dmrg_solve_card_match_host(cuda):
+    """xt.smallest_eigenvalue (exact and Lanczos), the auto-shifted scan
+    sweeps and xt.dmrg_solve at d=8 on the card against the same under
+    host(): energies within 1e-10, eig-residuals and solve residuals both
+    small, ranks equal.  With no solver named, the card runs Lanczos."""
+    card, cpu = _both(_eigen_case)
+    for key, value in card.items():
+        if key.endswith("ranks"):
+            assert value == cpu[key], key
+        elif key == "dmrg_solve":
+            assert value[0] < 1e-10 and cpu[key][0] < 1e-10
+        else:
+            assert abs(value[0] - cpu[key][0]) <= 1e-10 * abs(cpu[key][0])
+    assert card["exact"][1] < 1e-6 and card["lanczos"][1] < 1e-6
+    from xerus_tpu_torch.ops import round_kernels as rk
+    xt.set_seed(0xBAADF00D)
+    reads = rk.host_bool.reads
+    xt.smallest_eigenvalue(xt.examples.heisenberg_mpo(6),
+                           xt.TTTensor.random([2] * 6, 8), max_rank=8,
+                           num_sweeps=2, eps=0.0, shift=0.0)
+    assert rk.host_bool.reads - reads == 4          # the Lanczos loop ran

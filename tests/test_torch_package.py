@@ -217,7 +217,16 @@ def test_missing_top_level_names_are_roadmaps_list():
                  "RankOneMeasurementSet", "ADFVariant", "ADF", "IHT",
                  "find_largest_entry", "UQMeasurementSet", "uq_adf", "uq_avg",
                  "uq_mc", "als_spd_mixed", "als_spd_fused", "models",
-                 "examples"):
+                 "examples", "EigenALSVariant", "DMRG_groundstate",
+                 "ALS_groundstate", "smallest_eigenvalue", "dmrg_solve",
+                 "TTTangentVector", "HOSVDRetractionI", "HOSVDRetractionII",
+                 "ALSRetractionI", "ALSRetractionII",
+                 "SubmanifoldRetractionI", "SubmanifoldRetractionII",
+                 "ProjectiveVectorTransport", "TTRetractionI",
+                 "TTRetractionII", "TTVectorTransport",
+                 "SteepestDescentVariant", "SteepestDescent",
+                 "GeometricCGVariant", "GeometricCG", "decomposition_als",
+                 "randomTTSVD"):
         assert hasattr(xerus_tpu_torch, name), name
 
 

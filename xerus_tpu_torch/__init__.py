@@ -18,8 +18,13 @@ roundings (``tt``; ``TTTensor.round_fast(..., method="gemm_exact")`` runs
 K2 on the card); and the algorithms on those objects (``algorithms``:
 ALS / DMRG / ASD with ``ALS_SPD`` and ``als_spd_fused``, which runs K1;
 ADF, IHT, the largest-entry search and UQ-ADF on ``TTTensor``s, whose
-measurements run K3; ``PerformanceData``), with the problem generators
-(``examples``) and ``models``, under the JAX package's top-level names.
+measurements run K3; ``PerformanceData``; the eigensolver
+``smallest_eigenvalue`` and the two-site DMRG sweeps of
+``ops.dmrg_kernels`` with ``dmrg_solve``; the Riemannian kit, steepest
+descent and geometric CG; ``decomposition_als``, ``randomTTSVD``; the
+fused apply + round ``ops.apply_operator_rounded``), with the problem
+generators and the cascade example (``examples``) and ``models``, under
+the JAX package's top-level names (all but ``warmup``).
 Object computations run on the card unless the caller enters ``host()``.
 """
 
@@ -56,9 +61,20 @@ from .core import serialization as _serialization  # registers Tensor I/O
 from .algorithms import (PerformanceData, NoPerfData, DataPoint, ALSVariant,
                          ALS, ALS_SPD, ALS_SPD_CG, DMRG, DMRG_SPD, ASD,
                          ASD_SPD, SinglePointMeasurementSet,
-                         RankOneMeasurementSet, ADFVariant, ADF, IHT,
-                         find_largest_entry, UQMeasurementSet, uq_adf,
-                         uq_avg, uq_mc, als_spd_mixed, als_spd_fused)
+                         RankOneMeasurementSet, ADFVariant, ADF,
+                         TTTangentVector, HOSVDRetractionI, HOSVDRetractionII,
+                         ALSRetractionI, ALSRetractionII,
+                         SubmanifoldRetractionI, SubmanifoldRetractionII,
+                         ProjectiveVectorTransport, TTRetractionI,
+                         TTRetractionII, TTVectorTransport,
+                         SteepestDescentVariant, SteepestDescent,
+                         GeometricCGVariant, GeometricCG, IHT,
+                         decomposition_als, find_largest_entry,
+                         UQMeasurementSet, uq_adf, uq_avg, uq_mc,
+                         EigenALSVariant, DMRG_groundstate, ALS_groundstate,
+                         smallest_eigenvalue, als_spd_mixed, als_spd_fused,
+                         randomTTSVD)
+from .ops.dmrg_kernels import dmrg_solve
 from . import algorithms, convert, examples, models, ops
 
 

@@ -13,6 +13,18 @@ from .iht import IHT, iht_cores
 from .largest_entry import find_largest_entry, find_largest_entry_cores
 from .uq_adf import (UQMeasurementSet, uq_adf, uq_avg, uq_mc,
                      randvar_to_position)
+from .retractions import (TTTangentVector, HOSVDRetractionI,
+                          HOSVDRetractionII, ALSRetractionI, ALSRetractionII,
+                          SubmanifoldRetractionI, SubmanifoldRetractionII,
+                          ProjectiveVectorTransport, TTRetractionI,
+                          TTRetractionII, TTVectorTransport)
+from .steepest_descent import (SteepestDescentVariant, SteepestDescent,
+                               line_search)
+from .cg import GeometricCGVariant, GeometricCG
+from .decomposition_als import decomposition_als
+from .eigensolver import (EigenALSVariant, DMRG_groundstate, ALS_groundstate,
+                          smallest_eigenvalue)
+from .random_svd import randomTTSVD
 
 
 def als_spd_mixed(A, x, b, num_half_sweeps: int = 6):

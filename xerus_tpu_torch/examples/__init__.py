@@ -6,3 +6,4 @@ from .completion import (inverse_index_norm, inverse_index_ratio,
 from .poisson import qtt_poisson_instance, host_poisson_residual
 from .rounding import (bench_round_instance, cliff_instance, cpu_round_sweep,
                        host_tt_distance, host_tt_log_norm)
+from . import cascade

@@ -1,9 +1,10 @@
 """Deterministic and randomized TT rounding at core level.
 
 The rounding half of ``xerus_tpu/ops/tt_kernels.py``: ``chol_orth_cols``,
-the segmented sweep (``_qr_sweep_segmented``, the ``_trunc_step`` family,
-``_round_sweep_segmented``, ``tt_round_sweep_segmented``), the randomized
-sweep ``_round_randomized`` and the analytic flop counts.  The JAX package
+``_cholqr2``, ``res_rank``, the segmented sweep (``_qr_sweep_segmented``,
+the ``_trunc_step`` family, ``_round_sweep_segmented``,
+``tt_round_sweep_segmented``), the randomized sweep ``_round_randomized``
+and the analytic flop counts.  The JAX package
 traced each sweep into one XLA program; here the same einsums,
 factorizations and GEMMs run eagerly on whatever device the cores are on.
 
@@ -27,12 +28,19 @@ TINY = 1e-30
 
 def host_bool(t: torch.Tensor) -> bool:
     """Read a 0-d bool tensor to the host: a device sync on the card.
-    ``host_bool.reads`` counts every read."""
+    ``host_bool.reads`` counts every read, ``host_float``'s too."""
     host_bool.reads += 1
     return bool(t)
 
 
 host_bool.reads = 0
+
+
+def host_float(t: torch.Tensor) -> float:
+    """Read a 0-d tensor to the host as a float, counted in
+    ``host_bool.reads``."""
+    host_bool.reads += 1
+    return float(t)
 
 
 def _eps(dtype) -> float:
@@ -68,6 +76,28 @@ def chol_orth_cols(X: torch.Tensor, shift_rels=None, want_r: bool = False):
         if want_r:
             Rtot = L.T @ Rtot
     return (X, Rtot) if want_r else X
+
+
+def _cholqr2(cur: torch.Tensor, tiny: float = TINY) -> torch.Tensor:
+    """Shifted CholeskyQR2 of a tall (m, r) matrix (``tt_kernels._cholqr2``):
+    two shifted Gram + Cholesky + triangular-solve passes, the first shift
+    10*m*eps, the second 10*eps, each relative to the Gram's largest
+    diagonal entry.  For well-conditioned panels (randomized sketches);
+    null directions map to near-zero columns, not junk."""
+    m = cur.shape[0]
+    eps = _eps(cur.dtype)
+    eye = torch.eye(cur.shape[1], dtype=cur.dtype, device=cur.device)
+    for rel in (10 * m * eps, 10 * eps):
+        G = cur.T @ cur
+        L = _cholesky(G + (rel * torch.diagonal(G).max() + tiny) * eye)
+        cur = _solve_lower(L, cur.T).T
+    return cur
+
+
+def res_rank(bond: int, d: int, n: int, target: int) -> int:
+    """The largest rank bond ``bond`` of a d-site TT with mode size n can
+    have, capped at ``target`` (``tt_kernels.res_rank``)."""
+    return min(target, n ** bond, n ** (d - bond))
 
 
 def _qr_flops(m: int, n: int) -> float:
