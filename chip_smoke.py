@@ -16,6 +16,18 @@ full width:
   -> 128) and its numerically rank-96 "cliff" variant, deterministic
   (gemm_exact and svd truncation) and randomized (cholqr1); kernel K2
   (gemm_exact);
+- the rest of TT rounding on the same instance and its f64 LAPACK chain:
+  double-word rounding (``tt_round_df_from_f64``: df CholeskyQR with
+  CGS2 fallbacks, K1 in the df Cholesky's column loops, held against its
+  plain version on the inputs recorded there, one call per shape; the
+  Gram-route df SVD) to 128 and, on a cliff of 1e-9 below f32's
+  resolution, with eps 1e-7; the
+  Ozaki split GEMM at bench.py's 512^3 (each slice GEMM bit-exact)
+  beside torch.matmul in float64; the kappa=1e10 df Cholesky solve at
+  n=1800 and df_svd of one (512, 256) unfolding; the cholqr,
+  gram_parallel, subspace_parallel and streaming roundings in f32 and
+  f64, and through ``TTTensor.round_fast`` on the card and under
+  ``host()``;
 - tensor completion: the d=10, n=4, rank-8 instance from 20,000 samples
   (measure, rank-adaptive ADF solve, test, every entry of the recovered TT
   and of the truth), benchmark workload 5 on the card and on the CPU, and
@@ -74,6 +86,7 @@ stdout line is a JSON object with one entry per kernel; the last is
 
 from __future__ import annotations
 
+import importlib
 import json
 import os
 import statistics
@@ -607,10 +620,11 @@ def phase_round_slice(dev):
              "randomized": rk.randomized_round_flops(shapes, ROUND_TARGET,
                                                      OVERSAMPLE)}
     k2_launches = 0
-    refs = {}
+    refs, chains, f32_rel = {}, {}, {}
     for inst, cs in (("random", host), ("cliff", cliff_instance(host))):
         t0 = time.perf_counter()
-        ref = host_tt_log_norm(cpu_round_sweep(cs, ROUND_TARGET))
+        chains[inst] = cpu_round_sweep(cs, ROUND_TARGET)
+        ref = host_tt_log_norm(chains[inst])
         print(f"round {inst}: f64 LAPACK chain log-norm {ref:.9f} "
               f"({time.perf_counter() - t0:.2f} s on the host)")
         refs[inst] = ref
@@ -643,6 +657,7 @@ def phase_round_slice(dev):
                                      f"{ROUND_TARGET}")
             lnorm[method] = host_tt_log_norm(h)
             rel = abs(lnorm[method] - ref) / abs(ref)
+            f32_rel[inst, method] = rel
             if (inst, method) == ("random", "gemm_exact"):
                 ge_f32 = rel
             fl = flops["randomized" if method == "randomized" else "det"]
@@ -686,7 +701,453 @@ def phase_round_slice(dev):
             if not above <= RAND_VS_SVD_BAR:
                 raise AssertionError("randomized rounding log-norm above "
                                      "the svd chain's")
-    return k2_launches, refs["random"], ge_f32
+    return k2_launches, refs["random"], ge_f32, {
+        "host": host, "chain": chains["random"], "ref": refs["random"],
+        "svd_f32_rel": f32_rel["random", "svd"]}
+
+
+# the rest of TT rounding (phase_rounding_rest): double-word rounding on
+# the slice's instance, the Ozaki split GEMM at bench.py's 512^3
+# (bench.py:381-393), the df solve at the Poisson local systems' size on
+# tests/test_df32.py:209's construction, and the uniform, parallel and
+# streaming roundings
+# f64 quality: 1e-10 from the f64 chain.  The JAX package on a CPU, its
+# df_eigh seeded by LAPACK's float32 eigh, reaches only 1.733e-08 here and
+# 2.432e-04 on the cliff below (tests/test_torch_rounding_reference.py);
+# the port's seed on the card is a float64 eigh rounded to float32
+# (round_kernels._eigh_sym), which separates the clusters that freeze the
+# reference's refinement.
+DF_ROUND_BAR = 1e-10      # log-norm vs the f64 chain
+DF_CLIFF = (96, 1e-9, 1e-7)   # signal rank, tail scale, eps
+DF_CLIFF_BAR = 1e-10      # distance to the svd-eps chain
+JAX_DF_REACH = (1.7334063460197896e-08, 2.4320608940789682e-04)
+OZAKI_N = 512
+OZAKI_BAR = 1e-13          # of max (|A||B|), tests/test_df32.py:161
+# n, kappa, refinement steps: the default 3 reach 4.384e-10 in the JAX
+# package (CPU) on this matrix, 5 reach 3.461e-13
+DF_SOLVE = (1800, 1e10, 5)
+DF_SOLVE_BAR = 1e-10
+DF_SVD_BAR = 1e-13         # singular values vs f64 gesvd, of sigma_max
+# cholqr's log-norm vs the svd chain, gemm_exact's bar (the JAX package:
+# 9.706e-08 in float32, 2.834e-16 in float64)
+CHOLQR_BAR = {"float64": 1e-4, "float32": 1e-4}
+# error <= factor x the svd chain's error (tests/test_tt.py:381-383;
+# gram_parallel takes subspace_parallel's)
+QUASI_FACTORS = {"gram_parallel": 2.0, "subspace_parallel": 2.0,
+                 "streaming": 15.0}
+# round_fast f64, card vs host(), relative: 1e-10, or 10x the JAX
+# package's own change when the cores move by 1e-15 relative where that is
+# larger (the parallel methods amplify rounding: 1.086e-10 for
+# gram_parallel and 7.237e-08 for subspace_parallel on this instance;
+# cholqr 2.410e-14, streaming 5.080e-12)
+ROUND_REST_CARD_HOST = 1e-10
+CARD_HOST_BARS = {"cholqr": ROUND_REST_CARD_HOST,
+                  "gram_parallel": 10.0 * 1.0863118849463502e-10,
+                  "subspace_parallel": 10.0 * 7.23677299907354e-08,
+                  "streaming": ROUND_REST_CARD_HOST}
+BF16_FLOPS = 989e12        # H100 SXM data sheet, dense bf16 tensor cores
+
+
+def _spd(n, kappa, seed=7):
+    """tests/test_df32.py's SPD construction: Q diag(logspace) Q^T."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    Q, _ = np.linalg.qr(rng.normal(size=(n, n)))
+    lam = np.logspace(0, -np.log10(kappa), n)
+    return (Q * lam) @ Q.T
+
+
+def _ozaki_checks(dev):
+    """Ozaki at 512^3 against the f64 product; each slice GEMM bit-exact
+    against the float64 product of the same slices; ms beside the bound
+    and torch.matmul in float64."""
+    import numpy as np
+    import torch
+    from xerus_tpu_torch.ops import ozaki as oz
+    from xerus_tpu_torch.ops.df32 import df_to_f64
+    n = OZAKI_N
+    rng = np.random.Generator(np.random.PCG64(SEED))
+    A = rng.normal(size=(n, n)).astype(np.float32)
+    B = rng.normal(size=(n, n)).astype(np.float32)
+    At, Bt = torch.from_numpy(A).to(dev), torch.from_numpy(B).to(dev)
+    z = torch.zeros_like(At)
+    ch, cl = oz.ozaki_matmul(At, z, Bt, z)
+    ref = A.astype(np.float64) @ B.astype(np.float64)
+    err = (np.abs(df_to_f64(ch, cl) - ref).max()
+           / (np.abs(A).astype(np.float64) @ np.abs(B)).max())
+    delta = oz._slice_width(n)
+    s = int(np.ceil(24 / delta))
+    A_sl, _ = oz.ozaki_split(At, 1, delta, s)
+    B_sl, _ = oz.ozaki_split(Bt, 0, delta, s)
+    inexact = sum(not torch.equal(oz._gemm_exact(a, b).double(),
+                                  a.double() @ b.double())
+                  for a in A_sl for b in B_sl)
+    ms = _time_ms(lambda: oz.ozaki_matmul(At, z, Bt, z), reps=20)
+    A64, B64 = At.double(), Bt.double()
+    ms64 = _time_ms(lambda: A64 @ B64, reps=20)
+    nbytes = 6 * n * n * 4
+    t_ops = (s * s * 2.0 * n ** 3 / BF16_FLOPS
+             + 5 * 2.0 * n ** 3 / PEAK_FLOPS["float32"]) * 1e3
+    bound = max(nbytes / HBM_BYTES_PER_S * 1e3, t_ops)
+    print(f"rounding rest: Ozaki {n}^3 (bench.py's): error {err:.3e} of "
+          f"max |A||B| (bar {OZAKI_BAR:g}); {s}x{s} slice GEMMs (delta "
+          f"{delta}, bf16 in, f32 out), {inexact} not bit-exact against "
+          f"the float64 product of the same slices; {ms:.4f} ms (CUDA "
+          f"events, median of 20) beside the bound {bound:.4f} ms "
+          f"(operations: {s * s} bf16 GEMMs at 989 TFLOP/s + 5 f32 at 67) "
+          f"and torch.matmul float64 {ms64:.4f} ms")
+    fails = []
+    if not err <= OZAKI_BAR:
+        fails.append(f"Ozaki error {err:.3e}")
+    if inexact:
+        fails.append(f"{inexact} slice GEMMs not exact")
+    return fails
+
+
+def _df_linalg_checks(dev, host):
+    """The kappa=1e10 df solve at n=1800 and df_svd of one (512, 256)
+    unfolding of the slice instance."""
+    import numpy as np
+    import scipy.linalg
+    import torch
+    from xerus_tpu_torch.ops import df_matvec as dfm
+    from xerus_tpu_torch.ops import round_kernels as rk
+    from xerus_tpu_torch.ops.df32 import df_from_f64, df_to_f64
+    from xerus_tpu_torch.ops.df_cholesky import df_solve_spd_chol
+    from xerus_tpu_torch.ops.df_eigh import df_svd
+    fails = []
+    n, kappa, steps = DF_SOLVE
+    A = _spd(n, kappa)
+    b = A @ np.random.default_rng(3).normal(size=n)
+    Ah, Al = df_from_f64(A, dev)
+    bh, bl = df_from_f64(b, dev)
+    f32_finite = bool(torch.isfinite(rk._cholesky(Ah)).all())
+    k1 = dfm.df_matvec.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    xh, xl = df_solve_spd_chol(Ah, Al, bh, bl, refine_iters=steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    x = df_to_f64(xh, xl)
+    res = np.linalg.norm(A @ x - b) / np.linalg.norm(b)
+    print(f"rounding rest: df_solve_spd_chol n={n} kappa={kappa:g}, "
+          f"{steps} refinement steps: relative residual {res:.3e} (bar "
+          f"{DF_SOLVE_BAR:g}) in {wall:.3f} "
+          f"s, {dfm.df_matvec.launches - k1} K1 launches; the f32 Cholesky "
+          f"of the same matrix is {'finite' if f32_finite else 'non-finite'}")
+    if not res <= DF_SOLVE_BAR:
+        fails.append(f"df solve residual {res:.3e}")
+    if f32_finite:
+        fails.append("the f32 Cholesky did not fail at kappa 1e10")
+    M = np.asarray(host[ROUND_D // 2], np.float64).reshape(
+        2 * ROUND_RANK, ROUND_RANK)
+    checks = _linalg_checks()
+    t0 = time.perf_counter()
+    out = df_svd(*df_from_f64(M, dev))
+    sv = df_to_f64(out[2], out[3])
+    wall = time.perf_counter() - t0
+    ref = scipy.linalg.svd(M, compute_uv=False, lapack_driver="gesvd")
+    err = np.abs(sv - ref).max() / ref[0]
+    print(f"rounding rest: df_svd of core {ROUND_D // 2}'s ({M.shape[0]}, "
+          f"{M.shape[1]}) unfolding: singular values {err:.3e} of sigma_max "
+          f"from f64 gesvd (bar {DF_SVD_BAR:g}), {wall:.3f} s, "
+          f"{_linalg_checks() - checks} eigh info checks")
+    if not err <= DF_SVD_BAR:
+        fails.append(f"df_svd singular values {err:.3e}")
+    return fails
+
+
+def _linalg_checks():
+    from xerus_tpu_torch.ops import dmrg_kernels as dk
+    return dk.linalg_host_checks()
+
+
+class _K1Recorder:
+    """Stands in for K1's wrapper where the df roundings call it (the df
+    Cholesky's column loops): counts the calls per shape and keeps, per
+    shape, a copy of the inputs of its first call and then of its
+    (k // 2 + 1)-th, where a column loop has filled half of the columns
+    and passes the rest as zeros.  Launches are the wrapper's own."""
+
+    def __init__(self, wrapped):
+        self.wrapped, self.calls, self.inputs = wrapped, {}, {}
+
+    def __call__(self, Ah, Al, xh, xl):
+        shape = tuple(Ah.shape)
+        n = self.calls[shape] = self.calls.get(shape, 0) + 1
+        if n == 1 or n == shape[1] // 2 + 1:
+            self.inputs[shape] = [t.clone() for t in (Ah, Al, xh, xl)]
+        return self.wrapped(Ah, Al, xh, xl)
+
+
+def _k1_path_checks(rec):
+    """K1 against its plain version and the float64 product on the inputs
+    the df roundings gave it, one call per shape, with each shape's times.
+    The error is taken of || |A| |x| ||, which the f64 product resolves to
+    ~1e-16 and a kernel that drops a low word misses by 1e4.  Returns
+    (rows, max |kernel - plain|, failures); rows[shape] = (launches, ms,
+    plain_ms, bound_ms)."""
+    import numpy as np
+    from xerus_tpu_torch.ops.df32 import df_to_f64
+    from xerus_tpu_torch.ops.df_matvec import df_matvec, df_matvec_reference
+    rows, max_abs, fails = {}, 0.0, []
+    worst = (0.0, None)
+    for (m, k), args in sorted(rec.inputs.items()):
+        A, x = df_to_f64(args[0], args[1]), df_to_f64(args[2], args[3])
+        exact = A @ x
+        scale = np.linalg.norm(np.abs(A) @ np.abs(x))
+        kern = df_to_f64(*df_matvec(*args))
+        plain = df_to_f64(*df_matvec_reference(*args))
+        err_k = np.linalg.norm(kern - exact)
+        err_p = np.linalg.norm(plain - exact)
+        max_abs = max(max_abs, float(np.max(np.abs(kern - plain))))
+        if not (err_k <= K1_REL_TOL * scale and err_p <= K1_REL_TOL * scale):
+            fails.append(f"K1 at ({m}, {k}) on the df path: kernel "
+                         f"{err_k:.3e}, plain {err_p:.3e} of {scale:.3e}")
+        if scale > 0:
+            worst = max(worst, (err_k / scale, (m, k)))
+        ms = _time_ms(lambda: df_matvec(*args), reps=20, warmup=2)
+        plain_ms = _time_ms(lambda: df_matvec_reference(*args), reps=20,
+                            warmup=2)
+        bound_ms, _by = _bound((2 * m * k + 2 * k + 2 * m) * 4,
+                               K1_OPS_PER_ELEMENT * m * k, "float32")
+        rows[m, k] = (rec.calls[m, k], ms, plain_ms, bound_ms)
+    n = sum(r[0] for r in rows.values())
+    t = sum(r[0] * r[1] for r in rows.values())
+    b = sum(r[0] * r[3] for r in rows.values())
+    top = sorted(rows.items(), key=lambda kv: -kv[1][0] * kv[1][1])[:6]
+    print(f"K1 on the df roundings: {n} launches at {len(rows)} shapes, "
+          f"each shape held on the inputs of one recorded call against "
+          f"its plain version and f64 (bar {K1_REL_TOL:g} of || |A||x| "
+          f"||; worst kernel {worst[0]:.3e} at {worst[1]}), max |kernel - "
+          f"plain| {max_abs:.3e}; device time sum of launches x median "
+          f"{t:.1f} ms, bound {b:.2f} ms (CUDA events, median of 20 queued "
+          f"calls a shape); most time at " + ", ".join(
+              f"{s}: {r[0]} x {r[1] * 1e3:.2f} us (plain {r[2] * 1e3:.1f}"
+              f" us, bound {r[3] * 1e3:.3f} us)" for s, r in top))
+    return rows, max_abs, fails
+
+
+def _df_round(cores64, target, eps, dev):
+    """One timed tt_round_df_from_f64 with its fallbacks, host reads, info
+    checks and K1 launches."""
+    import torch
+    from xerus_tpu_torch.ops import df_matvec as dfm
+    from xerus_tpu_torch.ops import df_rounding as dr
+    from xerus_tpu_torch.ops import round_kernels as rk
+    before = (dr.tt_round_df.cgs2_fallbacks, rk.host_bool.reads,
+              _linalg_checks(), dfm.df_matvec.launches)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = dr.tt_round_df_from_f64(cores64, target, eps=eps, device=dev)
+    wall = time.perf_counter() - t0
+    after = (dr.tt_round_df.cgs2_fallbacks, rk.host_bool.reads,
+             _linalg_checks(), dfm.df_matvec.launches)
+    return out, wall, [a - b for a, b in zip(after, before)]
+
+
+def _rest_method(method, cores):
+    from xerus_tpu_torch.ops import round_uniform as ru
+    if method == "streaming":
+        return ru.tt_round_streaming_uniform(cores, ROUND_TARGET)
+    return ru.tt_round_sweep_uniform(cores, ROUND_TARGET, method=method)
+
+
+def phase_rounding_rest(dev, smi, slice_round):
+    """The rest of TT rounding at full width, on phase_round_slice's
+    instance and float64 LAPACK chain: double-word rounding (random and
+    a 1e-9 cliff with eps), the Ozaki GEMM, the df solve and SVD, the
+    uniform, parallel and streaming roundings in f32 and f64 at core
+    level and through ``TTTensor.round_fast`` (card vs ``host()``).
+    Returns the df roundings' K1 launches (zeroed before, read after),
+    K1's rows of ``_k1_path_checks`` and its max |kernel - plain|."""
+    import numpy as np
+    import torch
+    import xerus_tpu_torch as xt
+    from xerus_tpu_torch.convert import cores_to_torch
+    from xerus_tpu_torch.examples import (cliff_instance, cpu_round_sweep,
+                                          host_tt_distance, host_tt_log_norm)
+    from xerus_tpu_torch.ops import df_matvec as dfm
+    from xerus_tpu_torch.ops import round_kernels as rk
+    from xerus_tpu_torch.ops import round_uniform as ru
+    # the module (the package exports its function under the same name)
+    dfc = importlib.import_module("xerus_tpu_torch.ops.df_cholesky")
+    t_phase = time.perf_counter()
+
+    def lap(what):
+        print(f"rounding rest: {what} done at "
+              f"{time.perf_counter() - t_phase:.1f} s into the phase")
+
+    host, chain, ref = (slice_round["host"], slice_round["chain"],
+                        slice_round["ref"])
+    fails = []
+    host64 = [np.asarray(c, np.float64) for c in host]
+
+    # double-word rounding of the slice instance, counted, with K1's inputs
+    # recorded where the df Cholesky calls it
+    rec = _K1Recorder(dfc.df_matvec)
+    dfc.df_matvec = rec
+    dfm.df_matvec.launches = 0
+    try:
+        out, wall, (fb, reads, checks, k1) = _df_round(
+            host64, ROUND_TARGET, 0.0, dev)
+    except BaseException:
+        dfc.df_matvec = rec.wrapped
+        raise
+    k1_launches = dfm.df_matvec.launches
+    rel = abs(host_tt_log_norm(out) - ref) / abs(ref)
+    dist = host_tt_distance(out, chain) / np.exp(ref)
+    svd32 = slice_round["svd_f32_rel"]
+    print(f"rounding rest: tt_round_df d={ROUND_D} rank {ROUND_RANK}->"
+          f"{ROUND_TARGET}: log-norm {rel:.3e} from the f64 chain (bar "
+          f"{DF_ROUND_BAR:g}; the JAX package's CPU run "
+          f"{JAX_DF_REACH[0]:.4g}; the f32 svd rounding's {svd32:.3e} "
+          f"{'misses' if svd32 > DF_ROUND_BAR else 'MEETS'} it), distance "
+          f"to the f64 chain {dist:.3e} relative (no bar: the cut is "
+          f"gapless), wall {wall:.2f} s, CGS2 fallbacks {fb} of "
+          f"{ROUND_D - 1} sites, host reads {reads}, eigh info checks "
+          f"{checks}, K1 launches {k1}")
+    if not rel <= DF_ROUND_BAR:
+        fails.append(f"df rounding log-norm {rel:.3e}")
+    if not svd32 > DF_ROUND_BAR:
+        fails.append("the f32 svd rounding meets the df bar: no contrast")
+    if k1 == 0:
+        fails.append("the df rounding launched K1 no time")
+
+    # the cliff below f32's resolution, rounded with eps
+    sig, scale, eps = DF_CLIFF
+    cl64 = cliff_instance(host64, sig, scale)
+    t0 = time.perf_counter()
+    chain_c = cpu_round_sweep(cl64, ROUND_RANK, eps=eps)
+    t_chain = time.perf_counter() - t0
+    try:
+        out_c, wall, (fb, reads, checks, k1) = _df_round(
+            cl64, ROUND_RANK, eps, dev)
+    finally:
+        dfc.df_matvec = rec.wrapped
+    k1_launches += k1
+    r_df = [int(c.shape[2]) for c in out_c[:-1]]
+    r_ch = [int(c.shape[2]) for c in chain_c[:-1]]
+    dist = (host_tt_distance(out_c, chain_c)
+            / np.exp(host_tt_log_norm(chain_c)))
+    print(f"rounding rest: tt_round_df cliff (slots past {sig} x {scale:g}) "
+          f"to {ROUND_RANK} with eps {eps:g}: interior ranks "
+          f"{'equal' if r_df == r_ch else 'DIFFER FROM'} the f64 svd-eps "
+          f"chain's (max {max(r_df)} vs {max(r_ch)}; the chain took "
+          f"{t_chain:.1f} s on the host), distance {dist:.3e} relative (bar "
+          f"{DF_CLIFF_BAR:g}; the JAX package's CPU run "
+          f"{JAX_DF_REACH[1]:.4g}), wall {wall:.2f} s, "
+          f"CGS2 fallbacks {fb}, host "
+          f"reads {reads}, eigh info checks {checks}, K1 launches {k1}")
+    if r_df != r_ch:
+        fails.append(f"cliff ranks {r_df} vs {r_ch}")
+    if not dist <= DF_CLIFF_BAR:
+        fails.append(f"cliff distance {dist:.3e}")
+
+    if sum(rec.calls.values()) != k1_launches:
+        fails.append(f"{k1_launches} K1 launches in the df roundings, "
+                     f"{sum(rec.calls.values())} recorded")
+    k1_rows, k1_max_abs, k1_fails = _k1_path_checks(rec)
+    fails += k1_fails
+    lap("the df roundings")
+    fails += _ozaki_checks(dev)
+    fails += _df_linalg_checks(dev, host)
+    lap("Ozaki and the df linear algebra")
+
+    # the uniform, parallel and streaming roundings at core level
+    e_svd = host_tt_distance(host, chain)
+    for dtype in (torch.float32, torch.float64):
+        cores = list(cores_to_torch(host, dev, dtype))
+        for method in ("cholqr", "gram_parallel", "subspace_parallel",
+                       "streaming"):
+            _rest_method(method, cores)
+            torch.cuda.synchronize()
+            reads0, checks0 = rk.host_bool.reads, _linalg_checks()
+            t0 = time.perf_counter()
+            h = _to_host(_rest_method(method, cores))
+            wall = time.perf_counter() - t0
+            reads = rk.host_bool.reads - reads0
+            checks = _linalg_checks() - checks0
+            name = f"{method} {str(dtype)[6:]}"
+            if not all(np.all(np.isfinite(c)) for c in h):
+                fails.append(f"{name}: non-finite")
+                continue
+            if method == "cholqr":
+                q = abs(host_tt_log_norm(h) - ref) / abs(ref)
+                bar = CHOLQR_BAR[str(dtype)[6:]]
+                verdict = f"log-norm {q:.3e} from the svd chain (bar {bar:g})"
+                ok = q <= bar
+            else:
+                q = host_tt_distance(host, h) / e_svd
+                verdict = (f"error {q:.4f}x the svd chain's (bar "
+                           f"{QUASI_FACTORS[method]:g}x)")
+                ok = q <= QUASI_FACTORS[method]
+            print(f"rounding rest: {name} d={ROUND_D} rank {ROUND_RANK}->"
+                  f"{ROUND_TARGET}: {verdict}, wall {wall:.4f} s (after a "
+                  f"warm-up), host reads {reads}, eigh info checks {checks}")
+            if not ok:
+                fails.append(f"{name}: {verdict}")
+
+    lap("the core-level roundings")
+
+    # round_fast on the TTTensor in float64, card vs host(), one set of
+    # streaming sketches for both
+    cpu = torch.device("cpu")
+    sk = ru._streaming_sketches(ROUND_D, ROUND_N, ROUND_TARGET, 32,
+                                torch.float64, cpu)
+    real_sketches = ru._streaming_sketches
+    ru._streaming_sketches = (
+        lambda d, n, l, psi, dtype, device, generator=None:
+        tuple([t.to(device, dtype) for t in part] for part in sk))
+    rng = np.random.default_rng(SEED)
+    pert = [c * (1.0 + 1e-15 * rng.standard_normal(c.shape))
+            for c in host64]
+
+    def run(cores, d_, method):
+        t = xt.convert.tt_from_numpy(cores, device=d_)
+        reads0, checks0 = rk.host_bool.reads, _linalg_checks()
+        if d_.type == "cpu":
+            with xt.host():
+                t0 = time.perf_counter()
+                t.round_fast(ROUND_TARGET, method=method)
+                wall = time.perf_counter() - t0
+        else:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            t.round_fast(ROUND_TARGET, method=method)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        return ([np.asarray(c.to_ndarray()) for c in t.components], wall,
+                rk.host_bool.reads - reads0, _linalg_checks() - checks0)
+
+    try:
+        for method in ("cholqr", "gram_parallel", "subspace_parallel",
+                       "streaming"):
+            card, w_card, reads, checks = run(host64, dev, method)
+            cpu_r, w_cpu, _r, _c = run(host64, cpu, method)
+            cpu_p = run(pert, cpu, method)[0]
+            nrm = np.exp(host_tt_log_norm(cpu_r))
+            diff = host_tt_distance(card, cpu_r) / nrm
+            sens = host_tt_distance(cpu_p, cpu_r) / nrm
+            bar = CARD_HOST_BARS[method]
+            print(f"rounding rest: TTTensor.round_fast({ROUND_TARGET}, "
+                  f"{method!r}) f64: card vs host() {diff:.3e} relative "
+                  f"(bar {bar:.3e}, from the JAX package's change under "
+                  f"a 1e-15 relative perturbation of the cores; host()'s "
+                  f"own change {sens:.3e}), wall card {w_card:.3f} s / "
+                  f"host() {w_cpu:.3f} s, card host reads {reads}, eigh info "
+                  f"checks {checks}, max rank "
+                  f"{max(c.shape[-1] for c in card[:-1])}")
+            if not diff <= bar:
+                fails.append(f"round_fast {method}: card vs host() "
+                             f"{diff:.3e}")
+    finally:
+        ru._streaming_sketches = real_sketches
+    print(f"rounding rest: phase {time.perf_counter() - t_phase:.1f} s, "
+          f"K1 launches in the two df roundings {k1_launches} ({smi})")
+    if fails:
+        raise AssertionError("rounding rest: " + "; ".join(fails))
+    return k1_launches, k1_rows, k1_max_abs
 
 
 def _k2_bond_times(cores, inputs=None):
@@ -2496,6 +2957,27 @@ def phase_eigensolver(dev, smi):
         raise AssertionError("eigensolver: " + "; ".join(fails))
 
 
+def _k1_main_path_timing(timing, launches_1800, rows):
+    """K1's times per launch on its main paths: the solve's launches at
+    (1800, 1800) and the df roundings' at their recorded shapes, weighted
+    by their launches.  The (1800, 1800) figures stay beside them."""
+    weights = [(launches_1800, timing["ms"], timing["plain_ms"],
+                timing["bound_ms"])] + list(rows.values())
+    n = sum(w[0] for w in weights)
+    out = dict(timing)
+    for i, key in ((1, "ms"), (2, "plain_ms"), (3, "bound_ms")):
+        out[key] = sum(w[0] * w[i] for w in weights) / n
+        out[key + "_1800x1800"] = timing[key]
+    out["shapes"] = len(rows) + 1
+    print(f"K1 per launch on the main paths ({n} launches at "
+          f"{out['shapes']} shapes, weighted by launches): kernel "
+          f"{out['ms'] * 1e3:.3f} us, plain {out['plain_ms'] * 1e3:.3f} us, "
+          f"bound {out['bound_ms'] * 1e3:.4f} us; at (1800, 1800) "
+          f"{timing['ms'] * 1e3:.3f} us against {timing['bound_ms'] * 1e3:.3f}"
+          f" us")
+    return out
+
+
 def main():
     sys.path.insert(0, HERE)
     smi = phase_environment()
@@ -2510,7 +2992,11 @@ def main():
     phase_small_rounding(dev)
     phase_completion_small(dev)
     k1_launches, solution, host_residual, slice_run = phase_slice(dev)
-    k2_launches, round_ref, ge_f32 = phase_round_slice(dev)
+    k2_launches, round_ref, ge_f32, slice_round = phase_round_slice(dev)
+    k1_df, k1_rows, k1_df_abs = phase_rounding_rest(dev, smi, slice_round)
+    k1_timing = _k1_main_path_timing(k1_timing, k1_launches, k1_rows)
+    k1_launches += k1_df
+    k1_max_abs = max(k1_max_abs, k1_df_abs)
     k3_launches, completion = phase_completion_slice(dev)
     iht_residual = phase_iht(dev)
     phase_objects(dev, smi)
@@ -2522,13 +3008,15 @@ def main():
     phase_breakdown(dev)
     phase_round_breakdown(dev)
     def entry(name, source, replaces, launches, max_abs, timing):
+        extra = {k: v for k, v in timing.items()
+                 if k.endswith("_1800x1800") or k == "shapes"}
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": max_abs, "ms": timing["ms"],
                 "plain_ms": timing["plain_ms"],
                 "bound_ms": timing["bound_ms"],
                 "bound_by": timing["bound_by"],
-                "library_ms": timing["library_ms"]}
+                "library_ms": timing["library_ms"], **extra}
 
     print(json.dumps({"kernels": [
         entry("df_matvec", "xerus_tpu_torch/csrc/df_matvec.cu",

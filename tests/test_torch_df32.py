@@ -127,12 +127,28 @@ def test_df_matvec_and_contract_last_first():
     assert _rel(tout, jout) < 1e-14
 
 
-def test_df_matmul_past_ozaki_gate_raises():
-    """The Ozaki split GEMM is not ported: past its gate df_matmul must
-    refuse, not quietly run the O(m*k*n) broadcast."""
-    A = torch.zeros((128, 128))
-    with pytest.raises(NotImplementedError, match="Ozaki"):
-        tdf.df_matmul(A, A, A, A)
+def test_df_matmul_past_ozaki_gate_raises(monkeypatch):
+    """Past the Ozaki gate (m*k*n >= 2^21, k >= 128, f32) df_matmul no
+    longer raises: it dispatches to the Ozaki split GEMM as the JAX
+    package's does (the name is kept from when the GEMM was missing), and
+    returns JAX's product within test_df32.py's 1e-13 relative bar."""
+    from xerus_tpu_torch.ops import ozaki
+    A = _rand((128, 128), 17)
+    B = _rand((128, 128), 18)
+    calls = []
+    real = ozaki.ozaki_matmul
+    monkeypatch.setattr(ozaki, "ozaki_matmul",
+                        lambda *a: calls.append(1) or real(*a))
+    tout = _port_f64(tdf.df_matmul(*tdf.df_from_f64(A, CPU),
+                                   *tdf.df_from_f64(B, CPU)))
+    assert calls == [1]
+    jout = _jax_f64(jdf.df_matmul(*jdf.df_from_f64(A), *jdf.df_from_f64(B)))
+    assert np.abs(tout - jout).max() / np.abs(jout).max() < 1e-13
+    assert _rel(tout, A @ B) < 1e-13
+    # below the gate (k < 128) the broadcast tree runs
+    tdf.df_matmul(*tdf.df_from_f64(A[:, :127], CPU),
+                  *tdf.df_from_f64(B[:127], CPU))
+    assert calls == [1]
 
 
 def _spd(n, cond, seed):

@@ -51,6 +51,27 @@ def test_df_matvec_kernel_matches_reference(cuda, m, k):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m,k", [(64, 64), (192, 64), (512, 256),
+                                 (256, 512), (1, 512)])
+def test_df_matvec_kernel_on_the_df_cholesky_shapes(cuda, m, k):
+    """The df Cholesky's column loops pass K1 half-filled operands: the
+    trailing columns of A and entries of x still zero.  Kernel and plain
+    version within 1e-12 of || |A| |x| || of the f64 product."""
+    rng = np.random.Generator(np.random.PCG64(m * 7919 + k + 1))
+    A = rng.normal(size=(m, k))
+    x = rng.normal(size=(k,))
+    A[:, k // 2:] = 0.0
+    x[k // 2 + 1:] = 0.0
+    args = (*df32.df_from_f64(A, cuda), *df32.df_from_f64(x, cuda))
+    kern = df32.df_to_f64(*df_matvec(*args))
+    plain = df32.df_to_f64(*df_matvec_reference(*args))
+    exact = A @ x
+    scale = np.linalg.norm(np.abs(A) @ np.abs(x))
+    assert np.linalg.norm(kern - exact) <= 1e-12 * scale
+    assert np.linalg.norm(plain - exact) <= 1e-12 * scale
+
+
+@pytest.mark.cuda
 def test_df_matvec_kernel_rejects_bad_input(cuda):
     A = torch.zeros((8, 6), device=cuda)
     x = torch.zeros((6,), device=cuda)
@@ -336,3 +357,138 @@ def test_tt_eval_kernel_takes_an_empty_mode(cuda):
     with pytest.raises(ValueError, match="5 of 5 positions"):
         te.tt_eval_at_points(cores, five)
     torch.cuda.synchronize()
+
+
+# -- the double-word stack and the uniform roundings, card against CPU
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [64, 128, 512, 2048])
+def test_ozaki_slice_gemms_are_exact_on_the_card(cuda, k):
+    """Every slice product (bf16 in, f32 out on the card) equals the
+    float64 product of the same slices bit for bit, rows whose maximum is
+    an exact power of two included (where a log2 one ulp off would pick
+    another split)."""
+    from xerus_tpu_torch.ops import ozaki as oz
+    rng = np.random.Generator(np.random.PCG64(k))
+    A = rng.normal(size=(96, k)) * np.exp2(rng.integers(-20, 20, (96, 1)))
+    A[::3, 0] = np.exp2(rng.integers(-20, 20, 32))
+    A[::3, 1:] *= 0.5 / np.abs(A[::3, 1:]).max(axis=1, keepdims=True)
+    A[::3, 1:] *= np.abs(A[::3, :1])
+    B = rng.normal(size=(k, 80))
+    At = torch.from_numpy(A.astype(np.float32)).to(cuda)
+    Bt = torch.from_numpy(B.astype(np.float32)).to(cuda)
+    delta = oz._slice_width(k)
+    s = int(np.ceil(24 / delta))
+    A_sl, _ = oz.ozaki_split(At, 1, delta, s)
+    B_sl, _ = oz.ozaki_split(Bt, 0, delta, s)
+    for a in A_sl:
+        for b in B_sl:
+            assert torch.equal(oz._gemm_exact(a, b).double(),
+                               a.double() @ b.double())
+    z = torch.zeros_like
+    got = df32.df_to_f64(*oz.ozaki_matmul(At, z(At), Bt, z(Bt)))
+    A32 = A.astype(np.float32).astype(np.float64)
+    B32 = B.astype(np.float32).astype(np.float64)
+    scale = (np.abs(A32) @ np.abs(B32)).max()
+    assert np.abs(got - A32 @ B32).max() / scale < 1e-13
+
+
+def _cpu_and_card(fn, cores, cuda):
+    cpu = [c.double().numpy() for c in fn(
+        [torch.from_numpy(c) for c in cores])]
+    card = [c.double().cpu().numpy() for c in fn(
+        [torch.from_numpy(c).to(cuda) for c in cores])]
+    return cpu, card
+
+
+@pytest.mark.cuda
+def test_df_rounding_card_matches_cpu(cuda):
+    """tt_round_df on the card (K1 in the column loops, cuSOLVER's seed
+    eigh, bf16 slice GEMMs) and on the CPU: both within 1e-11 of the
+    float64 chain at d=7, the same ranks, and with eps=1e-7 the 1e-9 tail
+    dropped on both."""
+    from xerus_tpu_torch.examples import (bench_round_instance,
+                                          cliff_instance, cpu_round_sweep,
+                                          host_tt_distance, host_tt_log_norm)
+    from xerus_tpu_torch.ops.df_matvec import df_matvec as k1
+    from xerus_tpu_torch.ops.df_rounding import tt_round_df_from_f64
+    host = [c.astype(np.float64) for c in bench_round_instance(7, 3, 6)]
+    cores = cliff_instance(host, 3, 1e-9)
+    chain = cpu_round_sweep(cores, 3)
+    nrm = np.exp(host_tt_log_norm(chain))
+    launches = k1.launches
+    card = tt_round_df_from_f64(cores, 3, device=cuda)
+    assert k1.launches > launches
+    cpu = tt_round_df_from_f64(cores, 3, device=torch.device("cpu"))
+    for out in (card, cpu):
+        assert [c.shape for c in out] == [c.shape for c in chain]
+        assert host_tt_distance(out, chain) / nrm < 1e-11
+    eps_chain = cpu_round_sweep(cores, 6, eps=1e-7)
+    for dev in (cuda, torch.device("cpu")):
+        out = tt_round_df_from_f64(cores, 6, eps=1e-7, device=dev)
+        assert [c.shape for c in out] == [c.shape for c in eps_chain]
+        assert host_tt_distance(out, eps_chain) / nrm < 1e-11
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["cholqr", "gram_parallel",
+                                    "subspace_parallel", "streaming"])
+def test_uniform_rounding_card_matches_cpu(cuda, method):
+    """Each uniform, parallel or streaming rounding in float64 at d=10,
+    rank 16 -> 8, card against CPU within 1e-10 (one set of sketches)."""
+    from xerus_tpu_torch.examples import (bench_round_instance,
+                                          host_tt_distance, host_tt_log_norm)
+    from xerus_tpu_torch.ops import round_uniform as ru
+    host = [c.astype(np.float64) for c in bench_round_instance(10, 2, 16)]
+    sk = ru._streaming_sketches(10, 2, 8, 32, torch.float64,
+                                torch.device("cpu"))
+
+    def fn(cores):
+        if method == "streaming":
+            dev = cores[0].device
+            return ru.tt_round_streaming_uniform(
+                cores, 8, sketches=tuple([t.to(dev) for t in part]
+                                         for part in sk))
+        return ru.tt_round_sweep_uniform(cores, 8, method=method)
+
+    cpu, card = _cpu_and_card(fn, host, cuda)
+    assert [c.shape for c in card] == [c.shape for c in cpu]
+    assert (host_tt_distance(card, cpu) / np.exp(host_tt_log_norm(cpu))
+            < 1e-10)
+
+
+@pytest.mark.cuda
+def test_cholqr_f32_on_the_card_keeps_its_grams_orthogonal(cuda):
+    """The cholqr rounding of the d=32 rank-256 instance in float32 on the
+    card: every truncation Gram's eigenvectors orthogonal to 1e-4 (plain
+    cuSOLVER float32 eigh left 1.9e-3 there) and the log-norm within 1e-4
+    of the float64 chain's."""
+    from xerus_tpu_torch.examples import (bench_round_instance,
+                                          cpu_round_sweep, host_tt_log_norm)
+    from xerus_tpu_torch.ops import round_uniform as ru
+    host = bench_round_instance(32, 2, 256)
+    ref = host_tt_log_norm(cpu_round_sweep(host, 128))
+    grams = []
+    eigh = ru._eigh
+
+    def record(A):
+        grams.append(A.clone())
+        return eigh(A)
+
+    ru._eigh = record
+    try:
+        out = ru.tt_round_sweep_uniform(
+            [torch.from_numpy(c).to(cuda, torch.float32) for c in host], 128,
+            method="cholqr")
+    finally:
+        ru._eigh = eigh
+    assert len(grams) == 31
+    for G in grams:
+        assert G.dtype == torch.float32
+        _w, V = eigh(G)
+        V = V.double()
+        eye = torch.eye(V.shape[0], dtype=torch.float64, device=cuda)
+        assert float(torch.linalg.matrix_norm(V.T @ V - eye)) < 1e-4
+    got = host_tt_log_norm([c.double().cpu().numpy() for c in out])
+    assert abs(got - ref) / abs(ref) < 1e-4

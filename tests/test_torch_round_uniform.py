@@ -1,0 +1,254 @@
+"""The port's uniform, parallel and streaming roundings
+(xerus_tpu_torch.ops.round_uniform) held against xerus_tpu.ops.tt_kernels
+on the CPU.
+
+Both packages round the same float64 cores (drawn by the JAX package's
+TTTensor.random from one seed).  Truncations are compared through the
+represented tensor, which is gauge-free: 1e-8 of its norm where the two
+packages run the same deterministic algorithm (JAX's own tests hold
+cholqr to svd at rtol 1e-6), 1e-10 for the streaming rounding fed JAX's
+own sketches.  The cases of tests/test_kernels.py run on the port with
+their own bars: exact recovery, the quasi-optimality factors against the
+svd sweep, finite f32 results on zero-padded bonds, eps rank cuts."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+import xerus_tpu as xe
+from xerus_tpu.ops import tt_kernels as jtk
+from xerus_tpu_torch.ops import round_uniform as ru
+
+SEED = 0xBAADF00D
+
+
+def _cores(dims, rank, seed=SEED):
+    xe.set_seed(seed)
+    tt = xe.TTTensor.random(dims, rank)
+    return [np.asarray(c.to_ndarray()) for c in tt.components]
+
+
+def _emb(seed=SEED):
+    """a (rank 3) + 1e-9 z (rank 5): rank 8 carried, numerically rank 3."""
+    xe.set_seed(seed)
+    a = xe.TTTensor.random([2] * 8, 3)
+    a /= a.frob_norm()
+    z = xe.TTTensor.random([2] * 8, 5)
+    z /= z.frob_norm()
+    emb = a + 1e-9 * z
+    return ([np.asarray(c.to_ndarray()) for c in emb.components],
+            np.asarray(a.to_tensor().to_ndarray()))
+
+
+def _full(cores):
+    out = np.asarray(cores[0], np.float64)
+    for c in cores[1:]:
+        out = np.tensordot(out, np.asarray(c, np.float64), axes=1)
+    return out.squeeze()
+
+
+def _t(cores, dtype=torch.float64):
+    return [torch.from_numpy(np.asarray(c)).to(dtype) for c in cores]
+
+
+def _j(cores, dtype=jnp.float64):
+    return [jnp.asarray(c, dtype) for c in cores]
+
+
+def _np(cores):
+    return [np.asarray(c.detach().numpy() if isinstance(c, torch.Tensor)
+                       else c, np.float64) for c in cores]
+
+
+def _err(cores, orig):
+    return np.linalg.norm(_full(_np(cores)) - orig)
+
+
+def _ranks(cores):
+    return [int(c.shape[2]) for c in cores[:-1]]
+
+
+def test_round_sweep_matches_jax_and_object_round():
+    """The unrolled QR + SVD sweep: JAX's tensor, and exact when the rank
+    suffices."""
+    cores = _cores([3] * 6, 8)
+    got = ru.tt_round_sweep(_t(cores), 4)
+    ref = jtk.tt_round_sweep(_j(cores), 4)
+    want = _full(_np(ref))
+    assert np.linalg.norm(_full(_np(got)) - want) <= 1e-10 * np.linalg.norm(
+        want)
+    assert _ranks(got) == _ranks(ref)
+    small = _cores([2] * 8, 4)
+    out = ru.tt_round_sweep(_t(small), 8)
+    np.testing.assert_allclose(_full(_np(out)), _full(small), rtol=0,
+                               atol=1e-10)
+
+
+@pytest.mark.parametrize("method", ["svd", "gram", "cholqr", "gram_parallel",
+                                    "subspace_parallel"])
+def test_uniform_methods_match_jax(method):
+    """Rank 8 -> 4 at d=10: the port's tensor is JAX's within 1e-8 of its
+    norm, both at the svd sweep's error (cholqr, gram) or within JAX's
+    factor 1.5 of it (the parallel methods); ranks are JAX's where the
+    padded forms keep JAX's shapes."""
+    cores = _cores([2] * 10, 8)
+    orig = _full(cores)
+    got = ru.tt_round_sweep_uniform(_t(cores), 4, method=method)
+    ref = jtk.tt_round_sweep_uniform(_j(cores), 4, method=method)
+    want = _full(_np(ref))
+    assert np.linalg.norm(_full(_np(got)) - want) <= 1e-8 * np.linalg.norm(
+        want)
+    assert _ranks(got) == _ranks(ref)
+    e_svd = _err(jtk.tt_round_sweep_uniform(_j(cores), 4, method="svd"),
+                 orig)
+    e = _err(got, orig)
+    if method in ("svd", "gram", "cholqr"):
+        assert np.isclose(e, e_svd, rtol=1e-6)
+    else:
+        assert e < 1.5 * e_svd
+
+
+@pytest.mark.parametrize("method", ["cholqr", "gram_parallel",
+                                    "subspace_parallel"])
+def test_uniform_methods_f32_on_zero_padded_bonds(method):
+    """float32 with zero-padded (exactly singular) bonds: finite, and the
+    error within tests/test_kernels.py's bars of the f64 svd sweep's."""
+    cores = _cores([2] * 10, 8)
+    orig = _full(cores)
+    e_svd = _err(ru.tt_round_sweep_uniform(_t(cores), 4, method="svd"), orig)
+    out = ru.tt_round_sweep_uniform(_t(cores, torch.float32), 4,
+                                    method=method)
+    assert all(bool(torch.isfinite(c).all()) for c in out)
+    e32 = _err(out, orig)
+    if method == "cholqr":
+        assert np.isclose(e32, e_svd, rtol=1e-3)
+    else:
+        assert e32 < 1.5 * e_svd + 1e-4 * np.linalg.norm(orig)
+
+
+@pytest.mark.parametrize("method", ["gram_parallel", "subspace_parallel"])
+def test_parallel_methods_recover_representable_rank(method):
+    """A rank-3 TT carried at rank 8 (+1e-9 noise) rounds to it."""
+    cores, a = _emb()
+    out = ru.tt_round_sweep_uniform(_t(cores), 4, method=method)
+    np.testing.assert_allclose(_full(_np(out)), a, rtol=0, atol=1e-8)
+
+
+def test_subspace_parallel_eps_cuts_the_noise():
+    """eps on the Rayleigh sigma estimates cuts the 1e-9 directions: a's
+    rank-3 bonds, as in JAX."""
+    cores, a = _emb()
+    out = ru.tt_round_sweep_uniform(_t(cores), 4, eps=1e-6,
+                                    method="subspace_parallel")
+    ref = jtk.tt_round_sweep_uniform(_j(cores), 4, eps=1e-6,
+                                     method="subspace_parallel")
+    assert max(_ranks(out)) == 3 and _ranks(out) == _ranks(ref)
+    np.testing.assert_allclose(_full(_np(out)), a, rtol=0, atol=1e-7)
+
+
+def _eps_pair(seed=SEED):
+    xe.set_seed(seed)
+    a = xe.TTTensor.random([3] * 6, 2)
+    a /= a.frob_norm()
+    b = xe.TTTensor.random([3] * 6, 2)
+    b /= b.frob_norm()
+    c = a + 1e-8 * b
+    return ([np.asarray(x.to_ndarray()) for x in c.components],
+            np.asarray(a.to_tensor().to_ndarray()))
+
+
+@pytest.mark.parametrize("method", ["svd", "gram"])
+def test_uniform_eps_trims_ranks(method):
+    cores, a = _eps_pair()
+    out = ru.tt_round_sweep_uniform(_t(cores), 4, eps=1e-6, method=method)
+    np.testing.assert_allclose(_full(_np(out)), a, rtol=0, atol=1e-7)
+    assert _ranks(out) == [2] * 5
+    assert max(_ranks(ru.tt_round_sweep_uniform(_t(cores), 4))) == 4
+
+
+def test_eps_fast_matches_jax_ranks():
+    """Randomized preconditioning, then the svd-eps sweep: the 1e-8
+    directions go, ranks [2]*5 as JAX's tt_round_eps_fast gives."""
+    cores, a = _eps_pair()
+    out = ru.tt_round_eps_fast(_t(cores), 4, 1e-6)
+    ref = jtk.tt_round_eps_fast(_j(cores), 4, 1e-6)
+    assert _ranks(out) == _ranks(ref) == [2] * 5
+    np.testing.assert_allclose(_full(_np(out)), a, rtol=0, atol=1e-6)
+
+
+def _jax_streaming_sketches(d, n, l, psi, dtype):
+    """The draws of JAX's _round_streaming_scan (PRNGKey(0))."""
+    key = jax.random.PRNGKey(0)
+    kW, kL = jax.random.split(key)
+    keysW = jax.random.split(kW, d)
+    keysL = jax.random.split(kL, d)
+    om = [jax.random.normal(keysW[1 + t], (l, n, l), dtype=dtype)
+          for t in range(d - 1)]
+    ph = [jax.random.normal(keysL[k], (l + psi, n, l + psi), dtype=dtype)
+          for k in range(d - 1)]
+    return ([torch.from_numpy(np.array(x)) for x in om],
+            [torch.from_numpy(np.array(x)) for x in ph])
+
+
+@pytest.mark.parametrize("target", [6, 4])
+def test_streaming_matches_jax_with_its_sketches(target):
+    """With JAX's own sketches the port's streaming rounding is JAX's
+    (1e-10 of the norm): representable (rank 3 -> 6) and truncating
+    (rank 8 -> 4)."""
+    cores = _cores([2] * 8, 3) if target == 6 else _cores([2] * 10, 8)
+    d = len(cores)
+    sk = _jax_streaming_sketches(d, 2, target, 32, jnp.float64)
+    got = ru.tt_round_streaming_uniform(_t(cores), target, sketches=sk)
+    ref = jtk.tt_round_streaming_uniform(_j(cores), target)
+    want = _full(_np(ref))
+    assert [tuple(c.shape) for c in got] == [tuple(c.shape) for c in ref]
+    assert np.linalg.norm(_full(_np(got)) - want) <= 1e-10 * np.linalg.norm(
+        want)
+
+
+def test_streaming_own_sketches_contract():
+    """tests/test_kernels.py's streaming contract on the port's own draws:
+    exact on representable ranks, within 6x of the svd error when
+    truncating, finite and within the f32 bar in float32; d == 1 is a
+    no-op."""
+    a = _cores([2] * 8, 3)
+    out = ru.tt_round_streaming_uniform(_t(a), 6)
+    full = _full(a)
+    np.testing.assert_allclose(_full(_np(out)), full, rtol=0,
+                               atol=1e-10 * np.linalg.norm(full))
+    cs = _cores([2] * 10, 8)
+    orig = _full(cs)
+    e_s = _err(ru.tt_round_sweep_uniform(_t(cs), 4, method="svd"), orig)
+    assert _err(ru.tt_round_streaming_uniform(_t(cs), 4), orig) < 6 * e_s
+    st32 = ru.tt_round_streaming_uniform(_t(cs, torch.float32), 4)
+    assert all(bool(torch.isfinite(c).all()) for c in st32)
+    assert _err(st32, orig) < 6 * e_s + 1e-3 * np.linalg.norm(orig)
+    one = ru.tt_round_streaming_uniform([torch.ones((1, 5, 1))], 3)
+    assert len(one) == 1 and tuple(one[0].shape) == (1, 5, 1)
+
+
+def test_uniform_rejects_unknown_method():
+    with pytest.raises(ValueError, match="unknown rounding method"):
+        ru.tt_round_sweep_uniform(_t(_cores([2] * 4, 2)), 2, method="qr")
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_eigh_sym_matches_jax_on_the_cpu(dtype):
+    """The roundings' eigh (``round_kernels._eigh_sym``) on the CPU is
+    torch.linalg.eigh in the input's dtype, ascending, with JAX's
+    eigenvalues (float64 is used only for float32 on the card)."""
+    from xerus_tpu_torch.ops.round_kernels import _eigh_sym
+    rng = np.random.default_rng(SEED)
+    X = rng.normal(size=(40, 60)) * np.logspace(0, -3, 60)
+    G = (X @ X.T).astype(dtype)
+    w, V = _eigh_sym(torch.from_numpy(G))
+    assert w.dtype == V.dtype == torch.from_numpy(G).dtype
+    wt, _Vt = torch.linalg.eigh(torch.from_numpy(G))
+    assert torch.equal(w, wt)
+    wj = np.asarray(jnp.linalg.eigh(jnp.asarray(G))[0])
+    tol = 1e-5 if dtype == np.float32 else 1e-12
+    assert np.max(np.abs(w.numpy() - wj)) <= tol * np.max(np.abs(wj))
+    assert np.all(np.diff(w.numpy()) >= 0)

@@ -511,7 +511,9 @@ def _eps_pair(pkg):
 
 @pytest.mark.parametrize("method,rank", [
     ("randomized", 4), ("randomized_unrolled", 4), ("svd", 4),
-    ("gemm_exact", 4), ("subspace", 4), ("svd", [4] * 5)])
+    ("gemm_exact", 4), ("subspace", 4), ("svd", [4] * 5), ("streaming", 4),
+    ("cholqr", 4), ("gram_parallel", 4), ("subspace_parallel", 4),
+    ("streaming", [4] * 5)])
 def test_round_fast_eps(method, rank):
     """eps drops the 1e-8 directions: rank 2 and JAX's a, as in
     tests/test_tt.py."""
@@ -551,10 +553,38 @@ def test_round_fast_gemm_exact_matches_jax_round_fast():
 @pytest.mark.parametrize("method", ["streaming", "cholqr", "gram_parallel",
                                     "subspace_parallel"])
 def test_round_fast_unported_methods_raise(method):
+    """The four methods that raised before they were ported (the name is
+    kept) now run as JAX's round_fast does: on representable ranks the
+    tensor at 1e-8 of its norm, JAX's ranks, re-canonicalized to core 0;
+    at rank 4
+    of a rank-8 TT the deterministic ones give JAX's round_fast tensor
+    (1e-8), streaming (its sketches drawn by each package's own
+    generator) stays within test_tt.py's factor 15 of the exact
+    rounding's error, the parallel methods within its factor 2."""
+    xe.set_seed(SEED)
+    ja = xe.TTTensor.random([2] * 8, 3)
+    want = ja.to_tensor().to_ndarray()
+    ja.round_fast(6, method=method)
     xt.set_seed(SEED)
-    a = xt.TTTensor.random([2] * 6, 3)
-    with pytest.raises(NotImplementedError, match="item 2a"):
-        a.round_fast(2, method=method)
+    t = xt.TTTensor.random([2] * 8, 3)
+    t.round_fast(6, method=method)
+    t.require_correct_format()
+    assert t.canonicalized and t.corePosition == 0
+    # streaming keeps every interior bond at the target before the
+    # re-canonicalization: [2, 3, 6, 6, 6, 4, 2] in both packages
+    assert t.ranks() == ja.ranks()
+    np.testing.assert_allclose(t.to_tensor().to_ndarray(), want, rtol=0,
+                               atol=1e-8 * np.linalg.norm(want))
+    xt.set_seed(SEED + 1)
+    b = _quasi(xt, method, 15 if method == "streaming" else 2)
+    if method != "streaming":
+        xe.set_seed(SEED + 1)
+        jb = xe.TTTensor.random([2] * 8, 8)
+        jb.round_fast(4, method=method)
+        ref = jb.to_tensor().to_ndarray()
+        assert b.ranks() == jb.ranks()
+        np.testing.assert_allclose(b.to_tensor().to_ndarray(), ref, rtol=0,
+                                   atol=1e-8 * np.linalg.norm(ref))
 
 
 def test_round_fast_speed_presets_and_bad_input_raise():

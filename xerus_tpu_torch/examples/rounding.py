@@ -5,7 +5,7 @@ instance bit for bit (``_make_cores`` from ``PCG64(0xBAADF00D)``: d=32,
 n=2, rank 256); ``cliff_instance`` its numerically rank-96 variant;
 ``cpu_round_sweep`` the float64 LAPACK QR + SVD rounding chain that the
 reference runs; ``host_tt_log_norm`` and ``host_tt_distance`` read results
-on the host in float64.  Cores cross to the port through
+on the host in float64 (every contraction a BLAS product).  Cores cross to the port through
 ``convert.cores_to_torch``.
 """
 
@@ -31,38 +31,44 @@ def bench_round_instance(d: int = 32, n: int = 2, rank: int = 256,
     return cores
 
 
-def cliff_instance(cores: Sequence[np.ndarray], signal_rank: int = 96
-                   ) -> List[np.ndarray]:
+def cliff_instance(cores: Sequence[np.ndarray], signal_rank: int = 96,
+                   scale: float = 1e-6) -> List[np.ndarray]:
     """Numerically rank-``signal_rank`` TT carried at the full ranks: bond
-    slots past ``signal_rank`` are scaled by 1e-6 on both sides."""
+    slots past ``signal_rank`` are scaled by ``scale`` on both sides (the
+    result takes the cores' dtype; 1e-9 is below f32's resolution of the
+    kept part, so pass float64 cores for it)."""
     out = []
     for c in cores:
         rl, _n, rr = c.shape
-        dl = np.where(np.arange(rl) < signal_rank, 1.0, 1e-6).astype(c.dtype)
-        dr = np.where(np.arange(rr) < signal_rank, 1.0, 1e-6).astype(c.dtype)
+        dl = np.where(np.arange(rl) < signal_rank, 1.0, scale).astype(c.dtype)
+        dr = np.where(np.arange(rr) < signal_rank, 1.0, scale).astype(c.dtype)
         out.append(c * dl[:, None, None] * dr[None, None, :])
     return out
 
 
-def cpu_round_sweep(cores: Sequence[np.ndarray], target: int
-                    ) -> List[np.ndarray]:
+def cpu_round_sweep(cores: Sequence[np.ndarray], target: int,
+                    eps: float = 0.0) -> List[np.ndarray]:
     """float64 numpy/LAPACK rounding: QR sweep left to right, truncated
-    SVD sweep right to left (the reference's kernel chain)."""
+    SVD sweep right to left (the reference's kernel chain).  ``eps`` > 0
+    also drops singular values at or below eps times the largest (at
+    least one kept), as the reference's round(maxRanks, eps)."""
     cores = [np.asarray(c, np.float64) for c in cores]
     d = len(cores)
     for i in range(d - 1):
         rl, n, rr = cores[i].shape
         q, r = np.linalg.qr(cores[i].reshape(rl * n, rr))
         cores[i] = q.reshape(rl, n, q.shape[1])
-        cores[i + 1] = np.einsum("ab,bnc->anc", r, cores[i + 1])
+        cores[i + 1] = np.tensordot(r, cores[i + 1], axes=1)
     for i in range(d - 1, 0, -1):
         rl, n, rr = cores[i].shape
         u, s, vt = np.linalg.svd(cores[i].reshape(rl, n * rr),
                                  full_matrices=False)
         k = min(target, u.shape[1])
+        if eps > 0.0:
+            k = min(k, max(1, int(np.sum(s > eps * s[0]))))
         cores[i] = vt[:k, :].reshape(k, n, rr)
-        cores[i - 1] = np.einsum("anb,bk->ank", cores[i - 1],
-                                 u[:, :k] * s[None, :k])
+        cores[i - 1] = np.tensordot(cores[i - 1], u[:, :k] * s[None, :k],
+                                    axes=1)
     return cores
 
 
@@ -73,7 +79,7 @@ def host_tt_log_norm(cores: Sequence[np.ndarray]) -> float:
     log_acc = 0.0
     for c in cores:
         c = np.asarray(c, np.float64)
-        env = np.einsum("uv,unU,vnV->UV", env, c, c)
+        env = np.einsum("uv,unU,vnV->UV", env, c, c, optimize=True)
         nrm = np.linalg.norm(env)
         if nrm > 0:
             env = env / nrm
@@ -107,12 +113,12 @@ def host_tt_distance(xs: Sequence[np.ndarray], ys: Sequence[np.ndarray]
     R = np.ones((1, 1))
     log_acc = 0.0
     for i in range(d - 1):
-        cur = np.einsum("ka,anb->knb", R, block(i))
+        cur = np.tensordot(R, block(i), axes=1)
         R = np.linalg.qr(cur.reshape(-1, cur.shape[2]), mode="r")
         nrm = np.linalg.norm(R)
         if nrm == 0.0:
             return 0.0
         R = R / nrm
         log_acc += np.log(nrm)
-    last = np.einsum("ka,anb->knb", R, block(d - 1))
+    last = np.tensordot(R, block(d - 1), axes=1)
     return float(np.exp(log_acc) * np.linalg.norm(last))

@@ -148,25 +148,24 @@ def df_matvec(Ah, Al, xh, xl):
     return df_reduce_sum(ph, pl, axis=1)
 
 
-# above this broadcast size (m*k*n elements), with k >= 128, the JAX package
-# switches to the Ozaki split GEMM (xerus_tpu/ops/ozaki.py)
+# above this broadcast size (m*k*n elements), with k >= 128, df_matmul
+# switches to the Ozaki split GEMM (ops/ozaki.py), as the JAX package does
 OZAKI_MATMUL_THRESHOLD = 1 << 21
 
 
 def df_matmul(Ah, Al, Bh, Bl):
-    """df (m,k) @ df (k,n) -> df (m,n): broadcast products + pairwise tree.
+    """df (m,k) @ df (k,n) -> df (m,n).
 
-    GEMM-shaped f32 problems past the Ozaki gate raise: the split GEMM is
-    not ported yet, and the broadcast path's O(m*k*n) memory is not a
-    substitute for it."""
+    Small problems: broadcast products + pairwise tree sum (O(m*k*n)
+    memory, best accuracy).  GEMM-shaped f32 problems past the gate: the
+    Ozaki split GEMM; for skinny k its fixed cost (splits, 14-21 GEMMs)
+    loses to the broadcast tree."""
     m, k = Ah.shape
     n = Bh.shape[1]
     if (m * k * n >= OZAKI_MATMUL_THRESHOLD and k >= 128
             and Ah.dtype == torch.float32):
-        raise NotImplementedError(
-            "df_matmul past the Ozaki gate (m*k*n >= 2^21, k >= 128) needs "
-            "the Ozaki split GEMM, not ported yet: ROADMAP.md Queue 1 item "
-            "1a (ops/ozaki.py)")
+        from .ozaki import ozaki_matmul
+        return ozaki_matmul(Ah, Al, Bh, Bl)
     ph, pl = df_mul(Ah[:, :, None], Al[:, :, None], Bh[None, :, :],
                     Bl[None, :, :])
     return df_reduce_sum(ph, pl, axis=1)

@@ -50,7 +50,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.factorizations import _svd as thin_svd
-from .round_kernels import host_float, res_rank
+from .round_kernels import _eigh_sym, host_float, res_rank
 from .stacking import pad_cores
 
 _TINY = 1e-30
@@ -80,10 +80,10 @@ def _eigh(A: torch.Tensor):
     ``_eigh.fallbacks``: torch's CPU syevd fails on padded local operators
     with hundreds of zero rows (d=8 rank 16: 896 of 1024) that LAPACK's
     own syevd solves.  On the card the error is raised: nothing moves to
-    the host."""
+    the host; float32 is solved there in float64 (``_eigh_sym``)."""
     _info_check(A)
     try:
-        return torch.linalg.eigh(A)
+        return _eigh_sym(A)
     except torch.linalg.LinAlgError:
         if A.is_cuda:
             raise

@@ -54,6 +54,18 @@ def _cholesky(A: torch.Tensor) -> torch.Tensor:
     return torch.where(info == 0, L, torch.full_like(L, float("nan")))
 
 
+def _eigh_sym(A: torch.Tensor):
+    """torch.linalg.eigh of a (batch of) symmetric matrices.  A float32
+    matrix on the card is solved in float64 and cast back: cuSOLVER's
+    float32 eigh (torch 2.11, CUDA 12.8, NVIDIA H100) left ||V^T V - I||
+    up to 1.9e-3 on the rank-256 rounding's bond Grams, where LAPACK's
+    float32 eigh leaves 1.8e-5 (PERF.md)."""
+    if A.is_cuda and A.dtype == torch.float32:
+        w, v = torch.linalg.eigh(A.double())
+        return w.float(), v.float()
+    return torch.linalg.eigh(A)
+
+
 def _solve_lower(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     return torch.linalg.solve_triangular(L, B, upper=False)
 
@@ -389,7 +401,7 @@ def _trunc_step(cur: torch.Tensor, keep: int, keep_cap: int, eps: float,
     dtype = cur.dtype
     if method == "gram":
         G = cur @ cur.T
-        lam, V = torch.linalg.eigh(G)                  # ascending
+        lam, V = _eigh_sym(G)                          # ascending
         lam = torch.flip(lam, (0,))
         V = torch.flip(V, (1,))
         s = torch.sqrt(torch.clamp_min(lam, 0.0))

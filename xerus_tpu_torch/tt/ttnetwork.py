@@ -41,9 +41,9 @@ MAX_RANK = 2 ** 62  # stand-in for size_t max
 
 # round_fast's routes (JAX tt/ttnetwork.py round_fast)
 _SEGMENTED_METHODS = ("svd", "gram", "subspace", "gemm_exact")
-_ROUND_METHODS = ("randomized", "randomized_unrolled") + _SEGMENTED_METHODS
-_UNPORTED_ROUND_METHODS = ("streaming", "cholqr", "gram_parallel",
-                           "subspace_parallel")
+_ROUND_METHODS = (("randomized", "randomized_unrolled", "streaming",
+                   "cholqr", "gram_parallel", "subspace_parallel")
+                  + _SEGMENTED_METHODS)
 _OVERSAMPLE = 8
 
 
@@ -641,31 +641,33 @@ class TTNetwork:
 
         method: 'randomized' (randomize-then-orthogonalize with Householder
         panels, quasi-optimal), 'randomized_unrolled' (the same with
-        cholqr1 panels), 'svd' / 'gram' (deterministic segmented true-shape
-        sweep), 'subspace' (deterministic GEMM-only quasi-optimal
-        truncation), 'gemm_exact' (deterministic segmented sweep with the
-        certified GEMM-only truncation, exact-SVD-chain semantics; on a
-        CUDA tensor each truncation launches K2).  ``eps`` > 0 additionally
-        drops relative singular values below eps through the segmented
-        svd-eps sweep.  A per-edge rank vector routes to the segmented
-        deterministic sweep (randomized preconditioning first when method
-        is 'randomized').  Works for TTTensor and TTOperator (physical legs
-        folded for the sweeps).  The result is re-canonicalized to core 0;
-        use `round()` for the reference's eps-per-edge object semantics
+        cholqr1 panels), 'streaming' (two-sided sketches, no sequential
+        factorization, every interior bond at exactly max_rank before the
+        re-canonicalization), 'svd' / 'gram' (deterministic segmented
+        true-shape sweep), 'subspace' (deterministic GEMM-only
+        quasi-optimal truncation), 'gemm_exact' (deterministic segmented
+        sweep with the certified GEMM-only truncation, exact-SVD-chain
+        semantics; on a CUDA tensor each truncation launches K2), 'cholqr'
+        / 'gram_parallel' (deterministic on the padded stack; gram_parallel
+        truncates every bond at once), 'subspace_parallel' (every bond at
+        once, GEMM + batched Cholesky only, native eps).  ``eps`` > 0
+        additionally drops relative singular values below eps through the
+        svd-eps sweep ('randomized' through ``tt_round_eps_fast``).  A
+        per-edge rank vector routes to the segmented deterministic sweep
+        (randomized or streaming preconditioning first for those methods).
+        Works for TTTensor and TTOperator (physical legs folded for the
+        sweeps).  The result is re-canonicalized to core 0; use `round()`
+        for the reference's eps-per-edge object semantics
         (ttNetwork.cpp:644-685).
 
-        Not ported yet: the methods 'streaming', 'cholqr', 'gram_parallel'
-        and 'subspace_parallel' (ROADMAP Queue 1 item 2a) and every
-        ``speed`` other than 'exact' (item 2b) raise NotImplementedError."""
+        Every ``speed`` other than 'exact' raises NotImplementedError
+        (ROADMAP Queue 1 item 2b)."""
         from ..ops import round_kernels as rk
+        from ..ops import round_uniform as ru
         if speed != "exact":
             raise NotImplementedError(
                 f"speed={speed!r}: the SPEED_PRESETS mapping is not ported "
                 "yet (ROADMAP Queue 1 item 2b)")
-        if method in _UNPORTED_ROUND_METHODS:
-            raise NotImplementedError(
-                f"round_fast method={method!r} is not ported yet (ROADMAP "
-                "Queue 1 item 2a)")
         require(method in _ROUND_METHODS,
                 f"unknown round_fast method {method!r}")
         rank_vec = None
@@ -690,32 +692,52 @@ class TTNetwork:
             out = cores                       # no bond to round
         elif rank_vec is not None:
             # per-edge vector: segmented deterministic truncation; the
-            # randomized method acts as a cheap uniform preconditioner
-            # down to max(rank_vec) first
+            # randomized and streaming methods act as a cheap uniform
+            # preconditioner down to max(rank_vec) first
             if method == "randomized":
                 cores = list(rk._round_randomized(cores, max_rank,
                                                   _OVERSAMPLE))
+            elif method == "streaming":
+                cores = ru.tt_round_streaming_uniform(cores, max_rank)
             seg_method = method if method in _SEGMENTED_METHODS else "svd"
             if seg_method in ("subspace", "gemm_exact") and eps > 0.0:
                 seg_method = "svd"
             out = segmented(cores, rank_vec, eps=eps, method=seg_method)
+        elif method == "randomized" and eps > 0.0:
+            # one source of truth for the randomized + eps composite
+            out = ru.tt_round_eps_fast(cores, max_rank, eps)
         elif method in ("randomized", "randomized_unrolled"):
             # 'randomized' runs Householder panels at true shapes (the JAX
             # package pads to one shape for its compile; the port has no
-            # compile to share), 'randomized_unrolled' cholqr1 panels;
-            # eps > 0: the exact svd-eps sweep on the rounded cores
+            # compile to share), 'randomized_unrolled' cholqr1 panels and
+            # with eps > 0 the exact svd-eps sweep on the rounded cores
             qr = "householder" if method == "randomized" else "cholqr1"
             out = list(rk._round_randomized(cores, max_rank, _OVERSAMPLE,
                                             qr_method=qr))
             if eps > 0.0:
                 out = segmented(out, max_rank, eps=eps, method="svd")
+        elif method == "streaming":
+            out = ru.tt_round_streaming_uniform(cores, max_rank)
+            if eps > 0.0:
+                out = ru.tt_round_sweep_uniform(out, max_rank, method="svd",
+                                                eps=eps)
         elif method in ("subspace", "gemm_exact") and eps > 0.0:
             # no singular values to apply eps to: the svd-eps sweep on the
             # rounded cores
             out = segmented(cores, max_rank, method=method)
             out = segmented(out, max_rank, eps=eps, method="svd")
-        else:
+        elif method in _SEGMENTED_METHODS:
             out = segmented(cores, max_rank, eps=eps, method=method)
+        elif method == "subspace_parallel":
+            # eps is native: a relative mask on the Rayleigh sigma estimates
+            out = ru.tt_round_sweep_uniform(cores, max_rank, method=method,
+                                            eps=eps)
+        else:
+            # cholqr, gram_parallel: only the svd path applies eps, on the
+            # (small) rounded cores
+            out = ru.tt_round_sweep_uniform(cores, max_rank, method=method)
+            if eps > 0.0:
+                out = segmented(out, max_rank, eps=eps, method="svd")
         res = []
         for k, c in enumerate(out):
             if dims4 is not None:
