@@ -114,6 +114,7 @@ ROUND_D, ROUND_N, ROUND_RANK, ROUND_TARGET, OVERSAMPLE = 32, 2, 256, 128, 8
 # trunc-mode bonds of the static schedule: sites 8..24, each (256, 256),
 # keep 128 in a 128 bucket; the ramp bonds take exact splits
 EXPECTED_K2_LAUNCHES = 17
+K2_CLUSTER_CTAS = 16      # CTAs of K2's cluster route (flags' cluster_ctas)
 ROUND_F64_BAR = 2e-4      # f32-vs-f64 log-norm, svd and gemm_exact
 GE_VS_SVD_BAR = 1e-4      # gemm_exact log-norm vs the svd chain's
 RAND_VS_SVD_BAR = 1e-4    # randomized log-norm above the svd chain's
@@ -2085,7 +2086,8 @@ def _k2_f64_against_plain(inputs):
     control runs K2 on the same bond in float32.  Returns the plain
     version's certification per bond and, per bond, the kernel's
     {"proj", "err"} distances to the plain version and the control's
-    {"proj32", "err32"}."""
+    {"proj32", "err32"} and the plain version's wall time "plain_ms" (one
+    synchronized run)."""
     import torch
     from xerus_tpu_torch.ops import gemm_exact as ge
     plain_ok, dist = [], []
@@ -2093,14 +2095,19 @@ def _k2_f64_against_plain(inputs):
         fk = dict(zip(ge.FLAGS, flags.tolist()))
         mask = (torch.arange(cap, device=cur.device) < keep).to(cur.dtype)
         vk = ge._finish_gemm_exact(vt0, vt_bal, bool(fk["okp"]), mask)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         vp, fp = _k2_run(cur, keep, cap, False)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
         v32, f32 = _k2_run(cur.float(), keep, cap, True)
         plain_ok.append(fp["converged"])
         ep = _trunc_err(cur, vp)
         dist.append({"proj": _proj_dist(vk, vp),
                      "err": abs(_trunc_err(cur, vk) - ep) / ep,
                      "proj32": _proj_dist(v32, vp),
-                     "err32": abs(_trunc_err(cur, v32) - ep) / ep})
+                     "err32": abs(_trunc_err(cur, v32) - ep) / ep,
+                     "plain_ms": plain_ms})
         d = dist[-1]
         print(f"tt objects K2 f64 bond {n} against its plain version: "
               f"projector distance {d['proj']:.3e} (bar "
@@ -2124,7 +2131,10 @@ def phase_tt_objects(dev, smi, solution, host_residual, round_ref,
     held against its plain version by output; then the same at d=12 on
     the card and under host(), held against each other.  ``ge_f32`` is
     the float32 gemm_exact rounding's log-norm error on the same instance
-    (phase_round_slice), the control that TT_GE_BAR must refuse."""
+    (phase_round_slice), the control that TT_GE_BAR must refuse.  Every
+    float64 bond must take the 16-CTA cluster route.  Returns the K2
+    launches and K2's float64 times on the largest bond (ms, plain_ms,
+    bound_ms, library_ms: gesvd) and per rounding."""
     import math
     import numpy as np
     import torch
@@ -2200,11 +2210,18 @@ def phase_tt_objects(dev, smi, solution, host_residual, round_ref,
         total, bound = total + ms, bound + b_ms
         print(f"tt objects K2 f64 bond {n} ({B}, {M}) cap {cap}: {ms:.3f} ms,"
               f" bound {b_ms:.4f} ms; route "
-              f"{'cluster' if f['cluster_ctas'] else 'grid'}, outer "
-              f"{f['outer']}, Newton-Schulz {f['ns']}, certified "
-              f"{f['converged']}, okp {f['okp']}")
+              f"{'cluster' if f['cluster_ctas'] else 'grid'} of "
+              f"{f['cluster_ctas']} CTAs, outer {f['outer']}, Newton-Schulz "
+              f"{f['ns']}, {1e3 * ms / (f['ns'] + f['outer']):.3f} us per "
+              f"iteration (device time over Newton-Schulz + outer steps), "
+              f"certified {f['converged']}, okp {f['okp']}")
     print(f"tt objects K2 f64: {total:.3f} ms of device time over "
           f"{len(bonds)} launches per rounding, bound {bound:.3f} ms")
+    off_cluster = [n for n, (_s, _c, _ms, f) in enumerate(bonds)
+                   if f["cluster_ctas"] != K2_CLUSTER_CTAS]
+    if off_cluster:
+        fails.append(f"K2 f64 bonds {off_cluster} did not take the "
+                     f"{K2_CLUSTER_CTAS}-CTA cluster route")
     # a bond that does not certify within the reference's float64 cap
     # takes the SVD fallback: the object path must fall back exactly where
     # the plain version does
@@ -2249,13 +2266,26 @@ def phase_tt_objects(dev, smi, solution, host_residual, round_ref,
                                 f["ns"], f["ns_rows"], polish)
     b_ms, by = _bound((cur.numel() + 2 * cap * cur.shape[1]) * 8, flops,
                       "float64")
+    first = ge.gemm_exact_kernel(cur, keep, cap)
+    second = ge.gemm_exact_kernel(cur, keep, cap)
+    same = all(torch.equal(x, y) for x, y in zip(first, second))
     print(f"tt objects K2 f64 largest bond {tuple(cur.shape)} keep {keep} "
           f"cap {cap} (the slowest of the equal shapes, certified "
           f"{f['converged']}): kernel {kernel_ms:.3f} ms, gesvd f64 "
-          f"{gesvd_ms:.3f} ms (CUDA events, median of 10); "
+          f"{gesvd_ms:.3f} ms (CUDA events, median of 10), plain version "
+          f"{dist[big]['plain_ms']:.1f} ms (one synchronized run); "
           f"{flops / 1e9:.3f} GFLOP, bound {b_ms:.4f} ms by {by} (FP64 "
           f"tensor cores 67 TFLOP/s), {b_ms / kernel_ms:.2%} of it "
-          f"reached; {smi}")
+          f"reached; {1e3 * kernel_ms / (f['ns'] + f['outer']):.3f} us per "
+          f"iteration; two launches bitwise equal: {same}; {smi}")
+    if not same:
+        fails.append("two K2 launches on the largest f64 bond differ")
+    f64 = {"f64_ms": kernel_ms, "f64_plain_ms": dist[big]["plain_ms"],
+           "f64_bound_ms": b_ms, "f64_bound_by": by,
+           "f64_library_ms": gesvd_ms,
+           "f64_shape": [*cur.shape, keep, cap],
+           "f64_ms_per_rounding": total,
+           "f64_bound_ms_per_rounding": bound}
     if fails:
         raise AssertionError("tt objects: " + "; ".join(fails))
 
@@ -2273,7 +2303,7 @@ def phase_tt_objects(dev, smi, solution, host_residual, round_ref,
           f" phase {time.perf_counter() - t_phase:.1f} s")
     if fails:
         raise AssertionError("tt objects at d=12: " + "; ".join(fails))
-    return launches
+    return launches, f64
 
 
 # the algorithms layer through the public names (phase_algorithms), in
@@ -3000,16 +3030,21 @@ def main():
     k3_launches, completion = phase_completion_slice(dev)
     iht_residual = phase_iht(dev)
     phase_objects(dev, smi)
-    k2_launches += phase_tt_objects(dev, smi, solution, host_residual,
-                                    round_ref, ge_f32)
+    k2_tt, k2_f64 = phase_tt_objects(dev, smi, solution, host_residual,
+                                     round_ref, ge_f32)
+    k2_launches += k2_tt
+    k2_timing.update(k2_f64)
     phase_algorithms(dev, smi, slice_run, host_residual, completion,
                      iht_residual)
     phase_eigensolver(dev, smi)
     phase_breakdown(dev)
     phase_round_breakdown(dev)
     def entry(name, source, replaces, launches, max_abs, timing):
+        # beside the main shape's numbers: K1's at (1800, 1800), K2's in
+        # float64 on the object rounding's largest bond
         extra = {k: v for k, v in timing.items()
-                 if k.endswith("_1800x1800") or k == "shapes"}
+                 if k.endswith("_1800x1800") or k == "shapes"
+                 or k.startswith("f64_")}
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": max_abs, "ms": timing["ms"],

@@ -176,6 +176,43 @@ def test_gemm_exact_kernel_f64_matches_svd(cuda):
                                np.sum(s[5:] ** 2) / np.sum(s ** 2), rtol=1e-8)
 
 
+# K2 in float64 against its plain version, chip_smoke.py's bars on the
+# object rounding's bonds: kept projectors ||P_k - P_p||_F / ||P_p||_F and
+# the truncation errors' relative difference
+K2_F64_PROJ_BAR = 1e-5
+K2_F64_ERR_BAR = 1e-10
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,M", [(256, 256), (256, 512)])
+def test_gemm_exact_kernel_f64_bonds_take_the_cluster_route(cuda, B, M):
+    """The f64 object rounding's bonds, (256, 256) and (256, 512) in the
+    128 bucket, take the 16-CTA cluster route."""
+    assert ge.gemm_exact_route(B, M, 128, torch.float64) == 16
+
+
+@pytest.mark.cuda
+def test_gemm_exact_kernel_f64_bond_matches_plain(cuda):
+    """On a seeded (256, 256) keep-128 f64 bond the cluster kernel makes
+    the plain version's certification decision, its kept projector lies
+    within K2_F64_PROJ_BAR of the plain one and its truncation error
+    within K2_F64_ERR_BAR; two launches are bitwise equal."""
+    cur = torch.tensor(_k2_case("generic", 256, 256, 128, 11),
+                       dtype=torch.float64, device=cuda)
+    vk, conv_k = _k2_vt(cur, 128, 128, True)
+    vp, conv_p = _k2_vt(cur, 128, 128, False)
+    assert conv_k == conv_p
+    a, b = vk.double(), vp.double()
+    P = b.T @ b
+    assert float((a.T @ a - P).norm() / P.norm()) <= K2_F64_PROJ_BAR
+    ek, ep = _k2_err(cur, vk), _k2_err(cur, vp)
+    assert abs(ek - ep) <= K2_F64_ERR_BAR * ep
+    first = ge.gemm_exact_kernel(cur, 128, 128)
+    second = ge.gemm_exact_kernel(cur, 128, 128)
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
+    assert dict(zip(ge.FLAGS, first[2].tolist()))["cluster_ctas"] == 16
+
+
 @pytest.mark.cuda
 def test_gemm_exact_kernel_rejects_bad_input(cuda):
     cur = torch.zeros((16, 24), device=cuda)

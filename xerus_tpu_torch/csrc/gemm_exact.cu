@@ -17,65 +17,95 @@
 // balanced rows, input of the Householder-LQ finish that the caller runs
 // on the host's decision) and the flags of gemm_exact_common.cuh.  The
 // caller is the gemm_exact truncation of xerus_tpu_torch/ops/round_kernels.py:
-// 17 calls at (256, 256), keep 128, K 128 per d=32 rank-256 -> 128 rounding.
+// 17 calls at (256, 256), keep 128, K 128 per d=32 rank-256 -> 128 rounding
+// in f32 (the core-level rounding) and in f64 (TTTensor.round_fast, whose
+// bonds are (256, 256) and (256, 512)).
 //
 // Bound at that shape: operations.  The flags give the FLOP count
-// (ops/gemm_exact.py gemm_exact_flops): at 22.4 outer and 834
-// Newton-Schulz steps per bond, the rounding's mean, about 15.7 GFLOP,
-// 0.24 ms at the H100's 67 TFLOP/s of FP32 FFMA; its inputs and outputs
-// (under 1 MB) take 0.3 us at 3.35 TB/s.  What the work really is,
-// though, is a chain of about 1,900 data-dependent small products (the
-// largest (256, 256, 256), the most frequent the (128, 128, 256)
-// Newton-Schulz Gram and its (256, 128, 128) update), each followed by a
-// reduction that decides the next step.  So latency bounds it: the grid
-// route (gemm_exact_grid.cuh) pays a grid-wide barrier per phase, an L2
-// round trip per 32-deep chunk and keeps at most 32 of 132 blocks busy.
+// (ops/gemm_exact.py gemm_exact_flops): in f32, at 22.4 outer and 834
+// Newton-Schulz steps per bond (the rounding's mean) about 15.7 GFLOP,
+// 0.24 ms at the H100's 67 TFLOP/s of FP32 FFMA; in f64, on the slowest
+// bond (256 outer steps, about 10,000 Newton-Schulz steps under the
+// (256, 64, 16, 3) tuning) 188 GFLOP, 2.8 ms at the 67 TFLOP/s of the FP64
+// tensor cores; inputs and outputs (under 2 MB) take under 1 us at 3.35
+// TB/s.  What the work really is, though, is a chain of thousands of
+// data-dependent small products (the largest (256, 256, 256), the most
+// frequent the (128, 128, 256) Newton-Schulz Gram and its (256, 128, 128)
+// update), each followed by a reduction that decides the next step.  So
+// latency bounds it: the grid route (gemm_exact_grid.cuh) pays a
+// grid-wide barrier per phase, an L2 round trip per 32-deep chunk and
+// keeps at most 32 of 132 blocks busy.
 //
-// The cluster route (this file's kernel) answers that as the TPU kernel
-// did with one core's VMEM: 16 CTAs of one non-portable cluster hold the
-// whole state in their shared memory, split by rows (G's columns G[:, I_c]
-// and Gn's, the (B, K) bases V, Q and a work buffer, the iterate's
-// transpose; later cur's columns and the (M, K) row-polar iterate), and
-// exchange what a product needs through distributed shared memory.  Every
-// exchange is a push: a CTA stores its slice, its partial Gram rows or its
-// rows of P = 1.5 I - 0.5 S straight into the other CTAs' shared memory,
-// destinations staggered by rank, and one cluster barrier (release /
-// acquire) publishes them; no CTA waits on a remote load.  A Newton-Schulz
-// step is: the CTA's partial Gram, only its 4 x 4 blocks on and above the
-// diagonal (S is symmetric), pushed to the owners of S's rows; barrier;
-// each owner (row blocks b and K/4 - 1 - b, so that all owners fold the
-// same number of blocks) folds the 16 partials in rank order, takes
-// max|S - diag(mask)| and pushes its upper rows of P to all; barrier;
-// every CTA folds the error, mirrors P's lower blocks from the upper ones
-// and updates its rows X <- X P in place.  Two cluster barriers, no
-// global memory.  The products are SIMT FFMA on k-major shared-memory
-// operands with 4 x 4 register blocks per thread: up to four row blocks
-// of one column block per thread for the (K, K) Gram; for the products
-// whose output is a row slice, the transpose (K, rows) is computed, so
-// that both 4-wide loads spread over few banks, with k split over
-// neighbouring lanes and folded by shuffles.  The rounding's bonds (f32,
-// K = 128, 16 rows of B and 16 or 32 rows of M per CTA) get instantiations
-// with those sizes fixed at compile time, so every loop unrolls; other
-// shapes run the same code with sizes read at run time.
+// The cluster route answers that as the TPU kernel did with one core's
+// VMEM: 16 CTAs of one non-portable cluster hold the whole state in their
+// shared memory, split by rows, and exchange what a product needs through
+// distributed shared memory.  Every exchange is a push: a CTA stores its
+// slice, its partial Gram rows or its rows of P = 1.5 I - 0.5 S straight
+// into the other CTAs' shared memory, destinations staggered by rank, and
+// one cluster barrier (release / acquire) publishes them; no CTA waits on
+// a remote load.  A Newton-Schulz step is: the CTA's partial Gram, only
+// its blocks on and above the diagonal (S is symmetric), pushed to the
+// owners of S's rows; barrier; each owner (4-row blocks b and K/4 - 1 - b,
+// so that all owners fold the same number of elements) folds the 16
+// partials in rank order, takes max|S - diag(mask)| and pushes its upper
+// rows of P to all; barrier; every CTA folds the error and updates its
+// rows X <- X P in place.  Two cluster barriers, no global memory.
 //
-// Why not wgmma / TMA: the products are at most (256, 256, 256), each
-// CTA's share of one is (128, 16, 256) or smaller, and ~1,900 of them run
-// back to back with a reduction between: a tensor-core tile would sit
-// mostly idle behind the barriers, and TF32 (10-bit mantissa) never
-// certifies.  The certificates sit at 4, 8 and 16 eps of the working type
-// and the Newton-Schulz exits at 64 eps, so every product keeps full FP32
-// (FP64 for the double instantiation) FFMA; a 3xTF32 mma.sync split (or
-// DMMA for f64) was not tried.  A Newton-Schulz step pays its pushes, two
-// cluster barriers and FFMA loops at 8 warps per SM.
+// float32 (kernel): 16 rows of G's columns and Gn's, the (B, K) bases V,
+// Q and a work buffer, the iterate's transpose, later cur's columns and
+// the (M, K) row-polar iterate; the exchange region holds the whole
+// (Bp, Kp) basis or all Gram partials plus the whole P (52,108 elements,
+// 208 KB, at the rounding's bonds).  Products are SIMT FFMA on k-major
+// shared-memory operands with 4 x 4 register blocks per thread (the
+// (K, K) Gram up to four row blocks of one column block per thread; the
+// products whose output is a row slice computed transposed, k split over
+// neighbouring lanes and folded by shuffles).  TF32 (10-bit mantissa)
+// never certifies: the certificates sit at 4, 8 and 16 eps of the working
+// type and the Newton-Schulz exits at 64 eps, so every product keeps full
+// FP32 FFMA; a 3xTF32 split was not tried.
+//
+// float64 (f64::kernel, the rounding's bonds: B in (192, 256], K in
+// (64, 128], M <= 512): the f32 layout would take 417 KB.  This design
+// keeps 16 rows of G and two bases per CTA and slices every exchange:
+//   * a product with the distributed basis (Gn V, G V for tau, Gn Y1,
+//     cur^T V) pushes the basis in column slices, 256 x 64 (256 x 32
+//     beside cur's columns in the row polar), two barriers a slice;
+//   * a Newton-Schulz step pushes only the Gram partials of the 8-row
+//     diagonal bands and above, packed (row i from column 8 floor(i / 8)),
+//     544 elements to each owner, and the owners push P's rows packed the
+//     same way: 8,704 elements each way, where f32 holds 16 x 8 x 128 and
+//     128 x 132; the update reads P directly above the band diagonal and
+//     transposed below it;
+//   * G is kept and Gn is not stored: a product with Gn divides its
+//     outputs by tr(G) (the same quotient up to rounding; one division per
+//     output element, where forming Gn at load would take one per element
+//     of G and warp), and tau reads G V as the plain body does;
+//   * orthonormalization runs in place on the work basis, so the design
+//     stores two bases (V and W) and no transposes.
+// Every product runs on the FP64 tensor cores (mma.sync m16n8k4 .f64, as
+// inline PTX; wgmma has no f64 type), operands k-major in shared memory
+// with row strides of 4 mod 16 doubles or an XOR swizzle, so that a
+// fragment's lanes hit distinct banks; each warp owns whole 16 x 8 output
+// tiles, so a tile's sum runs over k in one order.  Shared memory per CTA
+// (f64::layout, doubles): exchange 17,408 (Gram partials + P; or the
+// 256 x 64 slice; or the 256 x 32 slice and cur's 16 or 32 columns, 260
+// apart), G's rows 16 x 260 (phase 2: Y, rm x 132), two bases 2 x 16 x
+// 132, column sums 16 x 128 + 128, reduction slots 256, block scratch 12:
+// 28,236 doubles (225,888 bytes) at (256, 256) and 28,300 (226,400 bytes)
+// at (256, 512), within the 232,448 bytes a block may opt into.  A
+// Newton-Schulz step then costs a CTA 1.05 MFLOP on the tensor cores
+// (about 2 us at one SM's share of 67 TFLOP/s), its pushes of about 140 KB
+// and two cluster barriers.
 //
 // Route: the cluster route takes every shape whose state fits one CTA's
-// 227 KB of shared memory (f32 up to B = 256, K = 128, M = 512: the
-// rounding's bonds), chosen from the shape before the launch
-// (xerus_gemm_exact_route); the others (B > 256, K > 128, long M, most of
-// f64) take the grid route of gemm_exact_grid.cuh, a cooperative grid
-// kernel.  flags[kClusterCtas] says which ran.  The cluster size is fixed
-// at 16; if the card cannot schedule it, the launch fails (a different
-// CTA count would change the reduction order and the bitwise result).
+// 227 KB of shared memory (f32 up to B = 256, K = 128, M = 512; f64 the
+// rounding's bonds above and small shapes in the f32 layout), chosen
+// from the shape before the launch (xerus_gemm_exact_route); the others
+// (B > 256, K > 128, long M) take the grid route of gemm_exact_grid.cuh,
+// a cooperative grid kernel.  flags[kClusterCtas] says which ran.  The
+// cluster size is fixed at 16; if the card cannot schedule it, the launch
+// fails (a different CTA count would change the reduction order and the
+// bitwise result).
 //
 // Determinism: every reduction folds per-CTA partials in rank order and
 // per-thread partials in a fixed tree; no float atomics.  Every CTA folds
@@ -188,7 +218,7 @@ template <int KP, int RB, int RM> struct Fixed {
     static constexpr int kp = KP, rb = RB, rm = RM;
 };
 using Generic = Fixed<0, 0, 0>;
-template <class D> __device__ __forceinline__ int kp_of(const Layout& l) {
+template <class D, class L> __device__ __forceinline__ int kp_of(const L& l) {
     return D::kp ? D::kp : l.Kp;
 }
 template <class D> __device__ __forceinline__ int rb_of(const Layout& l) {
@@ -237,17 +267,17 @@ __device__ T block_reduce(T v, Op op, T ident, T* blk) {
     return blk[kWarps];
 }
 
-template <typename T> struct Ctx {
+template <typename T, typename P = Params<T>> struct Ctx {
     cg::cluster_group cl;
     T* sm;                  // this CTA's dynamic shared memory
-    const Params<T>& p;
+    const P& p;
     int cr;                 // rank in the cluster
     int rnd;                // reduction round: picks one of two slot sets
     int ns_total, ns_rows;  // Newton-Schulz iterations (all; row polar)
     int syncs;              // cluster barriers
     const T* staged;        // the basis the exchange region holds, if any
 
-    __device__ const Layout& l() const { return p.l; }
+    __device__ const auto& l() const { return p.l; }
     __device__ T* at(int off) const { return sm + off; }
     // the same offset in CTA `rank`'s shared memory
     __device__ T* remote(T* local, int rank) const {
@@ -554,9 +584,9 @@ __device__ __forceinline__ void allgather(Ctx<T>& cx, const T* x, int r) {
 // colv[j] = sum over all CTAs' rows i < r of f(i, j), folded in rank
 // order in every CTA alike.  Each use is followed by another barrier
 // before the next one writes the slots again.
-template <typename T, class D, typename F>
-__device__ __forceinline__ void col_reduce(Ctx<T>& cx, int r, F f) {
-    const Layout& l = cx.l();
+template <typename T, class D, typename P, typename F>
+__device__ __forceinline__ void col_reduce(Ctx<T, P>& cx, int r, F f) {
+    const auto& l = cx.l();
     const int Kp = kp_of<D>(l);
     T* col = cx.at(l.col);
     for (int j = threadIdx.x; j < Kp; j += kThreads) {
@@ -947,28 +977,16 @@ kernel(const __grid_constant__ Params<T> p) {
     }
 }
 
-template <typename T> bool fits(int B, int M, int K) {
-    const Layout l = layout(B, M, K);
-    if (!shape_ok(l)) return false;
-    int dev = 0, optin = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess) return false;
-    if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                               dev) != cudaSuccess)
-        return false;
-    return (size_t)l.total * sizeof(T) <= (size_t)optin;
-}
-
-// Internal linkage: the function-local static of a template with external
-// linkage is one object (a GNU unique symbol) across every library loaded
-// in the process, so a second library holding this kernel would skip
-// setting its own kernel's attributes and fail to launch.
-template <typename T, class D>
-static int launch_fixed(const Args<T>& a, cudaStream_t stream) {
-    Params<T> p;
-    p.a = a;
-    p.l = layout(a.B, a.M, a.K);
-    const size_t bytes = (size_t)p.l.total * sizeof(T);
-    static size_t checked = 0;   // largest size already set and checked
+// One 16-CTA cluster of `kern` with `bytes` of dynamic shared memory.
+// `checked` is the largest size already set and checked for this kernel:
+// the caller's function-local static.  Internal linkage: the
+// function-local static of a template with external linkage is one object
+// (a GNU unique symbol) across every library loaded in the process, so a
+// second library holding this kernel would skip setting its own kernel's
+// attributes and fail to launch.
+template <typename Prm>
+static int launch_cluster(void (*kern)(Prm), const Prm& p, size_t bytes,
+                          size_t& checked, cudaStream_t stream) {
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(kCtas);
     cfg.blockDim = dim3(kThreads);
@@ -983,33 +1001,651 @@ static int launch_fixed(const Args<T>& a, cudaStream_t stream) {
     cfg.numAttrs = 1;
     cudaError_t e;
     if (bytes > checked) {
-        e = cudaFuncSetAttribute(kernel<T, D>,
+        e = cudaFuncSetAttribute(kern,
                                  cudaFuncAttributeNonPortableClusterSizeAllowed,
                                  1);
         if (e != cudaSuccess) return (int)e;
-        e = cudaFuncSetAttribute(kernel<T, D>,
+        e = cudaFuncSetAttribute(kern,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  (int)bytes);
         if (e != cudaSuccess) return (int)e;
         int clusters = 0;
-        e = cudaOccupancyMaxActiveClusters(&clusters, kernel<T, D>, &cfg);
+        e = cudaOccupancyMaxActiveClusters(&clusters, kern, &cfg);
         if (e != cudaSuccess) return (int)e;
         if (clusters < 1) return kUnschedulable;
         checked = bytes;
     }
-    e = cudaLaunchKernelEx(&cfg, kernel<T, D>, p);
+    e = cudaLaunchKernelEx(&cfg, kern, p);
     if (e != cudaSuccess) return (int)e;
     return (int)cudaGetLastError();
 }
 
-// the rounding's bonds, (256, 256) and (256, 512) in the 128 bucket, in
-// f32 take instantiations with fixed sizes; every other shape the generic
+template <typename T, class D>
+static int launch_fixed(const Args<T>& a, cudaStream_t stream) {
+    Params<T> p;
+    p.a = a;
+    p.l = layout(a.B, a.M, a.K);
+    static size_t checked = 0;
+    return launch_cluster(kernel<T, D>, p, (size_t)p.l.total * sizeof(T),
+                          checked, stream);
+}
+
+// ---- the float64 design of the rounding's bonds (see the header) ----
+namespace f64 {
+
+constexpr int KP = 128;               // column bucket
+constexpr int RB = 16;                // rows of B per CTA
+constexpr int BP = kCtas * RB;        // 256
+constexpr int LDR = KP + 4;           // row stride of the (r, KP) row slices
+constexpr int LDG = BP + 4;           // row stride of G's rows, staged cur, Cs
+constexpr int kBand = 8;              // rows of a band of S / P
+constexpr int kBands = KP / kBand;    // 16
+// a packed symmetric matrix keeps row i's columns j >= 8 floor(i / 8)
+constexpr int kPacked = kBand * (kBands * KP - kBand * kBands * (kBands - 1) / 2);
+// an owner's two 4-row blocks b and 31 - b have row lengths adding to 136
+constexpr int kOwnWidth = KP + kBand;
+constexpr int kRecvSrc = 4 * kOwnWidth;   // Gram partial elements per source
+constexpr int kSlice1 = 64;           // basis columns per exchange slice
+constexpr int kSlice2 = 32;           // ... in phase 2, beside cur's columns
+constexpr int kGramTiles = 72;        // 16 x 8 tiles with tj >= 2 ti
+constexpr int kGramPerWarp = kGramTiles / kWarps;
+static_assert(kGramTiles == kGramPerWarp * kWarps, "Gram tiles per warp");
+static_assert(2 * kCtas * 4 == KP, "two 4-row blocks of S per CTA");
+
+__host__ __device__ constexpr int band_len(int t) { return KP - kBand * t; }
+__host__ __device__ constexpr int band_off(int t) {
+    return kBand * (KP * t - kBand * t * (t - 1) / 2);
+}
+// column swizzle of row i of band t: XOR bits 2-3 (t even: rows are a
+// multiple of 16 long) or bit 2 (t odd), so that the B fragment of a
+// 4-row k-step, direct or transposed, hits 16 distinct banks
+__device__ __forceinline__ int swz(int i, int t) {
+    return (t & 1) ? (((i >> 1) & 1) << 2) : ((i & 3) << 2);
+}
+// element (i, j), j >= 8 floor(i / 8), of a packed symmetric matrix
+__device__ __forceinline__ int pidx(int i, int j) {
+    const int t = i >> 3;
+    return band_off(t) + (i & 7) * band_len(t) + ((j - kBand * t) ^ swz(i, t));
+}
+
+struct Layout {
+    int Kp, rm;                 // KP; rows of M per CTA (16 or 32)
+    int stage, slice, Cs;       // exchange: staged cur chunk, basis slice,
+    int recv, P;                //   cur's columns; Gram partials, packed P
+    int Grow, Y, S0, S1;        // G's rows (phase 2: Y), two bases
+    int col, colv, red, blk, total;
+};
+
+__host__ __device__ inline Layout layout(int M) {
+    Layout l;
+    l.Kp = KP;
+    l.rm = imax(16, pow2_at_least((M + kCtas - 1) / kCtas));
+    l.stage = l.slice = l.recv = 0;
+    l.P = kPacked;
+    l.Cs = BP * kSlice2;
+    int o = imax(imax(2 * kPacked, BP * kSlice1),
+                 imax(BP * kSlice2 + l.rm * LDG, kChunkM * LDG));
+    l.Grow = l.Y = o;
+    o += imax(RB * LDG, l.rm * LDR);
+    l.S0 = o; o += RB * LDR;
+    l.S1 = o; o += RB * LDR;
+    l.col = o; o += kCtas * KP;
+    l.colv = o; o += KP;
+    l.red = o; o += 2 * kCtas * kWarps;
+    l.blk = o; o += up4(kWarps + 1);
+    l.total = o;
+    return l;
+}
+
+// whether a (B, M) double input with column bucket K takes this design
+inline bool takes(const cluster::Layout& l, int M) {
+    return l.Kp == KP && l.rb == RB && layout(M).rm <= 32;
+}
+
+struct Params {
+    Args<double> a;
+    Layout l;
+};
+using Cx = Ctx<double, Params>;
+
+// D += A B on the FP64 tensor cores, one m16n8k4 tile per warp: lane
+// (g, t) = (lane / 4, lane % 4) holds a0 = A[g][t], a1 = A[g + 8][t],
+// b = B[t][g], and d = C[g][2t], C[g][2t + 1], C[g + 8][2t], C[g + 8][2t + 1]
+__device__ __forceinline__ void dmma(double (&d)[4], double a0, double a1,
+                                     double b) {
+    asm("mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 "
+        "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+        : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+        : "d"(a0), "d"(a1), "d"(b));
+}
+
+// out(j, i) = sum_k A[j][k] X[k][i] for the R rows j of A (row-major, ld
+// LDG) and every column i < KP, X the distributed (BP, KP) basis whose
+// rows [cr RB, (cr + 1) RB) are this CTA's `src` (ld LDR).  X goes round
+// in column slices of SW: every CTA pushes its rows of the slice into
+// every CTA's slice buffer (swizzled), one barrier, then each warp
+// computes one 16 x 8 tile of the slice's output over k < BP (two
+// accumulators, even and odd k-steps, added at the end) and hands it to
+// epi(j, i, v0, v1) for columns i, i + 1.  The barrier before each push
+// makes sure no CTA still reads its buffer.  A slice's columns of src are
+// pushed before that slice's epilogues run, so epi may overwrite them.
+template <int R, int SW, class Epi>
+__device__ __forceinline__ void slice_product(Cx& cx, const double* A,
+                                              const double* src, Epi& epi) {
+    constexpr int NT = SW / 8, TILES = (R / 16) * NT;
+    static_assert(TILES <= kWarps, "one output tile per warp");
+    constexpr int n4 = RB * SW / 4;   // 4-wide groups of this CTA's part
+    double* buf = cx.at(cx.l().slice);
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3, cr = cx.cr;
+#pragma unroll 1
+    for (int s = 0; s < KP / SW; ++s) {
+        cx.sync();
+        for (int e = threadIdx.x; e < n4 * kCtas; e += kThreads) {
+            const int dd = e / n4, f = e - dd * n4, d = (dd + cr) % kCtas;
+            const int row = f / (SW / 4), c4 = 4 * (f - row * (SW / 4));
+            const int k = cr * RB + row;
+            double v[4];
+            ld4(src + row * LDR + s * SW + c4, v);
+            double* at = buf + k * SW + (c4 ^ ((k & 3) << 2));
+            st4(d == cr ? at : cx.remote(at, d), v);
+        }
+        cx.sync();
+        if (warp < TILES) {
+            const int mt = warp / NT, nt = warp - mt * NT;
+            const double* ap = A + (16 * mt + g) * LDG + t;
+            const double* bp = buf + t * SW + ((8 * nt + g) ^ (t << 2));
+            double c0[4] = {0.0, 0.0, 0.0, 0.0}, c1[4] = {0.0, 0.0, 0.0, 0.0};
+#pragma unroll 8
+            for (int ks = 0; ks < BP / 4; ks += 2) {
+                dmma(c0, ap[4 * ks], ap[4 * ks + 8 * LDG], bp[4 * ks * SW]);
+                dmma(c1, ap[4 * ks + 4], ap[4 * ks + 4 + 8 * LDG],
+                     bp[(4 * ks + 4) * SW]);
+            }
+            const int i = s * SW + 8 * nt + 2 * t;
+            epi(16 * mt + g, i, c0[0] + c1[0], c0[1] + c1[1]);
+            epi(16 * mt + 8 + g, i, c0[2] + c1[2], c0[3] + c1[3]);
+        }
+    }
+    __syncthreads();
+}
+
+// a CTA's partial Gram elements (i, j), (i, j + 1) into the owner of row
+// i: 4-row block b = i / 4 belongs to CTA b (its first 4 rows) or 31 - b
+// (its last 4), each row packed from column 8 floor(i / 8)
+__device__ __forceinline__ void push_gram(const Cx& cx, double* recv, int i,
+                                          int j, double v0, double v1) {
+    const int b = i >> 2, half = b >= kCtas;
+    const int owner = half ? 2 * kCtas - 1 - b : b;
+    const int L1 = band_len(owner >> 1);
+    const int row = half ? 4 * L1 + (i & 3) * (kOwnWidth - L1) : (i & 3) * L1;
+    double* dst = recv + cx.cr * kRecvSrc + row + j - kBand * (i >> 3);
+    if (owner != cx.cr) dst = cx.remote(dst, owner);
+    *reinterpret_cast<double2*>(dst) = make_double2(v0, v1);
+}
+
+// Newton-Schulz on the distributed (kCtas R, KP) matrix whose rows
+// [cr R, (cr+1) R) are X (ld LDR): X <- X (1.5 I - 0.5 X^T X) until
+// max|X^T X - diag(j < keep)| <= 64 eps or max_ns steps.  A step: each
+// warp's 9 Gram tiles (16 x 8, tj >= 2 ti) over the R local rows, pushed
+// to the owners; barrier; each owner folds the 16 partials of its 136
+// groups of 4 in rank order, takes the error and pushes P's groups to
+// every CTA; barrier (the error's all-reduce); X P from the packed P
+// (direct above the band diagonal, transposed below), in place.
+template <int R>
+__device__ bool ns(Cx& cx, double* X) {
+    const Args<double>& a = cx.p.a;
+    const double tol = 64.0 * DBL_EPSILON;
+    double* recv = cx.at(cx.l().recv);
+    double* P = cx.at(cx.l().P);
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3, cr = cx.cr;
+    // this warp's Gram tiles: n = warp + 8 q, row u(17 - u) <= n
+    int ti[kGramPerWarp], tj[kGramPerWarp];
+#pragma unroll
+    for (int q = 0; q < kGramPerWarp; ++q) {
+        const int n = warp + kWarps * q;
+        int u = 0;
+        while (n >= (u + 1) * (16 - u)) ++u;
+        ti[q] = u;
+        tj[q] = 2 * u + n - u * (17 - u);
+    }
+    // this CTA's rows of S: blocks cr and 31 - cr, 4 rows each
+    const int L1 = band_len(cr >> 1), L2 = kOwnWidth - L1;
+    constexpr int UT = (R / 16) * (KP / 8) / kWarps;   // update tiles a warp
+    int it = 0;
+    double err;
+    for (;;) {
+        // each tile's product, then its push: the stores drain while the
+        // next tiles' products run
+#pragma unroll
+        for (int q = 0; q < kGramPerWarp; ++q) {
+            double acc[4] = {0.0, 0.0, 0.0, 0.0};
+#pragma unroll
+            for (int ks = 0; ks < R / 4; ++ks) {
+                const double* xr = X + (4 * ks + t) * LDR + g;
+                dmma(acc, xr[16 * ti[q]], xr[16 * ti[q] + 8], xr[8 * tj[q]]);
+            }
+            const int j = 8 * tj[q] + 2 * t;
+            push_gram(cx, recv, 16 * ti[q] + g, j, acc[0], acc[1]);
+            if (2 * ti[q] + 1 <= tj[q])
+                push_gram(cx, recv, 16 * ti[q] + 8 + g, j, acc[2], acc[3]);
+        }
+        cx.sync();
+        double e = 0.0;
+        if (threadIdx.x < kOwnWidth) {
+            const int f4 = 4 * threadIdx.x;
+            int i, rc;
+            if (f4 < 4 * L1) {
+                const int lr = f4 / L1;
+                i = 4 * cr + lr;
+                rc = f4 - lr * L1;
+            } else {
+                const int f2 = f4 - 4 * L1, lr = f2 / L2;
+                i = 4 * (2 * kCtas - 1 - cr) + lr;
+                rc = f2 - lr * L2;
+            }
+            double s[4] = {0.0, 0.0, 0.0, 0.0};
+            for (int src = 0; src < kCtas; ++src) {
+                double v[4];
+                ld4(recv + src * kRecvSrc + f4, v);
+#pragma unroll
+                for (int b = 0; b < 4; ++b) s[b] += v[b];
+            }
+            const int tb = i >> 3, j0 = kBand * tb + rc;
+            double pv[4];
+#pragma unroll
+            for (int b = 0; b < 4; ++b) {
+                const int j = j0 + b;
+                const double tgt = (i == j && j < a.keep) ? 1.0 : 0.0;
+                e = nmax(e, fabs(s[b] - tgt));
+                pv[b] = (i == j ? 1.5 : 0.0) - 0.5 * s[b];
+            }
+            double* dst = P + band_off(tb) + (i & 7) * band_len(tb)
+                          + (rc ^ swz(i, tb));
+            st4(dst, pv);
+            for (int dd = 1; dd < kCtas; ++dd)
+                st4(cx.remote(dst, (dd + cr) % kCtas), pv);
+        }
+        err = cx.all_reduce(e, MaxOp(), 0.0);
+        if (!(err > tol) || it >= a.max_ns) break;
+        // X <- X P: tiles warp + 8 u of the (R, KP) output
+        double out[UT][4];
+#pragma unroll
+        for (int u = 0; u < UT; ++u)
+            out[u][0] = out[u][1] = out[u][2] = out[u][3] = 0.0;
+#pragma unroll 4
+        for (int ks = 0; ks < KP / 4; ++ks) {
+            const int k0 = 4 * ks, kb = k0 >> 3;
+#pragma unroll
+            for (int u = 0; u < UT; ++u) {
+                const int tile = warp + kWarps * u;
+                const int mt = tile / (KP / 8), nt = tile % (KP / 8);
+                const double* xa = X + (16 * mt + g) * LDR + k0 + t;
+                const double b = nt >= kb ? P[pidx(k0 + t, 8 * nt + g)]
+                                          : P[pidx(8 * nt + g, k0 + t)];
+                dmma(out[u], xa[0], xa[8 * LDR], b);
+            }
+        }
+        __syncthreads();
+#pragma unroll
+        for (int u = 0; u < UT; ++u) {
+            const int tile = warp + kWarps * u;
+            const int mt = tile / (KP / 8), nt = tile % (KP / 8);
+            double* x0 = X + (16 * mt + g) * LDR + 8 * nt + 2 * t;
+            *reinterpret_cast<double2*>(x0) = make_double2(out[u][0], out[u][1]);
+            *reinterpret_cast<double2*>(x0 + 8 * LDR) =
+                make_double2(out[u][2], out[u][3]);
+        }
+        __syncthreads();
+        ++it;
+    }
+    cx.ns_total += it;
+    return err <= tol;
+}
+
+// orth(X) in place: column balancing, mask, Frobenius prescale,
+// Newton-Schulz
+template <class D>
+__device__ bool orth(Cx& cx, double* X) {
+    const int keep = cx.p.a.keep;
+    const double tiny = 1e-30;
+    col_reduce<double, D>(cx, RB, [&](int i, int j) {
+        const double v = X[i * LDR + j];
+        return v * v;
+    });
+    const double* colv = cx.at(cx.l().colv);
+    double q = 0.0;
+    for (int e = threadIdx.x; e < RB * KP; e += kThreads) {
+        const int i = e / KP, j = e - i * KP, at = i * LDR + j;
+        const double nrm = nmax(::sqrt(colv[j]), tiny);
+        const double v = (X[at] / nrm) * mask_of<double>(j, keep);
+        X[at] = v;
+        q += v * v;
+    }
+    const double alpha = ::sqrt(cx.all_reduce(q, SumOp(), 0.0)) + tiny;
+    for (int e = threadIdx.x; e < RB * KP; e += kThreads) {
+        const int i = e / KP, at = i * LDR + e - i * KP;
+        X[at] = X[at] / alpha;
+    }
+    __syncthreads();
+    return ns<RB>(cx, X);
+}
+
+// ---- epilogues of slice_product: (row j, columns i and i + 1) ----
+struct GnEpi {             // dst = (G src) / tr(G), the Gn product
+    double* dst; double gs;
+    __device__ void operator()(int j, int i, double v0, double v1) {
+        double* d = dst + j * LDR + i;
+        d[0] = v0 / gs;
+        d[1] = v1 / gs;
+    }
+};
+struct TauEpi {            // sum of X (.) (G X)
+    const double* X; double part;
+    __device__ void operator()(int j, int i, double v0, double v1) {
+        const double* x = X + j * LDR + i;
+        part += x[0] * v0;
+        part += x[1] * v1;
+    }
+};
+struct ChebEpi {           // W = 2 (c Gn Y1 - Y1) - V into Y1
+    double* Y1; const double* V; double coef, gs;
+    __device__ void operator()(int j, int i, double v0, double v1) {
+        const int at = j * LDR + i;
+        Y1[at] = 2.0 * (coef * (v0 / gs) - Y1[at]) - V[at];
+        Y1[at + 1] = 2.0 * (coef * (v1 / gs) - Y1[at + 1]) - V[at + 1];
+    }
+};
+struct StoreEpi {
+    double* Y;
+    __device__ void operator()(int j, int i, double v0, double v1) {
+        *reinterpret_cast<double2*>(Y + j * LDR + i) = make_double2(v0, v1);
+    }
+};
+
+template <class D>
+__global__ void __launch_bounds__(kThreads, 1)
+kernel(const __grid_constant__ Params p) {
+    static_assert(D::kp == KP && D::rb == RB, "the f64 design's shape");
+    constexpr int RM = D::rm;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    cg::cluster_group cl = cg::this_cluster();
+    Cx cx{cl, reinterpret_cast<double*>(smem_raw), p, (int)cl.block_rank(),
+          0, 0, 0, 0, nullptr};
+    const Args<double>& a = p.a;
+    const Layout& l = p.l;
+    const int B = a.B, M = a.M, K = a.K, cr = cx.cr;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const double tiny = 1e-30;
+    const double eps = DBL_EPSILON;
+    const double stag_tol = 8.0 * DBL_EPSILON;
+    const double noise_floor = 4.0 * DBL_EPSILON;
+    const double cap_tol = 16.0 * DBL_EPSILON;
+    double* blk = cx.at(l.blk);
+    double* Grow = cx.at(l.Grow);
+
+    cx.sync();   // every CTA runs: its shared memory may be written
+
+    // ---- Grow[j][k] = sum_m cur[cr RB + j][m] cur[k][m], staged by chunks;
+    // warp w takes the 16 x 8 tiles of columns 8 (w + 8 u) ----
+    double gm = 0.0;
+    {
+        double* st = cx.at(l.stage);   // st[mm][k] = cur[k][m0 + mm]
+        constexpr int U = BP / 8 / kWarps;
+        double acc[U][4];
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+            acc[u][0] = acc[u][1] = acc[u][2] = acc[u][3] = 0.0;
+        for (int m0 = 0; m0 < M; m0 += kChunkM) {
+            for (int e = threadIdx.x; e < BP * kChunkM; e += kThreads) {
+                const int k = e / kChunkM, mm = e - k * kChunkM, m = m0 + mm;
+                st[mm * LDG + k] = (k < B && m < M)
+                                       ? a.cur[(size_t)k * M + m] : 0.0;
+            }
+            __syncthreads();
+#pragma unroll
+            for (int ks = 0; ks < kChunkM / 4; ++ks) {
+                const double* sr = st + (4 * ks + t) * LDG + g;
+                const double a0 = sr[cr * RB], a1 = sr[cr * RB + 8];
+#pragma unroll
+                for (int u = 0; u < U; ++u)
+                    dmma(acc[u], a0, a1, sr[8 * (warp + kWarps * u)]);
+            }
+            __syncthreads();
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+            double* gr = Grow + g * LDG + 8 * (warp + kWarps * u) + 2 * t;
+            *reinterpret_cast<double2*>(gr) = make_double2(acc[u][0], acc[u][1]);
+            *reinterpret_cast<double2*>(gr + 8 * LDG) =
+                make_double2(acc[u][2], acc[u][3]);
+#pragma unroll
+            for (int v = 0; v < 4; ++v) gm = nmax(gm, fabs(acc[u][v]));
+        }
+        __syncthreads();
+    }
+    double trG, live, gmax;
+    {
+        double s = 0.0, c = 0.0;
+        for (int il = threadIdx.x; il < RB; il += kThreads) {
+            const double gii = Grow[il * LDG + cr * RB + il];
+            s += gii;
+            c += gii > 0.0 ? 1.0 : 0.0;
+        }
+        double v[3];
+        v[0] = block_reduce(gm, MaxOp(), 0.0, blk);
+        v[1] = block_reduce(s, SumOp(), 0.0, blk);
+        v[2] = block_reduce(c, SumOp(), 0.0, blk);
+        cx.publish(v, 3);
+        cx.sync();
+        gmax = cx.fold_slots(0, MaxOp(), 0.0) + tiny;
+        trG = cx.fold_slots(1, SumOp(), 0.0);
+        live = cx.fold_slots(2, SumOp(), 0.0);
+        ++cx.rnd;
+    }
+    const double keep_f = nmax(double(a.keep), 1.0);
+    const double gscale = trG + tiny;
+
+    // the current basis V and the work basis W (candidate after orth)
+    double* Vb = cx.at(l.S0);
+    double* Wb = cx.at(l.S1);
+    // start basis W = (G[:, :K] + 1e-3 gmax hash) * mask
+    {
+        const double hscale = 1e-3 * gmax;
+        for (int e = threadIdx.x; e < RB * KP; e += kThreads) {
+            const int il = e / KP, j = e - il * KP, i = cr * RB + il;
+            double w = 0.0;
+            if (i < B && j < K)
+                w = (Grow[il * LDG + j] + hscale * start_hash<double>(i, j))
+                    * mask_of<double>(j, a.keep);
+            Wb[il * LDR + j] = w;
+        }
+        __syncthreads();
+    }
+    auto gn_times = [&](const double* src, double* dst) {
+        GnEpi ge{dst, gscale};
+        slice_product<RB, kSlice1>(cx, Grow, src, ge);
+    };
+    auto tau_of = [&](const double* X) {
+        TauEpi te{X, 0.0};
+        slice_product<RB, kSlice1>(cx, Grow, X, te);
+        return cx.all_reduce(te.part, SumOp(), 0.0);
+    };
+    bool ok = orth<D>(cx, Wb);
+    { double* x = Vb; Vb = Wb; Wb = x; }
+    double tau = tau_of(Vb);
+
+    // ---- outer loop: power / Chebyshev steps, certificates ----
+    const double big = DBL_MAX / 4.0;
+    double I_prev = big, I_pprev = big;
+    int stall = 0, it = 0;
+    while (stall < a.stall_need && it < a.max_outer) {
+        const bool power = (it % 2) == 0;
+        gn_times(Vb, Wb);                            // GV
+        if (power) {
+            gn_times(Wb, Wb);                        // W = Gn GV
+        } else {
+            const double* Vc = Vb;
+            const double* GV = Wb;
+            col_reduce<double, D>(cx, RB, [&](int i, int j) {
+                return Vc[i * LDR + j] * GV[i * LDR + j];
+            });
+            const double* colv = cx.at(l.colv);
+            double r = Num<double>::inf();
+            for (int j = threadIdx.x; j < KP; j += kThreads)
+                r = nmin(r, j < a.keep ? colv[j] * gscale : Num<double>::inf());
+            const double rmin = block_reduce(r, MinOp(), Num<double>::inf(), blk);
+            const double resid = nmax(trG - tau, 0.0);
+            const double b_floor = 0.5 * resid / nmax(live - keep_f, 1.0)
+                                   + eps * trG + tiny;
+            const double b = nmax(0.9 * rmin, b_floor);
+            const double c = 2.0 * gscale / b;
+            for (int e = threadIdx.x; e < RB * KP; e += kThreads) {
+                const int i = e / KP, at = i * LDR + e - i * KP;
+                Wb[at] = c * Wb[at] - Vb[at];        // Y1
+            }
+            __syncthreads();
+            ChebEpi ch{Wb, Vb, c, gscale};
+            slice_product<RB, kSlice1>(cx, Grow, Wb, ch);
+        }
+        ok = orth<D>(cx, Wb);
+        double tau2 = tau_of(Wb);
+        const bool better = tau2 >= tau;
+        if (better) {
+            double* x = Vb; Vb = Wb; Wb = x;
+        } else {
+            tau2 = tau;
+        }
+        const double I_t = nmax(tau2 - tau, 0.0);
+        const double rho1 = I_t / nmax(I_prev, tiny);
+        const double rho2 = I_prev / nmax(I_pprev, tiny);
+        const double rho = nmin(nmax(nmax(rho1, rho2), 0.0), 1.0 - 1e-6);
+        const double bound = I_t * rho / (1.0 - rho);
+        const double tau_s = nmax(tau2, tiny);
+        bool cert = ok && (I_t <= noise_floor * tau_s
+                           || nmax(bound, I_t) <= stag_tol * tau_s);
+        cert = cert || (trG - tau2 <= cap_tol * trG);
+        if (power) {
+            stall = cert ? stall + 1 : 0;
+            I_pprev = I_prev;
+            I_prev = I_t;
+        }
+        tau = tau2;
+        ++it;
+    }
+    const bool converged = stall >= a.stall_need;
+
+    // ---- polish: fixed power steps under the monotone safeguard ----
+    for (int s = 0; s < a.polish; ++s) {
+        gn_times(Vb, Wb);
+        gn_times(Wb, Wb);
+        const bool ok2 = orth<D>(cx, Wb);
+        const double tau2 = tau_of(Wb);
+        if (ok2 && tau2 >= tau * (1.0 - stag_tol)) {
+            double* x = Vb; Vb = Wb; Wb = x;
+            tau = tau2;
+        }
+    }
+
+    // ---- Y = cur^T V (rows m of this CTA), row balancing, polar ----
+    double* Cs = cx.at(l.Cs);   // Cs[ml][b] = cur[b][cr RM + ml]
+    double* Y = cx.at(l.Y);     // G's rows are free now
+    for (int e = threadIdx.x; e < BP * RM; e += kThreads) {
+        const int b = e / RM, ml = e - b * RM, m = cr * RM + ml;
+        Cs[ml * LDG + b] = (b < B && m < M) ? a.cur[(size_t)b * M + m] : 0.0;
+    }
+    __syncthreads();
+    {
+        StoreEpi st{Y};
+        slice_product<RM, kSlice2>(cx, Cs, Vb, st);
+    }
+    col_reduce<double, D>(cx, RM, [&](int i, int j) {
+        const double v = Y[i * LDR + j];
+        return v * v;
+    });
+    double q = 0.0;
+    {
+        const double* colv = cx.at(l.colv);
+        for (int e = threadIdx.x; e < RM * KP; e += kThreads) {
+            const int ml = e / KP, k = e - ml * KP, at = ml * LDR + k;
+            const double v = Y[at] / nmax(::sqrt(colv[k]), tiny);
+            Y[at] = v;
+            q += v * v;
+        }
+    }
+    __syncthreads();
+    for (int e = threadIdx.x; e < K * RM; e += kThreads) {
+        const int k = e / RM, ml = e - k * RM, m = cr * RM + ml;
+        if (m < M) a.vt_bal[(size_t)k * M + m] = Y[ml * LDR + k];
+    }
+    const double alpha = ::sqrt(cx.all_reduce(q, SumOp(), 0.0)) + tiny;
+    for (int e = threadIdx.x; e < RM * KP; e += kThreads) {
+        const int ml = e / KP, at = ml * LDR + e - ml * KP;
+        Y[at] = Y[at] / alpha;
+    }
+    __syncthreads();
+    const int ns_before = cx.ns_total;
+    const bool okp = ns<RM>(cx, Y);
+    cx.ns_rows += cx.ns_total - ns_before;
+    for (int e = threadIdx.x; e < K * RM; e += kThreads) {
+        const int k = e / RM, ml = e - k * RM, m = cr * RM + ml;
+        if (m < M) a.vt0[(size_t)k * M + m] = Y[ml * LDR + k];
+    }
+    cx.sync();   // no CTA leaves while another may still write into it
+    if (cr == 0 && threadIdx.x == 0) {
+        a.flags[kOkp] = okp ? 1 : 0;
+        a.flags[kConverged] = converged ? 1 : 0;
+        a.flags[kOuter] = it;
+        a.flags[kNs] = cx.ns_total;
+        a.flags[kBarriers] = cx.syncs;
+        a.flags[kClusterCtas] = kCtas;
+        a.flags[kNsRows] = cx.ns_rows;
+    }
+}
+
+template <class D>
+static int launch(const Args<double>& a, cudaStream_t stream) {
+    Params p;
+    p.a = a;
+    p.l = layout(a.M);
+    static size_t checked = 0;
+    return launch_cluster(kernel<D>, p, (size_t)p.l.total * sizeof(double),
+                          checked, stream);
+}
+
+}  // namespace f64
+
+template <typename T> bool fits(int B, int M, int K) {
+    const Layout l = layout(B, M, K);
+    if (!shape_ok(l)) return false;
+    size_t bytes = (size_t)l.total * sizeof(T);
+    if (std::is_same<T, double>::value && f64::takes(l, M))
+        bytes = (size_t)f64::layout(M).total * sizeof(double);
+    int dev = 0, optin = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess) return false;
+    if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev) != cudaSuccess)
+        return false;
+    return bytes <= (size_t)optin;
+}
+
+// the rounding's bonds, (256, 256) and (256, 512) in the 128 bucket, take
+// instantiations with fixed sizes: in f32 of the kernel above, in f64 of
+// the f64 design; every other shape the generic kernel
 template <typename T>
 int launch(const Args<T>& a, cudaStream_t stream) {
     const Layout l = layout(a.B, a.M, a.K);
-    if (std::is_same<T, float>::value && l.Kp == 128 && l.rb == 16) {
-        if (l.rm == 16) return launch_fixed<T, Fixed<128, 16, 16>>(a, stream);
-        if (l.rm == 32) return launch_fixed<T, Fixed<128, 16, 32>>(a, stream);
+    if constexpr (std::is_same<T, float>::value) {
+        if (l.Kp == 128 && l.rb == 16) {
+            if (l.rm == 16) return launch_fixed<T, Fixed<128, 16, 16>>(a, stream);
+            if (l.rm == 32) return launch_fixed<T, Fixed<128, 16, 32>>(a, stream);
+        }
+    } else if (f64::takes(l, a.M)) {
+        if (f64::layout(a.M).rm == 16)
+            return f64::launch<Fixed<128, 16, 16>>(a, stream);
+        return f64::launch<Fixed<128, 16, 32>>(a, stream);
     }
     return launch_fixed<T, Generic>(a, stream);
 }

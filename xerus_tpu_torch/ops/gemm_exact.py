@@ -14,8 +14,10 @@ the TPU: the host decides them from the kernel's flags, one read per bond.
 
 The kernel has two routes, chosen from the shape before the launch
 (``gemm_exact_route``): one 16-CTA thread-block cluster with the whole
-state in shared memory where it fits (the rounding's (256, 256) keep-128
-bonds in f32), else the cooperative grid kernel.  ``gemm_exact_flops``
+state in shared memory where it fits (the rounding's (256, 256) and
+(256, 512) bonds in the 128 bucket, in f32 and, with exchanges in slices
+and products on the FP64 tensor cores, in f64), else the cooperative grid
+kernel.  ``gemm_exact_flops``
 is the operation count of one truncation from its iteration counts, for
 the kernel's flags and the plain version's counters alike.
 """
