@@ -11,14 +11,16 @@ full width:
 
 - the d=32, rank-30 QTT Poisson mixed-precision ALS solve (f32
   half-sweeps to the f32 plateau, then two double-word half-sweeps), the
-  instance of ``bench.py``'s north-star row; kernel K1 (df_matvec);
+  instance of ``bench.py``'s north-star row; kernel K1 (df_matvec) and
+  K1q (df_qr: the CGS2 df QR, one launch per call);
 - TT rounding of ``bench.py``'s workload-1 instance (d=32, n=2, rank 256
   -> 128) and its numerically rank-96 "cliff" variant, deterministic
   (gemm_exact and svd truncation) and randomized (cholqr1); kernel K2
   (gemm_exact);
 - the rest of TT rounding on the same instance and its f64 LAPACK chain:
   double-word rounding (``tt_round_df_from_f64``: df CholeskyQR with
-  CGS2 fallbacks, K1 in the df Cholesky's column loops, held against its
+  CGS2 fallbacks, whose column loops are K1c (df_chol: the df Cholesky's
+  diagonal blocks and panel substitutions) and K1q, each held against its
   plain version on the inputs recorded there, one call per shape; the
   Gram-route df SVD) to 128 and, on a cliff of 1e-9 below f32's
   resolution, with eps 1e-7; the
@@ -72,7 +74,10 @@ of every rounding and the completion's residuals against the JAX
 package's own numbers, that each path went through its kernel (launch counts,
 zeroed just before the path and read just after; K2's bonds on its cluster
 route), and that a small solve and a small rounding on the card agree with
-the same on the CPU.  Beside each kernel's time it prints its bound (bytes
+the same on the CPU; the df column loops once per wrapper call on their
+kernels, each route past shared memory bitwise equal to the route it
+stands for and held against the plain loop at a size that needs it.
+Beside each kernel's time it prints its bound (bytes
 over the HBM rate or operations over the FP32/FP64 rate, whichever is
 larger; K2's operations from its flags) and, for K2, the time of
 torch.linalg.svd(driver="gesvd") on the same bond.
@@ -107,7 +112,31 @@ EXPECTED_K1_LAUNCHES = 22 * 3 * DF_SWEEPS
 K1_SHAPES = [(1800, 1800), (1030, 997), (130, 190)]
 K1_REL_TOL = 1e-12
 
-KERNELS = ("df_matvec", "gemm_exact", "tt_eval")
+# K1q (ops/df_loops.py, csrc/df_qr.cu): the CGS2 df QR in one launch, one
+# per df_qr call; the solve makes one a site but the last per df
+# half-sweep, each on the one-CTA route
+EXPECTED_K1Q_LAUNCHES = DF_SWEEPS * (D - 1)
+# the solve wall and one (60, 30) df_qr while df_qr ran as an eager loop of
+# torch operations on the card (this script's slice and breakdown lines on
+# an H100 80GB HBM3 at 700 W, before K1q)
+EAGER_SOLVE_WALL_S, EAGER_DF_QR_MS = 27.960, 260.1
+# K1q and K1c against their plain versions on the card: each backward error
+# (||QR - A|| / ||A|| and ||Q^T Q - I||, ||L L^T - A|| / ||A||,
+# ||X L^T - A|| / (||X|| ||L||), in float64) within 2x the plain version's
+# plus four units of the df format's 2^-48 resolution: a (2, 2) factor's
+# ||Q^T Q - I|| lies 3 units (1.068e-14) from the plain version's
+# 4.699e-15 by summation order alone
+DF_LOOP_FACTOR, DF_LOOP_FLOOR = 2.0, 2.0 ** -46
+# CGS2 sites of the random and the cliff df rounding while the df column
+# loops ran eagerly (the same lines, the same card): the orthogonality
+# defects that choose CGS2 now come from the kernels
+EAGER_CGS2_SITES = (7, 23)
+# a cluster barrier (examples/exchange_probe.py on an H100 80GB HBM3) and
+# the barriers of one K1q column on the cluster route: two per projection
+# round, one for the norm
+CLUSTER_BARRIER_US, K1Q_BARRIERS_PER_COLUMN = 0.548, 5
+
+KERNELS = ("df_matvec", "df_qr", "df_chol", "gemm_exact", "tt_eval")
 
 # rounding: bench.py workload 1
 ROUND_D, ROUND_N, ROUND_RANK, ROUND_TARGET, OVERSAMPLE = 32, 2, 256, 128, 8
@@ -332,15 +361,19 @@ def phase_slice(dev):
     import torch
     from xerus_tpu_torch.convert import df_to_numpy
     from xerus_tpu_torch.examples import host_poisson_residual
+    from xerus_tpu_torch.ops import df_loops as dl
+    from xerus_tpu_torch.ops import mixed_precision as mp
     from xerus_tpu_torch.ops.df_matvec import df_matvec
     (A64, b64), run = _solve(D, RANK, dev)
     torch.cuda.synchronize()
-    df_matvec.launches = 0
+    df_matvec.launches = dl.df_qr_launch.launches = 0
+    mp.df_qr.calls = 0
     t0 = time.perf_counter()
     out, hist, cnt = run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = df_matvec.launches
+    k1q, qr_calls = dl.df_qr_launch.launches, mp.df_qr.calls
     sol = df_to_numpy(out)
     if not all(np.all(np.isfinite(c)) for c in sol):
         raise AssertionError("non-finite cores in the solution")
@@ -349,41 +382,89 @@ def phase_slice(dev):
           f"{RESIDUAL_BAR:g}), f32 half-sweeps {cnt}, df half-sweeps "
           f"{DF_SWEEPS}, f32 history "
           f"{[f'{v:.3e}' for v in hist[:cnt].tolist()]}, "
-          f"solve wall {wall:.3f} s, K1 launches {launches}")
+          f"solve wall {wall:.3f} s ({EAGER_SOLVE_WALL_S:.3f} s with the "
+          f"eager df_qr loop), K1 launches {launches}, df_qr calls "
+          f"{qr_calls}, K1q launches {k1q}")
     if not res <= RESIDUAL_BAR:
         raise AssertionError(f"residual {res:.3e} above {RESIDUAL_BAR:g}")
     if launches != EXPECTED_K1_LAUNCHES:
         raise AssertionError(f"K1 launched {launches} times in the solve, "
                              f"expected {EXPECTED_K1_LAUNCHES}")
-    return launches, sol, res, {"hist": hist[:cnt].tolist(), "wall": wall}
+    if not k1q == qr_calls == EXPECTED_K1Q_LAUNCHES:
+        raise AssertionError(f"K1q launched {k1q} times for {qr_calls} "
+                             f"df_qr calls, expected "
+                             f"{EXPECTED_K1Q_LAUNCHES}")
+    return (launches, k1q), sol, res, {"hist": hist[:cnt].tolist(),
+                                       "wall": wall}
 
 
-def phase_breakdown(dev):
-    """Where the solve's time goes: a second full solve, then the f32 phase
-    alone (df_sweeps=0); the df phase is the difference."""
-    import numpy as np
+def _device_busy(fn):
+    """``fn`` once under torch.profiler (CUDA activity): (host wall s,
+    device busy s or None where the profiler saw no device time, kernels),
+    busy the union of the kernels' intervals."""
     import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return wall, (busy * 1e-6 if spans else None), len(spans)
+
+
+def phase_breakdown(dev, smi):
+    """Where the solve's time goes: a second full solve (K1q's inputs
+    recorded, one call per shape), then the f32 phase alone
+    (df_sweeps=0); the df phase is the difference.  The df half-sweeps
+    alone, from the f32 phase's seed, under torch.profiler give the
+    device's idle share there.  K1q is held on the recorded inputs against
+    its plain version and float64 (``_loop_checks``).  Returns K1q's rows
+    and its max |kernel - plain|."""
+    import torch
+    from xerus_tpu_torch.convert import cores_to_df
     from xerus_tpu_torch.ops import mixed_precision as mp
-    from xerus_tpu_torch.ops.df32 import df_from_f64
     _, run_all = _solve(D, RANK, dev)
-    _, run_f32 = _solve(D, RANK, dev, df_sweeps=0)
-    for name, run in (("full solve (repeat)", run_all),
-                      ("f32 phase alone", run_f32)):
+    (A64, b64), run_f32 = _solve(D, RANK, dev, df_sweeps=0)
+
+    def timed(name, run):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        run()
+        out = run()
         torch.cuda.synchronize()
         print(f"breakdown: {name} {time.perf_counter() - t0:.3f} s wall")
-    a = np.random.Generator(np.random.PCG64(SEED)).normal(size=(60, 30))
-    ah, al = df_from_f64(a, dev)
-    mp.df_qr(ah, al)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(5):
-        mp.df_qr(ah, al)
-    torch.cuda.synchronize()
-    print(f"breakdown: df_qr (60, 30) {(time.perf_counter() - t0) / 5 * 1e3:.1f}"
-          f" ms per call (44 of the solve's 62 df_qr calls are 60 x 30)")
+        return out
+
+    rec = _LoopRecorder()
+    with rec:
+        timed("full solve (repeat)", run_all)
+    seed = timed("f32 phase alone", run_f32)[0]
+    A_df, b_df = cores_to_df(A64, dev), cores_to_df(b64, dev)
+    wall, busy, kernels = _device_busy(
+        lambda: mp.df_als_multi_sweep(seed, A_df, b_df, DF_SWEEPS))
+    idle = "not measured (the profiler saw no device time)" if busy is None \
+        else f"{1.0 - busy / wall:.3f}"
+    print(f"breakdown: df phase alone ({DF_SWEEPS} df half-sweeps from the "
+          f"f32 phase's seed) {wall:.3f} s wall under torch.profiler, "
+          f"{kernels} kernels, device busy {busy if busy is None else round(busy, 4)} s, "
+          f"idle share {idle}")
+    rows, max_abs, fails = _loop_checks(rec, "Poisson")
+    k = rows["df_qr"][(60, 30)]
+    print(f"breakdown: df_qr (60, 30) {k['ms']:.4f} ms per call (K1q, CUDA "
+          f"events; the eager loop {EAGER_DF_QR_MS} ms), plain version "
+          f"on the card {k['plain_ms']:.1f} ms, bound {k['bound_ms']:.5f} "
+          f"ms; 44 of the solve's 62 df_qr calls are 60 x 30 ({smi})")
+    if fails:
+        raise AssertionError("breakdown: " + "; ".join(fails))
+    return rows["df_qr"], max_abs["df_qr"]
 
 
 def phase_small_agreement(dev):
@@ -824,20 +905,29 @@ def _df_linalg_checks(dev, host):
     bh, bl = df_from_f64(b, dev)
     f32_finite = bool(torch.isfinite(rk._cholesky(Ah)).all())
     k1 = dfm.df_matvec.launches
+    loops0 = _loop_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     xh, xl = df_solve_spd_chol(Ah, Al, bh, bl, refine_iters=steps)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    (_q, blk, trsm), calls = [
+        tuple(a - b for a, b in zip(x, y))
+        for x, y in zip(_loop_counts(), loops0)]
     x = df_to_f64(xh, xl)
     res = np.linalg.norm(A @ x - b) / np.linalg.norm(b)
     print(f"rounding rest: df_solve_spd_chol n={n} kappa={kappa:g}, "
           f"{steps} refinement steps: relative residual {res:.3e} (bar "
           f"{DF_SOLVE_BAR:g}) in {wall:.3f} "
-          f"s, {dfm.df_matvec.launches - k1} K1 launches; the f32 Cholesky "
+          f"s, {dfm.df_matvec.launches - k1} K1 launches (the refinement "
+          f"residuals), K1c launches {blk} (blocks) + {trsm} (panels); "
+          f"the f32 Cholesky "
           f"of the same matrix is {'finite' if f32_finite else 'non-finite'}")
     if not res <= DF_SOLVE_BAR:
         fails.append(f"df solve residual {res:.3e}")
+    if (_q, blk, trsm) != calls or not (blk and trsm):
+        fails.append(f"df solve: K1c launches {(blk, trsm)} for wrapper "
+                     f"calls {calls[1:]}")
     if f32_finite:
         fails.append("the f32 Cholesky did not fail at kappa 1e10")
     M = np.asarray(host[ROUND_D // 2], np.float64).reshape(
@@ -863,88 +953,331 @@ def _linalg_checks():
     return dk.linalg_host_checks()
 
 
-class _K1Recorder:
-    """Stands in for K1's wrapper where the df roundings call it (the df
-    Cholesky's column loops): counts the calls per shape and keeps, per
-    shape, a copy of the inputs of its first call and then of its
-    (k // 2 + 1)-th, where a column loop has filled half of the columns
-    and passes the rest as zeros.  Launches are the wrapper's own."""
-
-    def __init__(self, wrapped):
-        self.wrapped, self.calls, self.inputs = wrapped, {}, {}
-
-    def __call__(self, Ah, Al, xh, xl):
-        shape = tuple(Ah.shape)
-        n = self.calls[shape] = self.calls.get(shape, 0) + 1
-        if n == 1 or n == shape[1] // 2 + 1:
-            self.inputs[shape] = [t.clone() for t in (Ah, Al, xh, xl)]
-        return self.wrapped(Ah, Al, xh, xl)
+def _loop_fns():
+    """K1q's and K1c's launch functions (ops/df_loops.py), as the module
+    first held them: their counters are theirs even while a recorder
+    stands in for them."""
+    if not _LOOP_FNS:
+        from xerus_tpu_torch.ops import df_loops as dl
+        _LOOP_FNS.update(df_qr=dl.df_qr_launch,
+                         df_chol_block=dl.df_chol_block_launch,
+                         df_trsm_rlt=dl.df_trsm_rlt_launch)
+    return _LOOP_FNS
 
 
-def _k1_path_checks(rec):
-    """K1 against its plain version and the float64 product on the inputs
-    the df roundings gave it, one call per shape, with each shape's times.
-    The error is taken of || |A| |x| ||, which the f64 product resolves to
-    ~1e-16 and a kernel that drops a low word misses by 1e4.  Returns
-    (rows, max |kernel - plain|, failures); rows[shape] = (launches, ms,
-    plain_ms, bound_ms)."""
+_LOOP_FNS = {}
+LOOP_ENTRIES = ("df_qr", "df_chol_block", "df_trsm_rlt")
+
+
+def _loop_counts():
+    """(launches, wrapper calls), each in LOOP_ENTRIES' order."""
+    from xerus_tpu_torch.ops import mixed_precision as mp
+    dc = importlib.import_module("xerus_tpu_torch.ops.df_cholesky")
+    wrappers = (mp.df_qr, dc._df_chol_unblocked, dc._df_trsm_rlt)
+    return (tuple(_loop_fns()[e].launches for e in LOOP_ENTRIES),
+            tuple(w.calls for w in wrappers))
+
+
+class _LoopRecorder:
+    """Stands in for K1q's and K1c's launch functions while a path runs:
+    counts the launches per (entry, shape) and keeps a copy of the inputs
+    of each shape's first call.  Launches are the real functions' own (a
+    stand-in's ``launches`` is its function's)."""
+
+    class _Standin:
+        def __init__(self, rec, name, fn):
+            self.rec, self.name, self.fn = rec, name, fn
+
+        @property
+        def launches(self):
+            return self.fn.launches
+
+        @launches.setter
+        def launches(self, n):
+            self.fn.launches = n
+
+        def __call__(self, *args):
+            key = (self.name, tuple(args[0].shape))
+            self.rec.calls[key] = self.rec.calls.get(key, 0) + 1
+            if key not in self.rec.inputs:
+                self.rec.inputs[key] = [a.clone() if hasattr(a, "clone")
+                                        else a for a in args]
+            return self.fn(*args)
+
+    def __init__(self):
+        self.calls, self.inputs = {}, {}
+
+    def _swap(self, fns):
+        dl = importlib.import_module("xerus_tpu_torch.ops.df_loops")
+        for name, fn in fns.items():
+            setattr(dl, name + "_launch", fn)
+
+    def __enter__(self):
+        self._swap({n: self._Standin(self, n, f)
+                    for n, f in _loop_fns().items()})
+        return self
+
+    def __exit__(self, *exc):
+        self._swap(_loop_fns())
+
+
+def _loop_bound(entry, shape):
+    """(bound_ms, bound_by): bytes (each input read once, each output
+    written once; a triangular factor's lower half) at the HBM rate, or
+    FP32 operations at K1's 21 per df multiply-add term (CGS2: 2 m r^2
+    terms; the Cholesky block B^3 / 6; the substitution m B^2 / 2)."""
+    m, n = shape
+    if entry == "df_qr":
+        nbytes, terms = (4 * m * n + 2 * n * n) * 4, 2 * m * n * n
+    elif entry == "df_chol_block":
+        nbytes, terms = (2 * n * n + n * (n + 1)) * 4, n ** 3 / 6
+    else:
+        nbytes, terms = (4 * m * n + n * (n + 1)) * 4, m * n * n / 2
+    return _bound(nbytes, K1_OPS_PER_ELEMENT * terms, "float32")
+
+
+def _loop_checks(rec, path):
+    """K1q and K1c against their plain versions (on the card) and float64
+    on the inputs ``rec`` recorded on ``path``, one call per shape: the
+    backward errors (df_loops' helpers) within DF_LOOP_FACTOR x the plain
+    version's + DF_LOOP_FLOOR, df_qr's deficient columns (R's zeroed
+    diagonal) equal column by column, any flip printed with the column's
+    norm and threshold, two launches bitwise equal.  Beside each shape's
+    kernel time (CUDA events, median of 20 queued calls): the plain
+    version's (host wall of one synchronized call after a warm-up: it is
+    an eager loop), the bound, the float64 library call on the same shape
+    (torch.linalg.qr / cholesky / solve_triangular; it computes in f64,
+    not in df) and, on K1q's cluster route, the floor of its cluster
+    barriers.  Returns ({entry: {shape: row}}, {entry: max |kernel -
+    plain|}, failures)."""
     import numpy as np
+    import torch
+    from xerus_tpu_torch.ops import df_loops as dl
+    from xerus_tpu_torch.ops import mixed_precision as mp
     from xerus_tpu_torch.ops.df32 import df_to_f64
-    from xerus_tpu_torch.ops.df_matvec import df_matvec, df_matvec_reference
-    rows, max_abs, fails = {}, 0.0, []
-    worst = (0.0, None)
-    for (m, k), args in sorted(rec.inputs.items()):
-        A, x = df_to_f64(args[0], args[1]), df_to_f64(args[2], args[3])
-        exact = A @ x
-        scale = np.linalg.norm(np.abs(A) @ np.abs(x))
-        kern = df_to_f64(*df_matvec(*args))
-        plain = df_to_f64(*df_matvec_reference(*args))
-        err_k = np.linalg.norm(kern - exact)
-        err_p = np.linalg.norm(plain - exact)
-        max_abs = max(max_abs, float(np.max(np.abs(kern - plain))))
-        if not (err_k <= K1_REL_TOL * scale and err_p <= K1_REL_TOL * scale):
-            fails.append(f"K1 at ({m}, {k}) on the df path: kernel "
-                         f"{err_k:.3e}, plain {err_p:.3e} of {scale:.3e}")
-        if scale > 0:
-            worst = max(worst, (err_k / scale, (m, k)))
-        ms = _time_ms(lambda: df_matvec(*args), reps=20, warmup=2)
-        plain_ms = _time_ms(lambda: df_matvec_reference(*args), reps=20,
-                            warmup=2)
-        bound_ms, _by = _bound((2 * m * k + 2 * k + 2 * m) * 4,
-                               K1_OPS_PER_ELEMENT * m * k, "float32")
-        rows[m, k] = (rec.calls[m, k], ms, plain_ms, bound_ms)
-    n = sum(r[0] for r in rows.values())
-    t = sum(r[0] * r[1] for r in rows.values())
-    b = sum(r[0] * r[3] for r in rows.values())
-    top = sorted(rows.items(), key=lambda kv: -kv[1][0] * kv[1][1])[:6]
-    print(f"K1 on the df roundings: {n} launches at {len(rows)} shapes, "
-          f"each shape held on the inputs of one recorded call against "
-          f"its plain version and f64 (bar {K1_REL_TOL:g} of || |A||x| "
-          f"||; worst kernel {worst[0]:.3e} at {worst[1]}), max |kernel - "
-          f"plain| {max_abs:.3e}; device time sum of launches x median "
-          f"{t:.1f} ms, bound {b:.2f} ms (CUDA events, median of 20 queued "
-          f"calls a shape); most time at " + ", ".join(
-              f"{s}: {r[0]} x {r[1] * 1e3:.2f} us (plain {r[2] * 1e3:.1f}"
-              f" us, bound {r[3] * 1e3:.3f} us)" for s, r in top))
+    dc = importlib.import_module("xerus_tpu_torch.ops.df_cholesky")
+    fns = _loop_fns()
+    rows, fails = {e: {} for e in LOOP_ENTRIES}, []
+    max_abs = dict.fromkeys(LOOP_ENTRIES, 0.0)
+
+    def held(name, k, p):
+        ok = all(a <= DF_LOOP_FACTOR * b + DF_LOOP_FLOOR for a, b in zip(k, p))
+        if not ok:
+            fails.append(f"{name}: kernel {k} against plain {p}")
+        return ok
+
+    for (entry, shape), args in sorted(rec.inputs.items()):
+        name = f"{path} {entry} {shape}"
+        plan = args[-1]
+        fn = fns[entry]
+        dev = args[0].device
+        if entry == "df_qr":
+            ah, al = args[0], args[1]
+            r = shape[1]
+            A = df_to_f64(ah, al)
+            stats = torch.zeros((r, 2), device=dev)
+            kq, kr = fn(ah, al, plan, stats)
+            again = fn(ah, al, plan)
+            same = all(torch.equal(x, y) for x, y in
+                       zip((*kq, *kr), (*again[0], *again[1])))
+            pq, pr = mp.df_qr_reference(ah, al)
+            Q, R = df_to_f64(*kq), df_to_f64(*kr)
+            PQ, PR = df_to_f64(*pq), df_to_f64(*pr)
+            ek = dl.qr_backward_errors(Q, R, A)
+            ep = dl.qr_backward_errors(PQ, PR, A)
+            diff = max(np.abs(Q - PQ).max(), np.abs(R - PR).max())
+            kd, pd = np.diag(R) == 0.0, np.diag(PR) == 0.0
+            st = stats.cpu().numpy()
+            flips = [f"column {j}: kernel {'deficient' if kd[j] else 'kept'}"
+                     f" (norm {st[j, 0]:.6e}, threshold {st[j, 1]:.6e}), "
+                     f"plain {'deficient' if pd[j] else 'kept'}"
+                     for j in np.flatnonzero(kd != pd)]
+            if flips:
+                fails.append(f"{name}: deficient decisions differ")
+            verdict = (f"||QR - A||/||A|| {ek[0]:.3e} (plain {ep[0]:.3e}), "
+                       f"||Q^T Q - I|| {ek[1]:.3e} (plain {ep[1]:.3e}), "
+                       f"deficient columns {int(kd.sum())}, "
+                       + ("; ".join(flips) if flips else
+                          "the plain version's column by column"))
+            run = lambda: fn(ah, al, plan)
+            plain = lambda: mp.df_qr_reference(ah, al)
+            A64 = torch.from_numpy(A).to(dev)
+            lib = lambda: torch.linalg.qr(A64)
+        elif entry == "df_chol_block":
+            ah, al = args[0], args[1]
+            A = df_to_f64(ah, al)
+            kl = fn(ah, al, plan)
+            again = fn(ah, al, plan)
+            same = all(torch.equal(x, y) for x, y in zip(kl, again))
+            pl = dc._df_chol_unblocked_reference(ah, al)
+            L, PL = df_to_f64(*kl), df_to_f64(*pl)
+            ek = (dl.chol_backward_error(L, A),)
+            ep = (dl.chol_backward_error(PL, A),)
+            diff = np.abs(L - PL).max()
+            verdict = (f"||LL^T - A||/||A|| {ek[0]:.3e} (plain {ep[0]:.3e})")
+            run = lambda: fn(ah, al, plan)
+            plain = lambda: dc._df_chol_unblocked_reference(ah, al)
+            A64 = torch.from_numpy(A).to(dev)
+            lib = lambda: torch.linalg.cholesky(A64)
+        else:
+            ah, al, lh, ll = args[:4]
+            A, L = df_to_f64(ah, al), df_to_f64(lh, ll)
+            kx = fn(ah, al, lh, ll, plan)
+            again = fn(ah, al, lh, ll, plan)
+            same = all(torch.equal(x, y) for x, y in zip(kx, again))
+            px = dc._df_trsm_rlt_reference(ah, al, lh, ll)
+            X, PX = df_to_f64(*kx), df_to_f64(*px)
+            ek = (dl.trsm_backward_error(X, L, A),)
+            ep = (dl.trsm_backward_error(PX, L, A),)
+            diff = np.abs(X - PX).max()
+            verdict = (f"||XL^T - A||/(||X|| ||L||) {ek[0]:.3e} (plain "
+                       f"{ep[0]:.3e})")
+            run = lambda: fn(ah, al, lh, ll, plan)
+            plain = lambda: dc._df_trsm_rlt_reference(ah, al, lh, ll)
+            A64 = torch.from_numpy(A).to(dev)
+            L64 = torch.from_numpy(L).to(dev)
+            lib = lambda: torch.linalg.solve_triangular(L64.T, A64,
+                                                        upper=True,
+                                                        left=False)
+        held(name, ek, ep)
+        if not same:
+            fails.append(f"{name}: two launches differ")
+        max_abs[entry] = max(max_abs[entry], float(diff))
+        ms = _time_ms(run, reps=20, warmup=2)
+        plain_ms = _wall_ms(plain, reps=1)
+        f64_ms = _time_ms(lib, reps=20, warmup=2)
+        bound_ms, bound_by = _loop_bound(entry, shape)
+        floor = ""
+        if entry == "df_qr" and plan.route != "cta":
+            floor = (f", cluster-barrier floor {shape[1]} columns x "
+                     f"{K1Q_BARRIERS_PER_COLUMN} x {CLUSTER_BARRIER_US} us "
+                     f"= {shape[1] * K1Q_BARRIERS_PER_COLUMN * CLUSTER_BARRIER_US * 1e-3:.3f} ms")
+        launches = rec.calls[entry, shape]
+        rows[entry][shape] = {"launches": launches, "ms": ms,
+                              "plain_ms": plain_ms, "bound_ms": bound_ms,
+                              "bound_by": bound_by, "f64_ms": f64_ms}
+        print(f"df loops: {name} route {plan.route}, {launches} launches: "
+              f"{verdict}; max |kernel - plain| {diff:.3e}, repeat bitwise "
+              f"{'equal' if same else 'DIFFERENT'}; kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.3f} ms, bound {bound_ms:.5f} ms by "
+              f"{bound_by}{floor}, float64 library call {f64_ms:.4f} ms")
     return rows, max_abs, fails
 
 
+# shapes past the kernels' shared memory, where the plans take route gmem:
+# a CGS2 site of a rank-512 df rounding, a df_cholesky(block=256)
+# diagonal block, a panel of 1536 columns
+GMEM_SHAPES = {"df_qr": (1024, 512), "df_chol_block": (256, 256),
+               "df_trsm_rlt": (256, 1536)}
+
+
+def _gmem_checks(rec, dev):
+    """Route gmem, the plans' route for shapes past shared memory.  On
+    every shape ``rec`` recorded (K1q's cluster-route shapes, all of
+    K1c's), bitwise against the route the path took: the same steps in
+    the same orders with the operands in global memory.  Then at
+    GMEM_SHAPES through the wrappers (one call each, recorded), held by
+    ``_loop_checks`` against the plain loop and float64.  Returns
+    (rows, max |kernel - plain|, failures) as ``_loop_checks`` does."""
+    import numpy as np
+    import torch
+    from xerus_tpu_torch.ops import df_loops as dl
+    from xerus_tpu_torch.ops import mixed_precision as mp
+    from xerus_tpu_torch.ops.df32 import df_from_f64
+    dc = importlib.import_module("xerus_tpu_torch.ops.df_cholesky")
+    fns, fails = _loop_fns(), []
+    equal, tried = dict.fromkeys(LOOP_ENTRIES, 0), dict.fromkeys(
+        LOOP_ENTRIES, 0)
+    for (entry, shape), args in sorted(rec.inputs.items()):
+        plan = args[-1]
+        if entry == "df_qr" and plan.route != "cluster":
+            continue    # route cta keeps one band: another summation order
+        a = fns[entry](*args[:-1], plan)
+        b = fns[entry](*args[:-1], dl.gmem_plan(entry, shape))
+        if entry == "df_qr":
+            a, b = (*a[0], *a[1]), (*b[0], *b[1])
+        tried[entry] += 1
+        if all(torch.equal(x, y) for x, y in zip(a, b)):
+            equal[entry] += 1
+        else:
+            fails.append(f"{entry} {shape}: route gmem differs from route "
+                         f"{plan.route}")
+    print(f"df loops: route gmem bitwise equal to the path's route at "
+          + ", ".join(f"{equal[e]} of {tried[e]} {e} shapes"
+                      for e in LOOP_ENTRIES))
+    if not all(tried.values()):
+        fails.append(f"route gmem compared at {tried} shapes")
+
+    rng = np.random.default_rng(SEED)
+    m, r = GMEM_SHAPES["df_qr"]
+    a = rng.normal(size=(m, r))
+    a[:, r // 3], a[:, r // 2] = 2.0 * a[:, 1], 0.0
+    a[:, r - 1] = a[:, 0] - 3.0 * a[:, 2]
+    B = GMEM_SHAPES["df_chol_block"][0]
+    Qm, _ = np.linalg.qr(rng.normal(size=(B, B)))
+    spd = (Qm * np.logspace(0, -6, B)) @ Qm.T
+    mt, Bt = GMEM_SHAPES["df_trsm_rlt"]
+    L = np.tril(rng.normal(size=(Bt, Bt)), -1) * 0.1 + np.diag(
+        rng.uniform(0.5, 2.0, size=Bt))
+    big = _LoopRecorder()
+    with big:
+        mp.df_qr(*df_from_f64(a, dev))
+        dc._df_chol_unblocked(*df_from_f64(spd, dev))
+        dc._df_trsm_rlt(*df_from_f64(rng.normal(size=(mt, Bt)), dev),
+                        *df_from_f64(L, dev))
+    for (entry, shape), args in big.inputs.items():
+        if args[-1].route != "gmem":
+            fails.append(f"{entry} {shape}: route {args[-1].route}, not "
+                         "gmem")
+    rows, max_abs, more = _loop_checks(big, "past shared memory")
+    return rows, max_abs, fails + more
+
+
+def _loop_summary(rows):
+    """Means over shapes of ms, plain_ms, bound_ms and f64_ms, weighted
+    by the launches recorded at each."""
+    n = sum(r["launches"] for r in rows.values())
+    return {k: sum(r["launches"] * r[k] for r in rows.values()) / n
+            for k in ("ms", "plain_ms", "bound_ms", "f64_ms")}
+
+
 def _df_round(cores64, target, eps, dev):
-    """One timed tt_round_df_from_f64 with its fallbacks, host reads, info
-    checks and K1 launches."""
+    """One timed tt_round_df_from_f64 with its CGS2 sites, host reads,
+    info checks, K1 launches and K1q / K1c counts (``_loop_counts``
+    differences)."""
     import torch
     from xerus_tpu_torch.ops import df_matvec as dfm
     from xerus_tpu_torch.ops import df_rounding as dr
     from xerus_tpu_torch.ops import round_kernels as rk
     before = (dr.tt_round_df.cgs2_fallbacks, rk.host_bool.reads,
               _linalg_checks(), dfm.df_matvec.launches)
+    loops0 = _loop_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = dr.tt_round_df_from_f64(cores64, target, eps=eps, device=dev)
     wall = time.perf_counter() - t0
     after = (dr.tt_round_df.cgs2_fallbacks, rk.host_bool.reads,
              _linalg_checks(), dfm.df_matvec.launches)
-    return out, wall, [a - b for a, b in zip(after, before)]
+    loops = [tuple(a - b for a, b in zip(x, y))
+             for x, y in zip(_loop_counts(), loops0)]
+    return out, wall, [a - b for a, b in zip(after, before)], loops
+
+
+def _df_round_loop_fails(name, fb, k1, loops):
+    """A df rounding's launch checks: no K1 (the column loops are K1c's
+    and K1q's), every Cholesky block, panel and CGS2 call on a kernel (one
+    launch per wrapper call), one K1q launch per CGS2 site."""
+    (q, blk, trsm), calls = loops
+    fails = []
+    if k1:
+        fails.append(f"{name}: {k1} K1 launches")
+    if (q, blk, trsm) != calls:
+        fails.append(f"{name}: launches {(q, blk, trsm)} for wrapper calls "
+                     f"{calls}")
+    if q != fb or blk == 0 or trsm == 0:
+        fails.append(f"{name}: K1q {q} for {fb} CGS2 sites, K1c {blk} "
+                     f"blocks and {trsm} panels")
+    return fails
 
 
 def _rest_method(method, cores):
@@ -960,42 +1293,46 @@ def phase_rounding_rest(dev, smi, slice_round):
     a 1e-9 cliff with eps), the Ozaki GEMM, the df solve and SVD, the
     uniform, parallel and streaming roundings in f32 and f64 at core
     level and through ``TTTensor.round_fast`` (card vs ``host()``).
-    Returns the df roundings' K1 launches (zeroed before, read after),
-    K1's rows of ``_k1_path_checks`` and its max |kernel - plain|."""
+    The df roundings and the df solve run with K1q's and K1c's inputs
+    recorded (``_LoopRecorder``); each entry is then held on one call per
+    shape (``_loop_checks``).  Returns those rows, each entry's largest
+    |kernel - plain| and its launches in the df roundings and the df
+    solve."""
     import numpy as np
     import torch
     import xerus_tpu_torch as xt
     from xerus_tpu_torch.convert import cores_to_torch
     from xerus_tpu_torch.examples import (cliff_instance, cpu_round_sweep,
                                           host_tt_distance, host_tt_log_norm)
-    from xerus_tpu_torch.ops import df_matvec as dfm
+    from xerus_tpu_torch.ops import mixed_precision as mp
     from xerus_tpu_torch.ops import round_kernels as rk
     from xerus_tpu_torch.ops import round_uniform as ru
-    # the module (the package exports its function under the same name)
-    dfc = importlib.import_module("xerus_tpu_torch.ops.df_cholesky")
+    from xerus_tpu_torch.ops.df32 import df_from_f64
     t_phase = time.perf_counter()
 
     def lap(what):
         print(f"rounding rest: {what} done at "
               f"{time.perf_counter() - t_phase:.1f} s into the phase")
 
+    def loop_counts(fb, k1, loops):
+        return (f"CGS2 sites {fb} of {ROUND_D - 1}, K1 launches {k1}, K1q "
+                f"launches {loops[0][0]}, K1c launches {loops[0][1]} "
+                f"(blocks) + {loops[0][2]} (panels)")
+
     host, chain, ref = (slice_round["host"], slice_round["chain"],
                         slice_round["ref"])
     fails = []
     host64 = [np.asarray(c, np.float64) for c in host]
 
-    # double-word rounding of the slice instance, counted, with K1's inputs
-    # recorded where the df Cholesky calls it
-    rec = _K1Recorder(dfc.df_matvec)
-    dfc.df_matvec = rec
-    dfm.df_matvec.launches = 0
-    try:
-        out, wall, (fb, reads, checks, k1) = _df_round(
+    # double-word rounding of the slice instance, counted, with K1q's and
+    # K1c's inputs recorded; their counts zeroed here and read after the
+    # df solve
+    rec = _LoopRecorder()
+    for fn in _loop_fns().values():
+        fn.launches = 0
+    with rec:
+        out, wall, (fb, reads, checks, k1), loops = _df_round(
             host64, ROUND_TARGET, 0.0, dev)
-    except BaseException:
-        dfc.df_matvec = rec.wrapped
-        raise
-    k1_launches = dfm.df_matvec.launches
     rel = abs(host_tt_log_norm(out) - ref) / abs(ref)
     dist = host_tt_distance(out, chain) / np.exp(ref)
     svd32 = slice_round["svd_f32_rel"]
@@ -1005,15 +1342,14 @@ def phase_rounding_rest(dev, smi, slice_round):
           f"{JAX_DF_REACH[0]:.4g}; the f32 svd rounding's {svd32:.3e} "
           f"{'misses' if svd32 > DF_ROUND_BAR else 'MEETS'} it), distance "
           f"to the f64 chain {dist:.3e} relative (no bar: the cut is "
-          f"gapless), wall {wall:.2f} s, CGS2 fallbacks {fb} of "
-          f"{ROUND_D - 1} sites, host reads {reads}, eigh info checks "
-          f"{checks}, K1 launches {k1}")
+          f"gapless), wall {wall:.2f} s, host reads {reads}, eigh info "
+          f"checks {checks}, {loop_counts(fb, k1, loops)} (eager loops: "
+          f"{EAGER_CGS2_SITES[0]} CGS2 sites)")
     if not rel <= DF_ROUND_BAR:
         fails.append(f"df rounding log-norm {rel:.3e}")
     if not svd32 > DF_ROUND_BAR:
         fails.append("the f32 svd rounding meets the df bar: no contrast")
-    if k1 == 0:
-        fails.append("the df rounding launched K1 no time")
+    fails += _df_round_loop_fails("df rounding", fb, k1, loops)
 
     # the cliff below f32's resolution, rounded with eps
     sig, scale, eps = DF_CLIFF
@@ -1021,12 +1357,9 @@ def phase_rounding_rest(dev, smi, slice_round):
     t0 = time.perf_counter()
     chain_c = cpu_round_sweep(cl64, ROUND_RANK, eps=eps)
     t_chain = time.perf_counter() - t0
-    try:
-        out_c, wall, (fb, reads, checks, k1) = _df_round(
+    with rec:
+        out_c, wall, (fb, reads, checks, k1), loops = _df_round(
             cl64, ROUND_RANK, eps, dev)
-    finally:
-        dfc.df_matvec = rec.wrapped
-    k1_launches += k1
     r_df = [int(c.shape[2]) for c in out_c[:-1]]
     r_ch = [int(c.shape[2]) for c in chain_c[:-1]]
     dist = (host_tt_distance(out_c, chain_c)
@@ -1037,23 +1370,38 @@ def phase_rounding_rest(dev, smi, slice_round):
           f"chain's (max {max(r_df)} vs {max(r_ch)}; the chain took "
           f"{t_chain:.1f} s on the host), distance {dist:.3e} relative (bar "
           f"{DF_CLIFF_BAR:g}; the JAX package's CPU run "
-          f"{JAX_DF_REACH[1]:.4g}), wall {wall:.2f} s, "
-          f"CGS2 fallbacks {fb}, host "
-          f"reads {reads}, eigh info checks {checks}, K1 launches {k1}")
+          f"{JAX_DF_REACH[1]:.4g}), wall {wall:.2f} s, host reads {reads}, "
+          f"eigh info checks {checks}, {loop_counts(fb, k1, loops)} (eager "
+          f"loops: {EAGER_CGS2_SITES[1]} CGS2 sites)")
     if r_df != r_ch:
         fails.append(f"cliff ranks {r_df} vs {r_ch}")
     if not dist <= DF_CLIFF_BAR:
         fails.append(f"cliff distance {dist:.3e}")
-
-    if sum(rec.calls.values()) != k1_launches:
-        fails.append(f"{k1_launches} K1 launches in the df roundings, "
-                     f"{sum(rec.calls.values())} recorded")
-    k1_rows, k1_max_abs, k1_fails = _k1_path_checks(rec)
-    fails += k1_fails
+    fails += _df_round_loop_fails("cliff rounding", fb, k1, loops)
     lap("the df roundings")
     fails += _ozaki_checks(dev)
-    fails += _df_linalg_checks(dev, host)
+    with rec:
+        fails += _df_linalg_checks(dev, host)
+    path_launches = dict(zip(LOOP_ENTRIES, _loop_counts()[0]))
     lap("Ozaki and the df linear algebra")
+    # K1q's cluster route at the rounding's (512, 256), on an unfolding of
+    # the instance where no CGS2 site recorded one (0 launches: not a path
+    # call)
+    key = ("df_qr", (2 * ROUND_RANK, ROUND_RANK))
+    if key not in rec.inputs:
+        extra = _LoopRecorder()
+        with extra:
+            mp.df_qr(*df_from_f64(host64[ROUND_D // 2].reshape(
+                2 * ROUND_RANK, ROUND_RANK), dev))
+        if key in extra.inputs:     # none on the CPU (a rehearsal)
+            rec.inputs[key], rec.calls[key] = extra.inputs[key], 0
+    loop_rows, loop_max_abs, loop_fails = _loop_checks(rec, "rounding rest")
+    fails += loop_fails
+    gmem_rows, gmem_abs, gmem_fails = _gmem_checks(rec, dev)
+    fails += gmem_fails
+    for e in LOOP_ENTRIES:
+        loop_max_abs[e] = max(loop_max_abs[e], gmem_abs[e])
+    lap("K1q and K1c on their recorded inputs")
 
     # the uniform, parallel and streaming roundings at core level
     e_svd = host_tt_distance(host, chain)
@@ -1144,11 +1492,11 @@ def phase_rounding_rest(dev, smi, slice_round):
                              f"{diff:.3e}")
     finally:
         ru._streaming_sketches = real_sketches
-    print(f"rounding rest: phase {time.perf_counter() - t_phase:.1f} s, "
-          f"K1 launches in the two df roundings {k1_launches} ({smi})")
+    print(f"rounding rest: phase {time.perf_counter() - t_phase:.1f} s "
+          f"({smi})")
     if fails:
         raise AssertionError("rounding rest: " + "; ".join(fails))
-    return k1_launches, k1_rows, k1_max_abs
+    return loop_rows, loop_max_abs, path_launches, gmem_rows
 
 
 def _k2_bond_times(cores, inputs=None):
@@ -2987,25 +3335,60 @@ def phase_eigensolver(dev, smi):
         raise AssertionError("eigensolver: " + "; ".join(fails))
 
 
-def _k1_main_path_timing(timing, launches_1800, rows):
-    """K1's times per launch on its main paths: the solve's launches at
-    (1800, 1800) and the df roundings' at their recorded shapes, weighted
-    by their launches.  The (1800, 1800) figures stay beside them."""
-    weights = [(launches_1800, timing["ms"], timing["plain_ms"],
-                timing["bound_ms"])] + list(rows.values())
-    n = sum(w[0] for w in weights)
-    out = dict(timing)
-    for i, key in ((1, "ms"), (2, "plain_ms"), (3, "bound_ms")):
-        out[key] = sum(w[0] * w[i] for w in weights) / n
-        out[key + "_1800x1800"] = timing[key]
-    out["shapes"] = len(rows) + 1
-    print(f"K1 per launch on the main paths ({n} launches at "
-          f"{out['shapes']} shapes, weighted by launches): kernel "
-          f"{out['ms'] * 1e3:.3f} us, plain {out['plain_ms'] * 1e3:.3f} us, "
-          f"bound {out['bound_ms'] * 1e3:.4f} us; at (1800, 1800) "
-          f"{timing['ms'] * 1e3:.3f} us against {timing['bound_ms'] * 1e3:.3f}"
-          f" us")
-    return out
+def _loop_entries(k1q_poisson, poisson_rows, poisson_abs, rest_rows,
+                  rest_abs, rest_launches, gmem_rows):
+    """The JSON entries of K1c and K1q.  K1q: launches in the solve and
+    the df roundings, times at the solve's (60, 30) (44 of its 62 calls),
+    its cluster route at the rounding's (512, 256) and its gmem route at
+    GMEM_SHAPES' beside them.  K1c: launches in the df roundings and the
+    df solve, times per launch weighted by the launches at each shape,
+    the (64, 64) block, the largest panel and both gmem shapes beside
+    them.  ``f64_library_ms``: the float64 library
+    call on the same shapes (torch.linalg.qr / cholesky /
+    solve_triangular), the fp64 yardstick; ``library_ms`` is null: no
+    PyTorch call computes in double-word f32."""
+    q = poisson_rows[(60, 30)]
+    cl = rest_rows["df_qr"].get((2 * ROUND_RANK, ROUND_RANK))
+    k1q = {"launches": k1q_poisson + rest_launches["df_qr"], "ms": q["ms"], "plain_ms": q["plain_ms"],
+           "bound_ms": q["bound_ms"], "bound_by": q["bound_by"],
+           "f64_library_ms": q["f64_ms"], "shape": [60, 30]}
+    if cl is not None:
+        k1q.update(cluster_shape=[2 * ROUND_RANK, ROUND_RANK],
+                   cluster_ms=cl["ms"], cluster_plain_ms=cl["plain_ms"],
+                   cluster_bound_ms=cl["bound_ms"],
+                   cluster_f64_library_ms=cl["f64_ms"])
+    both = {**{("block",) + k: v for k, v in
+               rest_rows["df_chol_block"].items()},
+            **{("panel",) + k: v for k, v in
+               rest_rows["df_trsm_rlt"].items()}}
+    k1c = _loop_summary(both)
+    k1c["launches"] = (rest_launches["df_chol_block"]
+                       + rest_launches["df_trsm_rlt"])
+    k1c["f64_library_ms"] = k1c.pop("f64_ms")
+    k1c["bound_by"] = max(both.values(), key=lambda r: r["launches"]
+                          * r["bound_ms"])["bound_by"]
+    blk = rest_rows["df_chol_block"].get((64, 64))
+    if blk is not None:
+        k1c.update(block_64_ms=blk["ms"], block_64_plain_ms=blk["plain_ms"],
+                   block_64_bound_ms=blk["bound_ms"])
+    big = max(rest_rows["df_trsm_rlt"], key=lambda s: s[0] * s[1] ** 2)
+    p = rest_rows["df_trsm_rlt"][big]
+    k1c.update(panel_shape=list(big), panel_ms=p["ms"],
+               panel_plain_ms=p["plain_ms"], panel_bound_ms=p["bound_ms"])
+    for key, entry, prefix in (("df_qr", k1q, "gmem_"),
+                               ("df_chol_block", k1c, "block_gmem_"),
+                               ("df_trsm_rlt", k1c, "panel_gmem_")):
+        shape = GMEM_SHAPES[key]
+        g = gmem_rows[key][shape]
+        entry.update({prefix + "shape": list(shape), prefix + "ms": g["ms"],
+                      prefix + "plain_ms": g["plain_ms"],
+                      prefix + "bound_ms": g["bound_ms"],
+                      prefix + "f64_library_ms": g["f64_ms"]})
+    k1q.update(max_abs_err=max(poisson_abs, rest_abs["df_qr"]),
+               library_ms=None)
+    k1c.update(max_abs_err=max(rest_abs["df_chol_block"],
+                               rest_abs["df_trsm_rlt"]), library_ms=None)
+    return k1c, k1q
 
 
 def main():
@@ -3015,18 +3398,18 @@ def main():
     import xerus_tpu_torch
     dev = xerus_tpu_torch.cuda_device()
     phase_build()
+    _loop_fns()
     k1_max_abs, k1_timing = phase_kernels(dev)
     k2_max_abs, k2_timing = phase_k2(dev)
     k3_max_abs, k3_timing = phase_k3(dev)
     phase_small_agreement(dev)
     phase_small_rounding(dev)
     phase_completion_small(dev)
-    k1_launches, solution, host_residual, slice_run = phase_slice(dev)
+    (k1_launches, k1q_poisson), solution, host_residual, slice_run = \
+        phase_slice(dev)
     k2_launches, round_ref, ge_f32, slice_round = phase_round_slice(dev)
-    k1_df, k1_rows, k1_df_abs = phase_rounding_rest(dev, smi, slice_round)
-    k1_timing = _k1_main_path_timing(k1_timing, k1_launches, k1_rows)
-    k1_launches += k1_df
-    k1_max_abs = max(k1_max_abs, k1_df_abs)
+    rest_rows, rest_abs, rest_launches, gmem_rows = phase_rounding_rest(
+        dev, smi, slice_round)
     k3_launches, completion = phase_completion_slice(dev)
     iht_residual = phase_iht(dev)
     phase_objects(dev, smi)
@@ -3037,14 +3420,17 @@ def main():
     phase_algorithms(dev, smi, slice_run, host_residual, completion,
                      iht_residual)
     phase_eigensolver(dev, smi)
-    phase_breakdown(dev)
+    poisson_rows, poisson_abs = phase_breakdown(dev, smi)
     phase_round_breakdown(dev)
+    k1c, k1q = _loop_entries(k1q_poisson, poisson_rows, poisson_abs,
+                             rest_rows, rest_abs, rest_launches, gmem_rows)
+
     def entry(name, source, replaces, launches, max_abs, timing):
-        # beside the main shape's numbers: K1's at (1800, 1800), K2's in
-        # float64 on the object rounding's largest bond
+        # beside the main shape's numbers: K2's in float64 on the object
+        # rounding's largest bond; K1c's and K1q's shapes and routes
         extra = {k: v for k, v in timing.items()
-                 if k.endswith("_1800x1800") or k == "shapes"
-                 or k.startswith("f64_")}
+                 if k not in ("ms", "plain_ms", "bound_ms", "bound_by",
+                              "library_ms", "launches", "max_abs_err")}
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": max_abs, "ms": timing["ms"],
@@ -3062,7 +3448,15 @@ def main():
               k2_timing),
         entry("tt_eval", "xerus_tpu_torch/csrc/tt_eval.cu",
               "xerus_tpu/ops/pallas_tt_eval.py:45", k3_launches, k3_max_abs,
-              k3_timing)]}))
+              k3_timing),
+        # K1's column loops (the JAX package's fori_loops at
+        # xerus_tpu/ops/df_cholesky.py:38, :71 and mixed_precision.py:91)
+        entry("df_chol", "xerus_tpu_torch/csrc/df_chol.cu",
+              "xerus_tpu/ops/pallas_df.py:60", k1c["launches"],
+              k1c["max_abs_err"], k1c),
+        entry("df_qr", "xerus_tpu_torch/csrc/df_qr.cu",
+              "xerus_tpu/ops/pallas_df.py:60", k1q["launches"],
+              k1q["max_abs_err"], k1q)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

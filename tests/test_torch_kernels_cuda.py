@@ -6,6 +6,8 @@ Imports no jax, so the file also runs on a machine without it:
 
 Without a card every case skips (the kernels have no CPU mode)."""
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -441,22 +443,26 @@ def _cpu_and_card(fn, cores, cuda):
 
 @pytest.mark.cuda
 def test_df_rounding_card_matches_cpu(cuda):
-    """tt_round_df on the card (K1 in the column loops, cuSOLVER's seed
-    eigh, bf16 slice GEMMs) and on the CPU: both within 1e-11 of the
-    float64 chain at d=7, the same ranks, and with eps=1e-7 the 1e-9 tail
-    dropped on both."""
+    """tt_round_df on the card (K1c for the column loops of the df
+    Cholesky and the substitution, no K1, cuSOLVER's seed eigh, bf16 slice
+    GEMMs) and on the CPU: both within 1e-11 of the float64 chain at d=7,
+    the same ranks, and with eps=1e-7 the 1e-9 tail dropped on both."""
     from xerus_tpu_torch.examples import (bench_round_instance,
                                           cliff_instance, cpu_round_sweep,
                                           host_tt_distance, host_tt_log_norm)
+    from xerus_tpu_torch.ops import df_loops as dl
     from xerus_tpu_torch.ops.df_matvec import df_matvec as k1
     from xerus_tpu_torch.ops.df_rounding import tt_round_df_from_f64
     host = [c.astype(np.float64) for c in bench_round_instance(7, 3, 6)]
     cores = cliff_instance(host, 3, 1e-9)
     chain = cpu_round_sweep(cores, 3)
     nrm = np.exp(host_tt_log_norm(chain))
-    launches = k1.launches
+    launches = (k1.launches, dl.df_chol_block_launch.launches,
+                dl.df_trsm_rlt_launch.launches)
     card = tt_round_df_from_f64(cores, 3, device=cuda)
-    assert k1.launches > launches
+    assert k1.launches == launches[0]
+    assert dl.df_chol_block_launch.launches > launches[1]
+    assert dl.df_trsm_rlt_launch.launches > launches[2]
     cpu = tt_round_df_from_f64(cores, 3, device=torch.device("cpu"))
     for out in (card, cpu):
         assert [c.shape for c in out] == [c.shape for c in chain]
@@ -529,3 +535,222 @@ def test_cholqr_f32_on_the_card_keeps_its_grams_orthogonal(cuda):
         assert float(torch.linalg.matrix_norm(V.T @ V - eye)) < 1e-4
     got = host_tt_log_norm([c.double().cpu().numpy() for c in out])
     assert abs(got - ref) / abs(ref) < 1e-4
+
+
+# ---------------------------------------------------------------------------
+# K1q and K1c: the df column loops (ops/df_loops.py), each entry against its
+# plain version on the card at the paths' shapes: backward errors within
+# 2x the plain version's plus four units of the df format's 2^-48
+# resolution (a (2, 2) factor's ||Q^T Q - I|| is 1.068e-14 against the
+# plain version's 4.699e-15 by summation order alone), the same deficient
+# columns, and two launches bitwise equal
+
+DF_LOOP_FLOOR = 2.0 ** -46
+
+
+def _held(k, p):
+    return all(a <= 2.0 * b + DF_LOOP_FLOOR for a, b in zip(k, p))
+
+
+def _df_pair(x, device):
+    return df32.df_from_f64(x, device)
+
+
+def _joined(pair):
+    return df32.df_to_f64(*pair)
+
+
+def _qr_input(m, r, seed, deficient=False):
+    a = np.random.Generator(np.random.PCG64(seed)).normal(size=(m, r))
+    if deficient:
+        a[:, r // 3] = 2.0 * a[:, 1]
+        a[:, r // 2] = 0.0
+        a[:, r - 1] = a[:, 0] - 3.0 * a[:, 2]
+    return a
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,r,deficient,route", [
+    (60, 30, False, "cta"), (60, 30, True, "cta"), (2, 2, False, "cta"),
+    (128, 64, True, "cta"), (512, 256, False, "cluster"),
+    (512, 256, True, "cluster"), (500, 250, True, "cluster"),
+    (1000, 400, False, "cluster"), (1024, 512, True, "gmem")])
+def test_df_qr_kernel_matches_plain(cuda, m, r, deficient, route):
+    from xerus_tpu_torch.ops import df_loops as dl
+    from xerus_tpu_torch.ops import mixed_precision as mp
+    plan = dl.df_qr_plan(m, r)
+    assert plan.route == route
+    a = _qr_input(m, r, m * 31 + r, deficient)
+    ah, al = _df_pair(a, cuda)
+    n0 = dl.df_qr_launch.launches
+    (qh, ql), (rh, rl) = mp.df_qr(ah, al)
+    (qh2, ql2), (rh2, rl2) = mp.df_qr(ah, al)
+    torch.cuda.synchronize()
+    assert dl.df_qr_launch.launches == n0 + 2
+    for x, y in ((qh, qh2), (ql, ql2), (rh, rh2), (rl, rl2)):
+        assert torch.equal(x, y)
+    (pqh, pql), (prh, prl) = mp.df_qr_reference(ah, al)
+    Q, R = _joined((qh, ql)), _joined((rh, rl))
+    PQ, PR = _joined((pqh, pql)), _joined((prh, prl))
+    k = dl.qr_backward_errors(Q, R, a)
+    p = dl.qr_backward_errors(PQ, PR, a)
+    assert _held(k, p)
+    assert np.array_equal(np.diag(R) == 0.0, np.diag(PR) == 0.0)
+    assert np.array_equal(np.triu(R), R)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [2, 37, 64, 128, 200])
+def test_df_chol_block_kernel_matches_plain(cuda, B):
+    dc = importlib.import_module("xerus_tpu_torch.ops.df_cholesky")
+    from xerus_tpu_torch.ops import df_loops as dl
+    assert dl.df_chol_block_plan(B).route == ("gmem" if B > 169 else "cta")
+    rng = np.random.Generator(np.random.PCG64(B))
+    Qm, _ = np.linalg.qr(rng.normal(size=(B, B)))
+    A = (Qm * np.logspace(0, -6, B)) @ Qm.T
+    big = np.zeros((B + 5, B + 5))
+    big[3:3 + B, 2:2 + B] = A
+    bh, bl = _df_pair(big, cuda)
+    Ah, Al = bh[3:3 + B, 2:2 + B], bl[3:3 + B, 2:2 + B]   # row stride B + 5
+    n0 = dl.df_chol_block_launch.launches
+    L1 = dc._df_chol_unblocked(Ah, Al)
+    L2 = dc._df_chol_unblocked(Ah, Al)
+    torch.cuda.synchronize()
+    assert dl.df_chol_block_launch.launches == n0 + 2
+    assert torch.equal(L1[0], L2[0]) and torch.equal(L1[1], L2[1])
+    P = dc._df_chol_unblocked_reference(Ah, Al)
+    L, PL = _joined(L1), _joined(P)
+    assert np.array_equal(np.tril(L), L)
+    assert _held([dl.chol_backward_error(L, A)],
+                 [dl.chol_backward_error(PL, A)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,B,route", [(64, 64, "whole"), (192, 64, "whole"),
+                                       (1792, 64, "whole"), (13, 5, "whole"),
+                                       (512, 256, "tiles"),
+                                       (100, 200, "tiles"),
+                                       (64, 1536, "gmem")])
+def test_df_trsm_rlt_kernel_matches_plain(cuda, m, B, route):
+    dc = importlib.import_module("xerus_tpu_torch.ops.df_cholesky")
+    from xerus_tpu_torch.ops import df_loops as dl
+    assert dl.df_trsm_plan(m, B).route == route
+    rng = np.random.Generator(np.random.PCG64(m * 7 + B))
+    L = np.tril(rng.normal(size=(B, B)), -1) * 0.1 + np.diag(
+        rng.uniform(0.5, 2.0, size=B))
+    big = rng.normal(size=(m, B + 7))
+    A = big[:, 4:4 + B]
+    bh, bl = _df_pair(big, cuda)
+    Ah, Al = bh[:, 4:4 + B], bl[:, 4:4 + B]               # row stride B + 7
+    Lh, Ll = _df_pair(L, cuda)
+    n0 = dl.df_trsm_rlt_launch.launches
+    X1 = dc._df_trsm_rlt(Ah, Al, Lh, Ll)
+    X2 = dc._df_trsm_rlt(Ah, Al, Lh, Ll)
+    torch.cuda.synchronize()
+    assert dl.df_trsm_rlt_launch.launches == n0 + 2
+    assert torch.equal(X1[0], X2[0]) and torch.equal(X1[1], X2[1])
+    P = dc._df_trsm_rlt_reference(Ah, Al, Lh, Ll)
+    Ld = _joined((Lh, Ll))
+    assert _held([dl.trsm_backward_error(_joined(X1), Ld, A)],
+                 [dl.trsm_backward_error(_joined(P), Ld, A)])
+
+
+def _loop_case(entry, shape, device):
+    """Inputs of ``entry`` at ``shape`` on ``device``: a Gaussian matrix
+    with three deficient columns (df_qr), an SPD block of condition 1e6
+    (df_chol_block), a Gaussian panel and a lower-triangular factor
+    (df_trsm_rlt); the df pairs as the launch functions take them."""
+    rng = np.random.Generator(np.random.PCG64(sum(shape)))
+    if entry == "df_qr":
+        return _df_pair(_qr_input(*shape, sum(shape), True), device)
+    B = shape[1]
+    if entry == "df_chol_block":
+        Qm, _ = np.linalg.qr(rng.normal(size=(B, B)))
+        return _df_pair((Qm * np.logspace(0, -6, B)) @ Qm.T, device)
+    L = np.tril(rng.normal(size=(B, B)), -1) * 0.1 + np.diag(
+        rng.uniform(0.5, 2.0, size=B))
+    return (*_df_pair(rng.normal(size=shape), device), *_df_pair(L, device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry,shape,route", [
+    ("df_qr", (512, 256), "cluster"), ("df_qr", (1000, 400), "cluster"),
+    ("df_qr", (256, 256), "cluster"), ("df_chol_block", (64, 64), "cta"),
+    ("df_chol_block", (128, 128), "cta"), ("df_trsm_rlt", (512, 256), "tiles"),
+    ("df_trsm_rlt", (192, 64), "whole")])
+def test_df_loop_gmem_routes_match_the_shared_memory_routes(cuda, entry,
+                                                            shape, route):
+    """Route gmem computes the same steps in the same orders as the route
+    the plan takes at the paths' shapes, with the operands in global
+    memory: bitwise the same outputs."""
+    from xerus_tpu_torch.ops import df_loops as dl
+    plan = {"df_qr": lambda s: dl.df_qr_plan(*s),
+            "df_chol_block": lambda s: dl.df_chol_block_plan(s[0]),
+            "df_trsm_rlt": lambda s: dl.df_trsm_plan(*s)}[entry](shape)
+    assert plan.route == route
+    launch = getattr(dl, entry + "_launch")
+    args = _loop_case(entry, shape, cuda)
+    n0 = launch.launches
+    out = launch(*args, plan)
+    gmem = launch(*args, dl.gmem_plan(entry, shape))
+    torch.cuda.synchronize()
+    assert launch.launches == n0 + 2
+    flat = (lambda o: [*o[0], *o[1]]) if entry == "df_qr" else list
+    for x, y in zip(flat(out), flat(gmem)):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.slow
+@pytest.mark.parametrize("case,route", [
+    ("qr_60x30", "cta"), ("qr_1000x30", "cluster"), ("qr_1000x30", "gmem"),
+    ("chol_64", "cta"), ("chol_64", "gmem"), ("trsm_192x64", "whole"),
+    ("trsm_192x64", "gmem")])
+def test_df_loop_kernels_match_the_jax_package(cuda, case, route):
+    """K1q and K1c against the JAX package's df_qr, _df_chol_unblocked and
+    _df_trsm_rlt on the same inputs (their CPU outputs stored in
+    tests/data/df_loops_jax.npz by tests/df_loops_jax.py): the same
+    deficient columns, Q within 1e-13, R, L and X within 1e-13 relative."""
+    import df_loops_jax
+    from xerus_tpu_torch.ops import df_loops as dl
+    x, jax_out = df_loops_jax.inputs(), df_loops_jax.load()
+    if case.startswith("qr"):
+        m, r = x[case].shape
+        plan = (dl.gmem_plan("df_qr", (m, r)) if route == "gmem"
+                else dl.df_qr_plan(m, r))
+        assert plan.route == route
+        q, rr = dl.df_qr_launch(*_df_pair(x[case], cuda), plan)
+        Q, R = _joined(q), _joined(rr)
+        JR = jax_out[case + "_R"]
+        assert np.abs(Q - jax_out[case + "_Q"]).max() <= 1e-13
+        assert np.array_equal(np.diag(R) == 0.0, np.diag(JR) == 0.0)
+        assert (np.diag(JR) == 0.0).sum() == 3
+        assert np.abs(R - JR).max() <= 1e-13 * np.abs(JR).max()
+    elif case == "chol_64":
+        plan = (dl.gmem_plan("df_chol_block", (64, 64)) if route == "gmem"
+                else dl.df_chol_block_plan(64))
+        assert plan.route == route
+        L = _joined(dl.df_chol_block_launch(*_df_pair(x[case], cuda), plan))
+        JL = jax_out["chol_64_L"]
+        assert np.linalg.norm(L - JL) / np.linalg.norm(JL) <= 1e-13
+    else:
+        plan = (dl.gmem_plan("df_trsm_rlt", (192, 64)) if route == "gmem"
+                else dl.df_trsm_plan(192, 64))
+        assert plan.route == route
+        X = _joined(dl.df_trsm_rlt_launch(
+            *_df_pair(x[case], cuda), *_df_pair(x["trsm_L_64"], cuda), plan))
+        JX = jax_out["trsm_192x64_X"]
+        assert np.linalg.norm(X - JX) / np.linalg.norm(JX) <= 1e-13
+
+
+@pytest.mark.cuda
+def test_df_qr_kernel_stats_give_the_deficiency_threshold(cuda):
+    from xerus_tpu_torch.ops import df_loops as dl
+    a = _qr_input(60, 30, 9, deficient=True)
+    ah, al = _df_pair(a, cuda)
+    stats = torch.zeros((30, 2), device=cuda)
+    (_q, (rh, _rl)) = dl.df_qr_launch(ah, al, dl.df_qr_plan(60, 30), stats)
+    s = stats.cpu().numpy()
+    diag = rh.diagonal().cpu().numpy()
+    assert np.array_equal(s[:, 0] <= s[:, 1], diag == 0.0)
+    assert (diag == 0.0).sum() == 3

@@ -21,58 +21,20 @@
 // is written; x (14 KB) stays in L1/L2.  No padding: the loop bound masks
 // the ragged edge.
 //
-// Exactness: every add and multiply below is an explicit round-to-nearest
-// intrinsic (__fadd_rn, __fsub_rn, __fmul_rn, __fmaf_rn), which the
-// compiler never contracts or reassociates, and the build passes
-// -fmad=false besides.  TwoProd is the FMA form p = a*b, e = fma(a, b, -p),
-// exact on hardware with a fused multiply-add.
+// Exactness: the df arithmetic is df_arith.cuh's (shared with the column-loop
+// kernels df_qr.cu and df_chol.cu): every add and multiply is an explicit
+// round-to-nearest intrinsic, and the build passes -fmad=false besides.
+// TwoProd is the FMA form p = a*b, e = fma(a, b, -p), exact on hardware
+// with a fused multiply-add.
 
 #include <cuda_runtime.h>
+
+#include "df_arith.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-
-struct df {
-    float h, l;
-};
-
-__device__ __forceinline__ df two_sum(float a, float b) {
-    float s = __fadd_rn(a, b);
-    float bb = __fsub_rn(s, a);
-    float e = __fadd_rn(__fsub_rn(a, __fsub_rn(s, bb)), __fsub_rn(b, bb));
-    return {s, e};
-}
-
-__device__ __forceinline__ df fast_two_sum(float a, float b) {
-    float s = __fadd_rn(a, b);
-    return {s, __fsub_rn(b, __fsub_rn(s, a))};
-}
-
-__device__ __forceinline__ df df_add(df x, df y) {
-    df s = two_sum(x.h, y.h);
-    return fast_two_sum(s.h, __fadd_rn(s.l, __fadd_rn(x.l, y.l)));
-}
-
-// (ah + al) * (xh + xl), renormalized; the al*xl term is below df precision
-__device__ __forceinline__ df df_mul(float ah, float al, float xh, float xl) {
-    float p = __fmul_rn(ah, xh);
-    float e = __fmaf_rn(ah, xh, -p);
-    float cross = __fadd_rn(__fmul_rn(ah, xl), __fmul_rn(al, xh));
-    return fast_two_sum(p, __fadd_rn(e, cross));
-}
-
-__device__ __forceinline__ df warp_fold(df v) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-        df o;
-        o.h = __shfl_down_sync(0xffffffffu, v.h, off);
-        o.l = __shfl_down_sync(0xffffffffu, v.l, off);
-        v = df_add(v, o);
-    }
-    return v;
-}
 
 __global__ void __launch_bounds__(kThreads)
 df_matvec_kernel(const float* __restrict__ ah, const float* __restrict__ al,

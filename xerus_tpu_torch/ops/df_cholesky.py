@@ -8,9 +8,10 @@ positivity is judged at ~2^-48 and the usable condition reaches
 kappa ~ 2^48:
 
 - diagonal blocks and panel triangular solves: column-sequential df
-  arithmetic, one Python step per column (the JAX package's fori_loop);
-  each step's row product is a df matvec, hand kernel K1 on the card
-  (``ops/df_matvec.py``) and its plain version on the CPU;
+  arithmetic (the JAX package's fori_loops), one launch each of kernel
+  K1c on the card (``ops/df_loops.py``: ``df_chol_block``,
+  ``df_trsm_rlt``); on the CPU the plain loops, one Python step per
+  column whose row product is a df matvec;
 - trailing updates (all the FLOPs): Ozaki split GEMMs (ops/ozaki.py).
 
 The solve applies the df factor through f32 triangular substitutions
@@ -23,23 +24,59 @@ from functools import partial
 
 import torch
 
+from . import df_loops
 from .df32 import df_add, df_sub
-from .df_matvec import df_matvec
+from .df_matvec import df_matvec, df_matvec_reference
 from .mixed_precision import df_div, df_sqrt
 from .ozaki import ozaki_matmul
 
 
 def _df_chol_unblocked(Ah, Al):
-    """Column-sequential df Cholesky of a (B, B) df SPD block, masked to
-    the lower triangle as the reference's loop body is.  Returns
-    lower-triangular (Lh, Ll)."""
+    """df Cholesky of a (B, B) df SPD block.  Returns lower-triangular
+    (Lh, Ll).  On CPU tensors the plain version; on CUDA tensors one
+    launch of K1c's ``df_chol_block`` (route cta or gmem by
+    ``df_loops.df_chol_block_plan``).  A failed launch raises."""
+    _df_chol_unblocked.calls += 1
+    if Ah.device.type == "cpu":
+        return _df_chol_unblocked_reference(Ah, Al)
+    if Ah.device.type != "cuda":
+        raise RuntimeError(f"_df_chol_unblocked: no kernel for device "
+                           f"{Ah.device}")
+    return df_loops.df_chol_block_launch(
+        Ah, Al, df_loops.df_chol_block_plan(Ah.shape[0]))
+
+
+def _df_trsm_rlt(Ah, Al, Lkh, Lkl):
+    """Solve X Lkk^T = A for X, with Lkk (B, B) lower-triangular df and
+    A (m, B) df.  On CPU tensors the plain version; on CUDA tensors one
+    launch of K1c's ``df_trsm_rlt`` (route whole, tiles or gmem by
+    ``df_loops.df_trsm_plan``).  A failed launch raises."""
+    _df_trsm_rlt.calls += 1
+    if Ah.device.type == "cpu":
+        return _df_trsm_rlt_reference(Ah, Al, Lkh, Lkl)
+    if Ah.device.type != "cuda":
+        raise RuntimeError(f"_df_trsm_rlt: no kernel for device {Ah.device}")
+    return df_loops.df_trsm_rlt_launch(Ah, Al, Lkh, Lkl,
+                                       df_loops.df_trsm_plan(*Ah.shape))
+
+
+_df_chol_unblocked.calls = 0
+_df_trsm_rlt.calls = 0
+
+
+def _df_chol_unblocked_reference(Ah, Al):
+    """The plain version: column-sequential df Cholesky of a (B, B) df SPD
+    block, masked to the lower triangle as the reference's loop body is;
+    each step's row product is the plain broadcast df matvec
+    (``df_matvec_reference``, torch on any device: the plain version runs
+    no kernel).  Returns lower-triangular (Lh, Ll)."""
     B = Ah.shape[0]
     dtype = Ah.dtype
     idx = torch.arange(B, device=Ah.device)
     Lh = Ah.new_zeros((B, B))
     Ll = Ah.new_zeros((B, B))
     for j in range(B):
-        sh, sl = df_matvec(Lh, Ll, Lh[j], Ll[j])          # L @ L[j, :]
+        sh, sl = df_matvec_reference(Lh, Ll, Lh[j], Ll[j])  # L @ L[j, :]
         sh, sl = df_sub(Ah[:, j], Al[:, j], sh, sl)
         dh, dl = df_sqrt(torch.clamp_min(sh[j], 1e-30), sl[j])
         ch, cl = df_div(sh, sl, dh, dl)
@@ -50,14 +87,14 @@ def _df_chol_unblocked(Ah, Al):
     return Lh, Ll
 
 
-def _df_trsm_rlt(Ah, Al, Lkh, Lkl):
-    """Solve X Lkk^T = A for X, with Lkk (B, B) lower-triangular df and
-    A (m, B) df, by column-sequential df substitution."""
+def _df_trsm_rlt_reference(Ah, Al, Lkh, Lkl):
+    """The plain version of ``_df_trsm_rlt``: column-sequential df
+    substitution, each step's row product ``df_matvec_reference``."""
     Xh = Ah.new_zeros(Ah.shape)
     Xl = Ah.new_zeros(Ah.shape)
     for j in range(Ah.shape[1]):
         # s = A[:, j] - X @ Lkk[j, :]^T (columns >= j of X are still zero)
-        sh, sl = df_matvec(Xh, Xl, Lkh[j], Lkl[j])
+        sh, sl = df_matvec_reference(Xh, Xl, Lkh[j], Lkl[j])
         sh, sl = df_sub(Ah[:, j], Al[:, j], sh, sl)
         ch, cl = df_div(sh, sl, Lkh[j, j], Lkl[j, j])
         Xh[:, j] = ch

@@ -9,7 +9,9 @@ preconditioner inside the refined local solves (``df_als_sweep``,
 solve (f32 half-sweeps to the f32 plateau, then df half-sweeps); and
 ``als_spd_mixed``, df half-sweeps on TT objects.  The JAX package compiled
 each into one XLA program; here they run eagerly, with one host read per
-odd f32 half-sweep for the stop rule and none in the df phase.
+odd f32 half-sweep for the stop rule and none in the df phase.  The df
+QR's column loop is one launch of kernel K1q on the card
+(``ops/df_loops.py``).
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch
 
 from .df32 import (DF, df_add, df_matmul, df_matvec, df_mul, df_reduce_sum,
                    df_solve_spd_refined, df_sub, fast_two_sum, two_prod)
+from . import df_loops
 from .als_kernels import _als_half_sweep, _als_half_sweep_rl, tt_residual_rel
 
 
@@ -91,6 +94,25 @@ def df_tensordot(a: DF, b: DF, axes) -> DF:
 
 def df_qr(ah: torch.Tensor, al: torch.Tensor) -> Tuple[DF, DF]:
     """Thin QR of an (m, r) df matrix, m >= r.  Returns (Q, R) as df pairs.
+
+    On CPU tensors the plain version ``df_qr_reference``; on CUDA tensors
+    kernel K1q in one launch (``df_loops.df_qr_launch``, route cta, cluster
+    or gmem by ``df_loops.df_qr_plan``, which raises for a shape no route
+    holds).  A failed launch raises."""
+    df_qr.calls += 1
+    if ah.device.type == "cpu":
+        return df_qr_reference(ah, al)
+    if ah.device.type != "cuda":
+        raise RuntimeError(f"df_qr: no kernel for device {ah.device}")
+    return df_loops.df_qr_launch(ah, al, df_loops.df_qr_plan(*ah.shape))
+
+
+df_qr.calls = 0
+
+
+def df_qr_reference(ah: torch.Tensor, al: torch.Tensor) -> Tuple[DF, DF]:
+    """The plain version of ``df_qr``: thin QR of an (m, r) df matrix by a
+    column loop of torch df operations.
 
     Sequential over columns; each step is df matvecs (CGS2).  A column
     whose post-projection norm is f32 noise relative to the matrix carries
