@@ -67,7 +67,21 @@ full width:
   max_rank 32 and 64; ``xt.dmrg_solve``, the fused apply + round on
   slice 2's rank-256 TT, the Riemannian kit, SD, CG,
   ``decomposition_als``, ``randomTTSVD`` and the cascade example on the
-  card and under ``host()``.
+  card and under ``host()``;
+- the sparse QR of the object layer at benchmarks/sparseqr_scale.py's
+  largest size (4096 x 2048): random scatter on the dense Heath route
+  (its QR on the card, the rank decision held to LAPACK's on the host)
+  and a banded pattern on the native Givens route, reconstruction and
+  orthonormality bars, each route's wall beside torch.linalg.qr, the
+  dense route's card memory, ``xt.calculate_qc`` on the sparse Tensor;
+- the rounding speed presets on slice 2's instance and at rank 1024 ->
+  512, both with the bf16 study's damping: 'bf16_frontier' (cuBLAS bf16
+  GEMMs, counted) within 1.1x of 'exact''s truncation error, the Gram at
+  one bf16 pass as the control, torch's TF32 and reduced-precision flags
+  still off, walls and TFLOP/s, and ``TTTensor.round_fast(speed=...)``;
+- the parallel layer in a one-rank NCCL group: every parallel entry and
+  both ``mesh=`` arguments against the serial path
+  (``examples/parallel_checks.py``), each wall beside the serial one.
 
 It checks the host-f64 residual of the solve, the f32-vs-f64 log-norm
 of every rounding and the completion's residuals against the JAX
@@ -398,10 +412,11 @@ def phase_slice(dev):
                                        "wall": wall}
 
 
-def _device_busy(fn):
+def _device_busy(fn, top: int = 0):
     """``fn`` once under torch.profiler (CUDA activity): (host wall s,
     device busy s or None where the profiler saw no device time, kernels),
-    busy the union of the kernels' intervals."""
+    busy the union of the kernels' intervals; with ``top``, a fourth item:
+    the ``top`` kernel names by summed device time, as (name, s, count)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -411,14 +426,23 @@ def _device_busy(fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy, end = 0.0, float("-inf")
     for a, b in spans:
         if b > end:
             busy += b - max(a, end)
             end = b
-    return wall, (busy * 1e-6 if spans else None), len(spans)
+    out = (wall, (busy * 1e-6 if spans else None), len(spans))
+    if not top:
+        return out
+    by_name = {}
+    for e in kernels:
+        t, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + (e.time_range.end - e.time_range.start) * 1e-6,
+                           n + 1)
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    return out + ([(name, t, n) for name, (t, n) in ranked],)
 
 
 def phase_breakdown(dev, smi):
@@ -3335,6 +3359,338 @@ def phase_eigensolver(dev, smi):
         raise AssertionError("eigensolver: " + "; ".join(fails))
 
 
+# the sparse QR (phase_sparse_qr): benchmarks/sparseqr_scale.py's
+# make_instance patterns at its largest size, m x n = 4096 x 2048: random
+# scatter with 8 entries a row (mean row span far past the limit: the
+# dense Heath route, its QR on the card) and banded with 2 (the native
+# Givens route on the host); tests/test_sparse_qr.py's bars
+SQR_SHAPE = (4096, 2048)
+SQR_PATTERNS = (("random", 8), ("banded", 2))
+SQR_REL = 1e-12            # ||QC - A|| / ||A|| and ||Q^T Q - I||_F
+
+
+def _sqr_instance(rng, m, n, k, pattern):
+    """benchmarks/sparseqr_scale.py's make_instance (unique positions)."""
+    import numpy as np
+    rows = np.repeat(np.arange(m), k)
+    if pattern == "banded":
+        base = (rows * n) // m
+        cols = np.minimum(base + rng.integers(0, max(k, 2), size=rows.size),
+                          n - 1)
+    else:
+        cols = rng.integers(0, n, size=rows.size)
+    pos = np.unique(rows * n + cols)
+    return pos, rng.standard_normal(pos.size)
+
+
+def _flat_to_dense(flat, rows, cols, dev):
+    """A {row * cols + col: value} dict as a dense float64 card matrix."""
+    import numpy as np
+    import torch
+    keys = np.fromiter(flat.keys(), np.int64, len(flat))
+    vals = np.fromiter(flat.values(), np.float64, len(flat))
+    out = torch.zeros(rows * cols, dtype=torch.float64, device=dev)
+    out[torch.from_numpy(keys).to(dev)] = torch.from_numpy(vals).to(dev)
+    return out.reshape(rows, cols)
+
+
+def phase_sparse_qr(dev, smi):
+    """The sparse QR of the object layer (``core/sparse_qr.py``) at full
+    size: the native library must have built; each pattern takes its
+    route, the card's dense route makes the host LAPACK route's rank
+    decision (the JAX package's algorithm), and Q C reconstructs A with
+    orthonormal Q.  Printed: each route's wall beside torch.linalg.qr in
+    float64 on the dense copy, the dense route's bytes on the card against
+    its memory (there is no size guard, as in the JAX package), and the
+    split of the object call ``xt.calculate_qc`` on the sparse Tensor."""
+    import numpy as np
+    import torch
+    import xerus_tpu_torch as xt
+    from xerus_tpu_torch.core import sparse_qr as sq
+    t_phase = time.perf_counter()
+    if not sq.native_available():
+        raise AssertionError("sparse qr: the native library did not build")
+    print(f"sparse qr: native library {os.path.relpath(sq.library_path(), HERE)}")
+    m, n = SQR_SHAPE
+    tol = 16.0 * float(np.finfo(np.float64).eps)
+    rng = np.random.default_rng(0xC0FFEE)
+    total_mem = torch.cuda.get_device_properties(dev).total_memory
+    for pattern, k in SQR_PATTERNS:
+        pos, vals = _sqr_instance(rng, m, n, k, pattern)
+        span = sq.mean_row_span(pos, m, n)
+        dense_route = span > sq.ROW_SPAN_NATIVE_LIMIT
+        if dense_route != (pattern == "random"):
+            raise AssertionError(f"sparse qr {pattern}: mean row span {span}"
+                                 " sends it to the other route")
+        sq.sparse_qc(pos, vals, m, n, tol)   # warm-up: first calls
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        q, c, rank = sq.sparse_qc(pos, vals, m, n, tol)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        A = _flat_to_dense(dict(zip(pos.tolist(), vals.tolist())), m, n, dev)
+        Q, C = _flat_to_dense(q, m, rank, dev), _flat_to_dense(c, rank, n, dev)
+        rec = float(torch.linalg.norm(Q @ C - A) / torch.linalg.norm(A))
+        orth = float(torch.linalg.norm(
+            Q.T @ Q - torch.eye(rank, dtype=torch.float64, device=dev)))
+        svd_rank = int(torch.linalg.matrix_rank(A))
+        qr_ms = _wall_ms(lambda: torch.linalg.qr(A), 3)
+        line = (f"sparse qr {pattern} {m}x{n} ({len(vals)} entries, mean row "
+                f"span {span:.1f}, limit {sq.ROW_SPAN_NATIVE_LIMIT:g}): route "
+                f"{'dense Heath (QR on the card)' if dense_route else 'native Givens (host)'}, "
+                f"rank {rank} (SVD rank {svd_rank}), fill Q {len(q):,} C "
+                f"{len(c):,}, ||QC - A||/||A|| {rec:.3e}, ||Q^T Q - I||_F "
+                f"{orth:.3e} (bars {SQR_REL:g}); wall {wall * 1e3:.1f} ms "
+                f"(after a warm-up) beside torch.linalg.qr f64 of the dense copy "
+                f"{qr_ms:.3f} ms ({smi})")
+        print(line)
+        if not (rec <= SQR_REL and orth <= SQR_REL):
+            raise AssertionError(f"sparse qr {pattern}: misses its bars")
+        if dense_route:
+            # the JAX package's dense route is LAPACK's QR + the cascade
+            t0 = time.perf_counter()
+            with xt.host():
+                _, _, host_rank = sq.dense_heath_qc(pos, vals, m, n, tol)
+            host_s = time.perf_counter() - t0
+            held = 8 * (m * n + m * min(m, n) + min(m, n) * n)
+            n_max = int((total_mem / 40) ** 0.5)
+            print(f"sparse qr dense route: rank {rank} on the card, "
+                  f"{host_rank} by LAPACK on the host ({host_s:.2f} s); "
+                  f"card memory: A, Q and R in float64 {held / 1e6:.1f} MB, "
+                  f"peak allocated {peak / 1e6:.1f} MB of "
+                  f"{total_mem / 1e9:.1f} GB; no size guard (as in the JAX "
+                  f"package): an m = 2n instance holds 40 n^2 bytes, so "
+                  f"n <= {n_max:,} fits the card")
+            if host_rank != rank:
+                raise AssertionError("sparse qr: the card's dense route "
+                                     "decides another rank than LAPACK's")
+            # the object call on the sparse Tensor, and where it goes
+            S = xt.Tensor([m, n], xt.Representation.Sparse)
+            S._sparse = dict(zip(pos.tolist(), vals.tolist()))
+            t0 = time.perf_counter()
+            Qo, Co = xt.calculate_qc(S, 1)
+            torch.cuda.synchronize()
+            obj_s = time.perf_counter() - t0
+            coo_ms = _wall_ms(S.sparse_coo, 3)
+            print(f"sparse qr object call xt.calculate_qc: {obj_s:.3f} s "
+                  f"(rank {Qo.dimensions[-1]}, Q {Qo.representation.name}, "
+                  f"C {Co.representation.name}); of it the dict to sorted "
+                  f"COO {coo_ms:.3f} ms and the route {wall:.3f} s, the rest "
+                  "building and densifying the outputs")
+            if Qo.dimensions[-1] != rank:
+                raise AssertionError("sparse qr: the object call decides "
+                                     "another rank")
+        del A, Q, C
+    print(f"sparse qr: phase {time.perf_counter() - t_phase:.1f} s")
+
+
+# the rounding speed presets (phase_speed_presets): slice 2's instance and
+# the JAX bf16 study's rank 1024 -> 512 (benchmarks/bf16_round_study.py),
+# each with the study's geometric damping 0.99 per rank slot; the error is
+# the relative truncation error ||X - Xr|| / ||X|| in float64 on the card,
+# the mean over PRESET_SKETCHES sketches (the same ones for each speed)
+PRESET_CASES = ((32, 256, 128), (32, 1024, 512))
+PRESET_BAR = 1.1           # doc/performance.md's bar against 'exact'
+PRESET_SKETCHES = 2
+PRESET_DAMPING = 0.99
+
+
+def _tt_log_norm_card(cores):
+    """log ||X|| of a TT in float64 on the card (QR of each carry)."""
+    import torch
+    R = torch.ones((1, 1), dtype=torch.float64, device=cores[0].device)
+    log_acc = torch.zeros((), dtype=torch.float64, device=R.device)
+    for c in cores:
+        cur = torch.tensordot(R, c.double(), dims=1)
+        R = torch.linalg.qr(cur.reshape(-1, cur.shape[2]), mode="r")[1]
+        nrm = torch.linalg.norm(R)
+        R = R / nrm
+        log_acc = log_acc + torch.log(nrm)
+    return float(log_acc)
+
+
+def _tt_distance_card(xs, ys):
+    """||X - Y|| / ||X|| in float64 on the card: the difference TT's block
+    cores contracted with a QR of every carry (examples/rounding.py's
+    host_tt_distance on the device)."""
+    import math
+    import torch
+    d = len(xs)
+    blocks = []
+    for i, (x, y) in enumerate(zip(xs, ys)):
+        x, y = x.double(), y.double()
+        if i == 0:
+            blocks.append(torch.cat([x, -y], dim=2))
+        elif i == d - 1:
+            blocks.append(torch.cat([x, y], dim=0))
+        else:
+            z = x.new_zeros((x.shape[0] + y.shape[0], x.shape[1],
+                             x.shape[2] + y.shape[2]))
+            z[:x.shape[0], :, :x.shape[2]] = x
+            z[x.shape[0]:, :, x.shape[2]:] = y
+            blocks.append(z)
+    return math.exp(_tt_log_norm_card(blocks) - _tt_log_norm_card(xs))
+
+
+def phase_speed_presets(dev, smi):
+    """``round_fast(speed=...)``'s presets at full size: the randomized
+    cholqr1 sweep at 'exact' and at 'bf16_frontier' (bulk GEMMs one bf16
+    pass on cuBLAS, Gram at bf16x3), and the Gram at one pass as the
+    control, on the decaying instances; the frontier's error within 1.1x
+    of 'exact', its bf16 GEMMs counted, torch's TF32 and reduced-precision
+    flags still off; walls and TFLOP/s by randomized_round_flops; the
+    object entry TTTensor.round_fast on slice 2's instance."""
+    import numpy as np
+    import torch
+    import xerus_tpu_torch as xt
+    from xerus_tpu_torch.convert import cores_to_torch
+    from xerus_tpu_torch.examples import bench_round_instance
+    from xerus_tpu_torch.ops import round_kernels as rk
+    t_phase = time.perf_counter()
+    variants = (("exact", None, None), ("bf16_frontier", "default", "high"),
+                ("gram_default", "default", "default"))
+    for d, rank, target in PRESET_CASES:
+        host = bench_round_instance(d, ROUND_N, rank, SEED)
+        cores = []
+        for c in host:
+            rl, _, rr = c.shape
+            dl = PRESET_DAMPING ** np.arange(rl)
+            dr = PRESET_DAMPING ** np.arange(rr)
+            cores.append(c * dl[:, None, None] * dr[None, None, :])
+        cores = list(cores_to_torch(cores, dev, torch.float32))
+        flops = rk.randomized_round_flops([tuple(c.shape) for c in cores],
+                                          target, OVERSAMPLE)
+        err = {}
+        for name, p, g in variants:
+            def run(seed=0, p=p, g=g):
+                return rk._round_randomized(
+                    cores, target, OVERSAMPLE, qr_method="cholqr1",
+                    precision=p, gram_precision=g,
+                    generator=torch.Generator(device=dev).manual_seed(seed))
+            run()
+            torch.cuda.synchronize()
+            gemms0 = rk._bf16_pass.gemms
+            walls = []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            gemms = (rk._bf16_pass.gemms - gemms0) // 2
+            errs = [_tt_distance_card(cores, run(seed))
+                    for seed in range(PRESET_SKETCHES)]
+            err[name] = float(np.mean(errs))
+            wall = min(walls)
+            print(f"speed presets d={d} rank {rank}->{target} {name} "
+                  f"(precision {p}, gram {g}): wall {wall * 1e3:.3f} ms "
+                  f"(best of 2 after a warm-up), "
+                  f"{flops / wall / 1e12:.3f} TFLOP/s by "
+                  f"randomized_round_flops, bf16 GEMMs {gemms} a rounding, "
+                  f"relative truncation error {err[name]:.6e} (mean of "
+                  f"{PRESET_SKETCHES} sketches: "
+                  f"{', '.join(f'{e:.6e}' for e in errs)}) ({smi})")
+            # where the time goes: one more rounding under torch.profiler
+            pwall, busy, nk, top = _device_busy(run, top=4)
+            idle = ("not measured (the profiler saw no device time)"
+                    if busy is None else f"{1.0 - busy / pwall:.3f}")
+            split = ", ".join(f"{t * 1e3:.3f} ms {k}x {nm[:60]}"
+                              for nm, t, k in top)
+            print(f"speed presets d={d} rank {rank}->{target} {name} under "
+                  f"torch.profiler: wall {pwall * 1e3:.3f} ms, {nk} kernels, "
+                  f"device busy {'-' if busy is None else f'{busy * 1e3:.3f}'}"
+                  f" ms, idle share {idle}; largest: {split}")
+            if name == "exact" and gemms:
+                raise AssertionError("speed presets: 'exact' ran bf16 GEMMs")
+            if name != "exact" and not gemms:
+                raise AssertionError(f"speed presets: {name} ran no bf16 "
+                                     "GEMM on the card")
+        ratio = err["bf16_frontier"] / err["exact"]
+        control = err["gram_default"] / err["exact"]
+        print(f"speed presets d={d} rank {rank}->{target}: bf16_frontier "
+              f"error {ratio:.4f}x 'exact' (bar {PRESET_BAR:g}); control "
+              f"gram='default' {control:.4f}x, {control / PRESET_BAR:.3f}x "
+              f"the bar (the JAX study measured 4.62x on a TPU)")
+        if not ratio <= PRESET_BAR:
+            raise AssertionError(f"speed presets: bf16_frontier error "
+                                 f"{ratio:.4f}x 'exact' at rank {rank}")
+        # one product at the sweep's largest Gram: its panels are at most
+        # (target n, l), l = target + oversample
+        y = torch.randn(target * ROUND_N, target + OVERSAMPLE, device=dev)
+        gram = ", ".join(
+            f"{p or 'float32'} {_time_ms(lambda p=p: rk.mm_precision(y.T, y, p), reps=20):.4f} ms"
+            for p in (None, "default", "high"))
+        print(f"speed presets: the largest Gram ({y.shape[1]} x {y.shape[0]})"
+              f" @ ({y.shape[0]} x {y.shape[1]}) by mm_precision, CUDA "
+              f"events, median of 20: {gram} ({smi})")
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction,
+             torch.get_float32_matmul_precision())
+    print(f"speed presets: allow_tf32 {flags[0]}, bf16 reduced-precision "
+          f"reduction {flags[1]}, float32 matmul precision {flags[2]}")
+    if flags != (False, False, "highest"):
+        raise AssertionError("speed presets: torch's precision flags moved")
+    # the object entry on slice 2's instance (float64 TTTensor)
+    x = xt.convert.tt_from_numpy(bench_round_instance(ROUND_D, ROUND_N,
+                                                      ROUND_RANK, SEED),
+                                 device=dev)
+    for speed in ("exact", "bf16_frontier"):
+        y = x.copy()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y.round_fast(ROUND_TARGET, speed=speed)
+        torch.cuda.synchronize()
+        print(f"speed presets: TTTensor.round_fast({ROUND_TARGET}, "
+              f"speed={speed!r}) on slice 2's float64 TT: "
+              f"{time.perf_counter() - t0:.3f} s, ranks max {max(y.ranks())}")
+        if max(y.ranks()) > ROUND_TARGET or not np.isfinite(y.frob_norm()):
+            raise AssertionError(f"speed presets: round_fast {speed} failed")
+    print(f"speed presets: phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_parallel(dev, smi):
+    """The parallel layer on the card: a one-rank NCCL group (no gloo
+    fallback: a failed init fails the run), every parallel entry and both
+    mesh= arguments against the port's serial path on the same inputs
+    (examples/parallel_checks.py and its bars), the group destroyed at the
+    end.  Printed: each entry's wall beside the serial call's, which is
+    what the collectives and the sharding cost at one rank."""
+    import socket
+    import torch
+    from xerus_tpu_torch.examples.parallel_checks import misses, run_checks
+    from xerus_tpu_torch.parallel.mesh import process_group
+    t_phase = time.perf_counter()
+    torch.cuda.set_device(dev.index or 0)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    with process_group("nccl", f"tcp://localhost:{port}", 0, 1):
+        import torch.distributed as dist
+        backend = dist.get_backend()
+        run_checks(dev, 1)                   # warm-up: first calls, NCCL comms
+        res = run_checks(dev, 1)
+    for name, r in res.items():
+        if name.startswith("_"):
+            continue
+        nums = {k: v for k, v in r.items() if isinstance(v, float)
+                and not k.endswith("_s") and not k.startswith("par_s")
+                and not k.startswith("ser_s")}
+        print(f"parallel {name}: wall {r['par_s'] * 1e3:.3f} ms beside the "
+              f"serial {r['ser_s'] * 1e3:.3f} ms; "
+              + ", ".join(f"{k} {v:.3e}" for k, v in sorted(nums.items()))
+              + f" (one NCCL rank, {smi})")
+    bad = misses(res)
+    print(f"parallel: backend {backend}, default mesh "
+          f"{res['_mesh']['default_shape']}, {len(res) - 1} entries, misses "
+          f"{bad}; phase {time.perf_counter() - t_phase:.1f} s")
+    if backend != "nccl":
+        raise AssertionError(f"parallel: backend {backend}, not nccl")
+    if bad:
+        raise AssertionError(f"parallel: {bad}")
+
+
 def _loop_entries(k1q_poisson, poisson_rows, poisson_abs, rest_rows,
                   rest_abs, rest_launches, gmem_rows):
     """The JSON entries of K1c and K1q.  K1q: launches in the solve and
@@ -3420,6 +3776,9 @@ def main():
     phase_algorithms(dev, smi, slice_run, host_residual, completion,
                      iht_residual)
     phase_eigensolver(dev, smi)
+    phase_sparse_qr(dev, smi)
+    phase_speed_presets(dev, smi)
+    phase_parallel(dev, smi)
     poisson_rows, poisson_abs = phase_breakdown(dev, smi)
     phase_round_breakdown(dev)
     k1c, k1q = _loop_entries(k1q_poisson, poisson_rows, poisson_abs,

@@ -148,13 +148,35 @@ def test_adf_adaptive_device_run_on_objects():
         assert j[0] < 1e-7 and t[0] < 1e-7 and t[2] < 1e-7
 
 
-def test_adf_preset_and_mesh():
+def _one_rank_mesh(tmp_path):
+    """A one-rank gloo group and its (dp, tp) mesh; the mesh paths at two
+    and eight ranks are tests/test_torch_parallel.py's."""
+    from xerus_tpu_torch.parallel import default_mesh
+    from xerus_tpu_torch.parallel.mesh import process_group
+    group = process_group("gloo", f"file://{tmp_path / 'rendezvous'}")
+    return group, default_mesh
+
+
+def test_adf_preset_and_mesh(tmp_path):
+    """The ADF preset, and ADF(mesh=) (item 3b) on a one-rank gloo mesh
+    equal to the run without one; a mesh that is not a DeviceMesh is
+    refused."""
     assert isinstance(xt.ADF, xt.ADFVariant)
     assert (xt.ADF.maxIterations, xt.ADF.targetResidualNorm,
             xt.ADF.minimalResidualNormDecrease) == (0, 1e-8, 0.999)
+    xt.set_seed(SEED)
     ms, x = _completion(xt, [3] * 3, 2, 20)
-    with pytest.raises(NotImplementedError, match="item 3b"):
-        xt.ADF(x, ms, mesh=object())
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        xt.ADF(x.copy(), ms, mesh=object())
+    y = x.copy()
+    variant = xt.ADFVariant(30, 1e-10, 0.999)
+    r_serial = variant(x, ms)
+    group, default_mesh = _one_rank_mesh(tmp_path)
+    with group:
+        r_mesh = variant(y, ms, mesh=default_mesh())
+    assert abs(r_mesh - r_serial) <= 1e-12 * max(r_serial, 1e-300)
+    assert np.abs(_dense(y) - _dense(x)).max() <= 1e-12 * np.abs(
+        _dense(x)).max()
 
 
 def test_adf_float32_bump_survives_the_round():
@@ -282,10 +304,24 @@ def test_uq_matches_jax(case):
         assert t["err"] < 1e-3
 
 
-def test_uq_adf_mesh_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        xt.uq_adf(xt.TTTensor.random([3, 3], 1), [[0.0]],
-                  [xt.Tensor.ones([3])], mesh=object())
+def test_uq_adf_mesh_is_not_ported(tmp_path):
+    """uq_adf(mesh=) (item 3b, ported) on a one-rank gloo mesh equals the
+    run without one; a mesh that is not a DeviceMesh is refused.  The
+    name is historical: the test once asserted that mesh= raised."""
+    xt.set_seed(SEED)
+    x = xt.TTTensor.random([3, 3], 1)
+    rvs = [[0.1 * k] for k in range(8)]
+    sols = [xt.Tensor.from_ndarray(np.array([1.0, 0.1 * k, 0.0]))
+            for k in range(8)]
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        xt.uq_adf(x.copy(), rvs, sols, mesh=object())
+    y = x.copy()
+    xt.uq_adf(x, rvs, sols, max_iterations=20)
+    group, default_mesh = _one_rank_mesh(tmp_path)
+    with group:
+        xt.uq_adf(y, rvs, sols, max_iterations=20, mesh=default_mesh())
+    assert np.abs(_dense(y) - _dense(x)).max() <= 1e-12 * np.abs(
+        _dense(x)).max()
 
 
 # -- measurement sets on objects --------------------------------------------

@@ -372,18 +372,26 @@ def test_least_squares_minimum_norm(shape, rank):
 
 @pytest.mark.parametrize("what", ["qr", "qc", "cq", "solve"])
 def test_sparse_qr_routes_not_ported(what):
-    """The JAX package's sparse QR (native SPQR-style library) waits for
-    ROADMAP Queue 1 item 8: the port raises instead of guessing."""
-    t = xt.Tensor.random([5, 5], n=10)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    """The sparse QR / QC / CQ and the sparse one-right-hand-side solve
+    (ROADMAP Queue 1 item 8, the JAX package's native SPQR-style route,
+    now ported): the port's results equal the JAX package's on the same
+    seeded sparse input, and reconstruct it.  The name is historical: the
+    test once asserted that these routes raised."""
+    def case(pkg):
+        t = pkg.Tensor.random([5, 5], n=10)
         if what == "solve":
-            fact_t.solve(t, xt.Tensor.random([5]))
-        else:
-            getattr(fact_t, f"calculate_{what}")(t, 1)
-    # a dense copy factors
-    Q, R = fact_t.calculate_qr(t.dense_copy(), 1)
-    np.testing.assert_allclose(xt.contract(Q, R, 1).to_ndarray(),
-                               t.to_ndarray(), atol=1e-12)
+            x = _fact(pkg).solve(t, pkg.Tensor.random([5]))
+            return {"x": x.to_ndarray()}
+        L, R = getattr(_fact(pkg), f"calculate_{what}")(t, 1)
+        rec = pkg.contract(L, R, 1).to_ndarray()
+        np.testing.assert_allclose(rec, t.to_ndarray(), atol=1e-12)
+        lm = L.to_ndarray().reshape(5, -1)
+        orth = lm if what != "cq" else R.to_ndarray().reshape(-1, 5).T
+        return {"rank": L.dimensions[-1], "proj": orth @ orth.T,
+                "sparse": (L.is_sparse(), R.is_sparse())}
+
+    ref, got = _both(case)
+    _same(ref, got, rtol=1e-10)
 
 
 def test_svd_of_sparse_input_matches_jax():

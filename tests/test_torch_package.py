@@ -126,8 +126,9 @@ def test_every_module_imports_without_jax():
         "'xerus_tpu_torch.')]\n"
         "for name in mods: importlib.import_module(name)\n"
         "for name in ('misc', 'core', 'indexing', 'network', 'tt', "
-        "'algorithms', 'examples', 'models'):\n"
+        "'algorithms', 'examples', 'models', 'parallel'):\n"
         "    assert any(m.split('.')[1] == name for m in mods), name\n"
+        "assert 'xerus_tpu_torch.core.sparse_qr' in mods\n"
         "with xt.host():\n"
         "    A = xt.Tensor.random([8, 8]); b = xt.Tensor.random([8])\n"
         "    i, j, r1, r2 = xt.indices(4)\n"
@@ -181,11 +182,12 @@ def test_no_port_file_names_jax():
                         (path, line)
 
 
-def _jax_package_top_level_names():
-    """The public names bound at the top of xerus_tpu/__init__.py, read
-    from its source (nothing of the JAX package is imported)."""
+def _jax_package_top_level_names(package=("xerus_tpu",)):
+    """The public names bound at the top of a JAX package's __init__.py
+    (xerus_tpu by default), read from its source (nothing of the JAX
+    package is imported)."""
     import ast
-    with open(os.path.join(REPO, "xerus_tpu", "__init__.py")) as fh:
+    with open(os.path.join(REPO, *package, "__init__.py")) as fh:
         tree = ast.parse(fh.read())
     names = set()
     for node in tree.body:
@@ -196,6 +198,15 @@ def _jax_package_top_level_names():
         elif isinstance(node, ast.Assign):
             names |= {t.id for t in node.targets if isinstance(t, ast.Name)}
     return {n for n in names if not n.startswith("_")}
+
+
+# names of xerus_tpu.ops the port leaves out by design (ROADMAP Queue 1):
+# the jit factories and the timed loop (the port compiles nothing), the
+# Pallas entries (their port is tt_eval_at_points and df_matvec)
+OPS_BY_DESIGN = {"make_round_sweep", "make_round_sweep_scan",
+                 "make_als_sweep_res", "make_als_multi_sweep_res",
+                 "make_als_sweep", "make_adf_iteration", "make_timed_loop",
+                 "tt_eval_at_points_pallas", "pallas_df_matvec"}
 
 
 def test_missing_top_level_names_are_roadmaps_list():
@@ -228,6 +239,14 @@ def test_missing_top_level_names_are_roadmaps_list():
                  "GeometricCGVariant", "GeometricCG", "decomposition_als",
                  "randomTTSVD"):
         assert hasattr(xerus_tpu_torch, name), name
+    # xerus_tpu.ops and xerus_tpu.parallel: every name but the by-design
+    # ones (ROADMAP Queue 1 items 11 and 9)
+    ops = importlib.import_module("xerus_tpu_torch.ops")
+    par = importlib.import_module("xerus_tpu_torch.parallel")
+    assert {n for n in _jax_package_top_level_names(("xerus_tpu", "ops"))
+            if not hasattr(ops, n)} == OPS_BY_DESIGN
+    assert {n for n in _jax_package_top_level_names(
+        ("xerus_tpu", "parallel")) if not hasattr(par, n)} == set()
 
 
 @pytest.mark.cuda

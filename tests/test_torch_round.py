@@ -254,12 +254,33 @@ def test_round_randomized_own_sketch_and_refusals():
     assert all(torch.equal(x, y) for x, y in zip(a, b))
     assert all(torch.isfinite(c).all() for c in a)
     assert max(c.shape[2] for c in a[:-1]) <= 4
-    with pytest.raises(NotImplementedError, match="SPEED_PRESETS"):
-        rk._round_randomized(cores, 4, 4, precision="default")
-    with pytest.raises(NotImplementedError, match="SPEED_PRESETS"):
-        rk._round_randomized(cores, 4, 4, gram_precision="high")
+    # the SPEED_PRESETS precisions run (tests/test_torch_speed_presets.py
+    # holds their arithmetic); a precision the JAX package lacks raises
+    low = rk._round_randomized(cores, 4, 4, qr_method="cholqr1", generator=g,
+                               precision="default", gram_precision="high")
+    assert all(torch.isfinite(c).all() for c in low)
+    with pytest.raises(ValueError, match="precision"):
+        rk._round_randomized(cores, 4, 4, precision="bf8")
+    with pytest.raises(ValueError, match="precision"):
+        rk._round_randomized(cores, 4, 4, gram_precision="tf32")
     with pytest.raises(ValueError, match="qr_method"):
         rk._round_randomized(cores, 4, 4, qr_method="none")
+
+
+def test_tt_round_randomized_is_the_householder_sweep():
+    """ops.tt_round_randomized (the JAX package's tt_kernels.py:2097
+    entry): the full-precision Householder sweep with oversample 8 and
+    the default sketch, quasi-optimal against the svd rounding."""
+    from xerus_tpu_torch import ops
+    cores = _torch(_tt(8, 2, 8, 5))
+    got = ops.tt_round_randomized(cores, 4)
+    want = rk._round_randomized(cores, 4, 8)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    exact = _dense([c.numpy() for c in cores])
+    svd = rk.tt_round_sweep_segmented(cores, 4, method="svd")
+    e_svd = np.linalg.norm(_dense([c.numpy() for c in svd]) - exact)
+    e_rnd = np.linalg.norm(_dense([c.numpy() for c in got]) - exact)
+    assert e_rnd <= 6 * e_svd + 1e-12
 
 
 def test_flop_counts_match_reference():

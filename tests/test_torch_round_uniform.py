@@ -230,6 +230,86 @@ def test_streaming_own_sketches_contract():
     assert len(one) == 1 and tuple(one[0].shape) == (1, 5, 1)
 
 
+def _np_cores(dims, rank, seed):
+    """Random f64 TT cores drawn with numpy (ranks min(rank, n^i, n^(d-i))):
+    the default-tier randomized cases compile nothing of JAX."""
+    rng = np.random.default_rng(seed)
+    d, n = len(dims), dims[0]
+    rk = [1] + [min(rank, n ** i, n ** (d - i)) for i in range(1, d)] + [1]
+    return [rng.standard_normal((rk[i], dims[i], rk[i + 1])) / np.sqrt(rank)
+            for i in range(d)]
+
+
+def test_randomized_uniform_contract():
+    """tests/test_kernels.py's randomized uniform cases (d = 10, rank 8)
+    on the port with their bars: logical ranks (JAX's res_rank), exact at
+    a representable rank, within 4x of the exact sweep when truncating,
+    cholqr within rtol 1e-3 of Householder on the same sketch, cholqr1
+    within 1.2x and exact to 1e-5 at rank 8, finite in float32."""
+    cs = _np_cores([2] * 10, 8, 5)
+    orig = _full(cs)
+    for target in (8, 4):
+        out = ru.tt_round_randomized_uniform(_t(cs), target, oversample=4)
+        assert _ranks(out) == [jtk.res_rank(i + 1, 10, 2, target)
+                               for i in range(9)]
+    assert np.allclose(_full(_np(ru.tt_round_randomized_uniform(
+        _t(cs), 8, oversample=4))), orig, atol=1e-8)
+    e_det = _err(ru.tt_round_sweep(_t(cs), 4), orig)
+    e_rnd = _err(ru.tt_round_randomized_uniform(_t(cs), 4, oversample=4),
+                 orig)
+    assert e_rnd < 4 * e_det
+    e_chl = _err(ru.tt_round_randomized_uniform(_t(cs), 4, oversample=4,
+                                                qr_method="cholqr"), orig)
+    assert np.isclose(e_chl, e_rnd, rtol=1e-3)
+    e_h = _err(ru.tt_round_randomized_uniform(_t(cs), 4), orig)
+    e_c = _err(ru.tt_round_randomized_uniform(_t(cs), 4,
+                                              qr_method="cholqr1"), orig)
+    assert e_c < 1.2 * e_h + 1e-12
+    assert _err(ru.tt_round_randomized_uniform(_t(cs), 8,
+                                               qr_method="cholqr1"),
+                orig) < 1e-5 * np.linalg.norm(orig)
+    r32 = ru.tt_round_randomized_uniform(_t(cs, torch.float32), 4,
+                                         qr_method="cholqr1")
+    assert all(bool(torch.isfinite(c).all()) for c in r32)
+    one = ru.tt_round_randomized_uniform([torch.ones((1, 5, 1))], 3)
+    assert len(one) == 1 and tuple(one[0].shape) == (1, 5, 1)
+    with pytest.raises(ValueError, match="qr_method"):
+        ru.tt_round_randomized_uniform(_t(cs), 4, qr_method="cholqr1_invl")
+
+
+def _jax_scan_sketches(cores, target, oversample):
+    """The draws of JAX's _round_randomized_scan (PRNGKey(0), one (l, n, l)
+    normal per core d-1 .. 1), cut to the port's sketch shapes."""
+    from xerus_tpu_torch.ops import round_kernels as rk
+    d, l = len(cores), target + oversample
+    keys = jax.random.split(jax.random.PRNGKey(0), d)
+    shapes = rk.sketch_shapes([c.shape for c in cores], target, oversample)
+    return [torch.from_numpy(np.array(jax.random.normal(
+        keys[d - 1 - i], (l, cores[i + 1].shape[1], l),
+        dtype=jnp.float64))[:, :, :shapes[i][2]]) for i in range(d - 1)]
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("target", [8, 4])
+def test_randomized_uniform_matches_jax(target):
+    """The port's uniform entry has JAX's logical ranks; fed the padded
+    scan's own sketches, the sweep it runs (``_round_randomized`` capped
+    at the logical ranks) gives JAX's ``tt_round_randomized_uniform``
+    tensor to 1e-8 of its norm."""
+    from xerus_tpu_torch.ops import round_kernels as rk
+    cs = _cores([2] * 10, 8)
+    ref = jtk.tt_round_randomized_uniform(_j(cs), target)
+    got = ru.tt_round_randomized_uniform(_t(cs), target)
+    assert _ranks(got) == _ranks(ref)
+    fed = rk._round_randomized(_t(cs), target, 8,
+                               sketches=_jax_scan_sketches(cs, target, 8),
+                               max_ranks=_ranks(ref))
+    want = _full(_np(ref))
+    assert [tuple(c.shape) for c in fed] == [tuple(c.shape) for c in ref]
+    assert np.linalg.norm(_full(_np(fed)) - want) <= 1e-8 * np.linalg.norm(
+        want)
+
+
 def test_uniform_rejects_unknown_method():
     with pytest.raises(ValueError, match="unknown rounding method"):
         ru.tt_round_sweep_uniform(_t(_cores([2] * 4, 2)), 2, method="qr")

@@ -590,8 +590,15 @@ def test_round_fast_unported_methods_raise(method):
 def test_round_fast_speed_presets_and_bad_input_raise():
     xt.set_seed(SEED)
     a = xt.TTTensor.random([2] * 6, 3)
-    with pytest.raises(NotImplementedError, match="item 2b"):
-        a.round_fast(2, speed="bf16_frontier")
+    b = a.copy()
+    b.round_fast(3, speed="bf16_frontier")     # the preset runs (item 2b)
+    assert b.ranks() == a.ranks()
+    with pytest.raises(ValueError, match="speed must be"):
+        a.round_fast(2, speed="fp8_maximum")
+    with pytest.raises(ValueError, match="randomized-kernel preset"):
+        a.round_fast(2, method="svd", speed="bf16_frontier")
+    with pytest.raises(ValueError, match="uniform int max_rank"):
+        a.round_fast([2] * 5, speed="bf16_frontier")
     with pytest.raises(ValueError, match="unknown round_fast method"):
         a.round_fast(2, method="nonsense")
     with pytest.raises(ValueError):

@@ -24,7 +24,10 @@ measurements run K3; ``PerformanceData``; the eigensolver
 descent and geometric CG; ``decomposition_als``, ``randomTTSVD``; the
 fused apply + round ``ops.apply_operator_rounded``), with the problem
 generators and the cascade example (``examples``) and ``models``, under
-the JAX package's top-level names (all but ``warmup``).
+the JAX package's top-level names (all but ``warmup``); the sparse QR of
+sparse Tensors (``core.sparse_qr``), the rounding speed presets
+(``TTTensor.round_fast(speed=...)``) and the parallel layer over
+torch.distributed (``parallel``, with ``mesh=`` on ADF and UQ-ADF).
 Object computations run on the card unless the caller enters ``host()``.
 """
 

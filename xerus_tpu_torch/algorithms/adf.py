@@ -19,6 +19,13 @@ residual after every iteration, K chains K iterations between reads, and
 iteration and no other host decision.  With the other drivers the ranks
 grow in the object layer: between fixed-rank solves, x gets a random
 rank-1 kick and ``TTTensor.round`` to the maximal ranks.
+
+``mesh`` (a ``torch.distributed`` DeviceMesh with a ``dp`` axis, the
+parallel layer's SPMD contract: every rank calls with the same x and
+measurements) shards the measurement axis of every iteration over dp
+(``ops.adf_kernels.adf_iteration_sharded``); point measurements only, as
+in the JAX package: rank-one sets run replicated, and a mesh takes the
+fixed-rank drivers with the object-layer rank growth, as there.
 """
 
 from __future__ import annotations
@@ -87,10 +94,6 @@ class ADFVariant:
         CPU ``torch.Generator`` of seed 0 (the JAX package draws from
         jax.random); those of the other drivers from the library's
         random engine, as in the JAX package."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "ADF with a mesh (the measurement axis sharded over "
-                "devices) is not ported yet (ROADMAP Queue 1 item 3b)")
         max_ranks = reduce_to_maximal_ranks(
             list(max_ranks) if max_ranks is not None else x.ranks(),
             x.dimensions)
@@ -103,7 +106,8 @@ class ADFVariant:
             x.components = [Tensor._wrap(c) for c in solver.cores]
             x.assume_core_position(0)
 
-        adaptive = check_every == "device" and x.ranks() != max_ranks
+        adaptive = (check_every == "device" and mesh is None
+                    and x.ranks() != max_ranks)
         if adaptive:
             x.move_core(0, keep_rank=True)
         else:
@@ -114,6 +118,7 @@ class ADFVariant:
             measurements, torch.Generator().manual_seed(0), record)
         solver.check_every = ("device" if check_every == "device"
                               else max(1, int(check_every)))
+        solver.mesh = mesh
         if adaptive:
             residual = solver._solve_adaptive_device()
             write_back()
@@ -198,6 +203,7 @@ class _InternalSolver:
         self.last_residual = 1.0
         self.history: List[float] = []
         self.check_every: Union[int, str] = 1
+        self.mesh = None
 
     def _onehots(self):
         if self.rank_one:
@@ -230,6 +236,7 @@ class _InternalSolver:
         res_dec = [0.0, 0.0, 0.0, 0.0]
         K = self.check_every
         nv = self.norm_values
+        mesh = None if self.rank_one else self.mesh
         while self.v.maxIterations == 0 or self.iteration < self.v.maxIterations:
             if K == "device":
                 remaining = (self.v.maxIterations - self.iteration
@@ -239,7 +246,7 @@ class _InternalSolver:
                     self._scalar(self.v.targetResidualNorm * nv),
                     self._scalar(self.v.minimalResidualNormDecrease),
                     self._scalar(res_dec), self._scalar(self.residual_norm * nv),
-                    remaining, CAP, self.rank_one)
+                    remaining, CAP, self.rank_one, mesh)
                 for rv in hist[:cnt].tolist():
                     self._record(rv)
                     ratio = min(self.residual_norm
@@ -249,9 +256,13 @@ class _InternalSolver:
                     break      # the stop condition fired
                 continue       # hit the dispatch cap: dispatch again
             if K > 1:
-                cores, hist = ak.adf_multi_iteration(cores, onehots,
-                                                     self.values, K,
-                                                     self.rank_one)
+                if mesh is not None:
+                    cores, hist = ak.adf_multi_iteration_sharded(
+                        cores, onehots, self.values, K, mesh)
+                else:
+                    cores, hist = ak.adf_multi_iteration(cores, onehots,
+                                                         self.values, K,
+                                                         self.rank_one)
                 stop = False
                 for rv in hist.tolist():
                     self._record(rv)
@@ -266,9 +277,13 @@ class _InternalSolver:
                 if stop:
                     break
                 continue
-            base = (ak._adf_iteration_rankone if self.rank_one
-                    else ak._adf_iteration)
-            new_cores, resid0 = base(cores, onehots, self.values)
+            if mesh is not None:
+                new_cores, resid0 = ak.adf_iteration_sharded(
+                    cores, onehots, self.values, mesh)
+            else:
+                base = (ak._adf_iteration_rankone if self.rank_one
+                        else ak._adf_iteration)
+                new_cores, resid0 = base(cores, onehots, self.values)
             self._record(float(resid0))
             ratio = min(self.residual_norm / (self.last_residual or 1.0), 1.0)
             res_dec = [ratio] + res_dec[:3]

@@ -57,10 +57,14 @@ class UQMeasurementSet:
 
 
 def _uq_iteration(cores: List[torch.Tensor], pos: Sequence[torch.Tensor],
-                  sols: torch.Tensor):
+                  sols: torch.Tensor, reduce=None):
     """One UQ-ADF iteration: canonicalize to site 0, right stacks, then a
     left-to-right sweep of projected-gradient steps with the optimal step
-    size.  Returns (cores, residual norm as a 0-d tensor)."""
+    size.  Returns (cores, residual norm as a 0-d tensor).  With
+    ``reduce``, ``pos`` and ``sols`` hold this rank's block of the samples
+    and ``reduce`` sums each sum over samples across ranks (the mesh
+    path of ``uq_adf``)."""
+    red = (lambda t: t) if reduce is None else reduce
     d = len(cores)
     cores = list(cores)
     for k in range(d - 1, 0, -1):
@@ -75,17 +79,18 @@ def _uq_iteration(cores: List[torch.Tensor], pos: Sequence[torch.Tensor],
                                 right[k + 1])
     X0 = cores[0].reshape(cores[0].shape[1], cores[0].shape[2])
     pred = torch.einsum("nb,mb->mn", X0, right[1])
-    resid = torch.linalg.norm(pred - sols)
+    resid = (torch.linalg.norm(pred - sols) if reduce is None
+             else torch.sqrt(reduce(torch.sum((pred - sols) ** 2))))
 
     left_is = [None] * d
     left_ought = [None] * d
     for k in range(d):
         C = cores[k]
         if k == 0:
-            delta = torch.einsum("mn,mb->nb", pred - sols, right[1]
-                                 ).reshape(C.shape)
+            delta = red(torch.einsum("mn,mb->nb", pred - sols, right[1]
+                                     )).reshape(C.shape)
             tmp = torch.einsum("anb,mb->mn", delta, right[1])
-            norm2 = torch.sum(tmp * tmp)
+            norm2 = red(torch.sum(tmp * tmp))
         else:
             w = pos[k - 1]
             if k < d - 1:
@@ -96,16 +101,17 @@ def _uq_iteration(cores: List[torch.Tensor], pos: Sequence[torch.Tensor],
                 is_part = torch.einsum("mab,mb->ma", left_is[k - 1], is_part)
             diff = is_part - left_ought[k - 1]
             if k < d - 1:
-                delta = torch.einsum("ma,mn,mb->anb", diff, w, right[k + 1])
+                delta = red(torch.einsum("ma,mn,mb->anb", diff, w,
+                                         right[k + 1]))
                 rp = torch.einsum("mn,anb,mb->ma", w, delta, right[k + 1])
             else:
-                delta = torch.einsum("ma,mn->an", diff, w)[:, :, None]
+                delta = red(torch.einsum("ma,mn->an", diff, w))[:, :, None]
                 rp = torch.einsum("mn,anb->ma", w, delta)
             if k > 1:
                 val = torch.einsum("ma,mab,mb->m", rp, left_is[k - 1], rp)
             else:
                 val = torch.einsum("ma,ma->m", rp, rp)
-            norm2 = torch.clamp_min(torch.sum(val), 0.0)
+            norm2 = torch.clamp_min(red(torch.sum(val)), 0.0)
         pyr = torch.sum(delta * delta)
         step = torch.where(norm2 > 0, pyr / torch.clamp_min(norm2, 1e-300),
                            torch.zeros_like(pyr))
@@ -135,9 +141,10 @@ def _uq_iteration(cores: List[torch.Tensor], pos: Sequence[torch.Tensor],
 
 
 def _uq_solve(x: TTTensor, random_variables, solutions,
-              max_iterations: int = 1000) -> None:
+              max_iterations: int = 1000, mesh=None) -> None:
     """Iterate until the residual falls by less than 1% over 9 iterations
-    (or ``max_iterations``); x ends canonicalized at site 0."""
+    (or ``max_iterations``); x ends canonicalized at site 0.  With
+    ``mesh`` each rank sweeps its dp block of the samples."""
     require(len(random_variables) == len(solutions),
             "need one solution per random vector")
     dev, dt = compute_device(), torch_dtype()
@@ -151,9 +158,18 @@ def _uq_solve(x: TTTensor, random_variables, solutions,
          for rv in random_variables]), dtype=dt, device=dev)
         for k in range(1, x.degree())]
     cores = [c._torch() for c in x.components]
+    reduce = None
+    if mesh is not None:
+        from ..parallel.mesh import Axis
+        dp = Axis(mesh, "dp")
+        require(mesh.device_type == dev.type,
+                f"uq_adf: a {mesh.device_type} mesh for tensors on {dev}")
+        pos = [dp.block(p) for p in pos]
+        sols = dp.block(sols)
+        reduce = dp.psum
     residuals = [1000.0] * 10
     for _ in range(max_iterations):
-        cores, resid = _uq_iteration(cores, pos, sols)
+        cores, resid = _uq_iteration(cores, pos, sols, reduce)
         residuals.append(float(resid) / sol_norm)
         if residuals[-1] / residuals[-10] > 0.99:
             break
@@ -165,11 +181,10 @@ def _uq_solve(x: TTTensor, random_variables, solutions,
 def uq_adf(arg1, arg2, solutions=None, max_iterations: int = 1000,
            mesh=None):
     """uq_adf(x, random_variables, solutions) or
-    uq_adf(measurement_set, guess) (uqAdf.h:54-56)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "uq_adf with a mesh (the sample axis sharded over devices) is "
-            "not ported yet (ROADMAP Queue 1 item 9)")
+    uq_adf(measurement_set, guess) (uqAdf.h:54-56).  ``mesh`` (a
+    DeviceMesh with a ``dp`` axis; every rank calls with the same
+    arguments) shards the sample axis over dp: every sum over samples is
+    summed across the ranks and the cores stay replicated."""
     if isinstance(arg1, UQMeasurementSet):
         ms, guess = arg1, arg2
         if ms.initialRandomVectors:
@@ -179,9 +194,9 @@ def uq_adf(arg1, arg2, solutions=None, max_iterations: int = 1000,
         else:
             x = guess.copy()
             rvs, sols = list(ms.randomVectors), list(ms.solutions)
-        _uq_solve(x, rvs, sols, max_iterations)
+        _uq_solve(x, rvs, sols, max_iterations, mesh)
         return x
-    _uq_solve(arg1, arg2, solutions, max_iterations)
+    _uq_solve(arg1, arg2, solutions, max_iterations, mesh)
     return None
 
 

@@ -1,4 +1,5 @@
-"""Builds the hand-written CUDA kernels of xerus_tpu_torch on first use.
+"""Builds the hand-written CUDA kernels of xerus_tpu_torch on first use,
+and the JAX package's host C++ sources the port loads too.
 
 Each kernel source in ``csrc/`` has a plain C interface and is compiled by
 ``nvcc`` into its own shared library, loaded with ctypes.  Libraries go
@@ -6,6 +7,10 @@ into ``xerus_tpu_torch/_build/`` under a name that carries a hash of the
 source and the flags, so an edited source is rebuilt and an unchanged one
 is reused.  A missing ``nvcc`` or a failed compile raises: there is no
 fallback to a plain version.
+
+``native/*.cpp`` (the contraction-path search, the sparse QR) are built
+the same way with g++ and the flags of ``native/Makefile``
+(``build_host_library``), so the port writes nothing under ``native/``.
 """
 
 from __future__ import annotations
@@ -20,6 +25,10 @@ import time
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
+NATIVE_DIR = os.path.join(os.path.dirname(_PKG), "native")
+# native/Makefile's CXXFLAGS and its -shared link
+CXX_FLAGS = ["-O3", "-march=native", "-fPIC", "-std=c++17", "-Wall",
+             "-shared"]
 
 # sm_90a keeps wgmma/setmaxnreg available to later kernels
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -75,3 +84,33 @@ def load_kernel_library(name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(lib_path)
     _loaded[name] = lib
     return lib
+
+
+def host_library_path(name: str) -> str:
+    """Where the library of ``native/<name>.cpp`` at its current content
+    and ``CXX_FLAGS`` lives."""
+    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
+    with open(os.path.join(NATIVE_DIR, name + ".cpp"), "rb") as fh:
+        h.update(fh.read())
+    return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:12]}.so")
+
+
+def build_host_library(name: str) -> str:
+    """Compile ``native/<name>.cpp`` with g++ into ``_build/`` unless the
+    library of its content is there; returns its path.  Raises OSError
+    when there is no g++ or the compile fails."""
+    path = host_library_path(name)
+    if os.path.exists(path):
+        return path
+    src = os.path.join(NATIVE_DIR, name + ".cpp")
+    cxx = shutil.which("g++")
+    if cxx is None:
+        raise OSError(f"no C++ compiler (g++) for {src}")
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    proc = subprocess.run([cxx, *CXX_FLAGS, "-o", tmp, src],
+                          capture_output=True, text=True, timeout=120)
+    if proc.returncode != 0:
+        raise OSError(f"g++ failed on {src}:\n{proc.stderr}")
+    os.replace(tmp, path)
+    return path

@@ -18,13 +18,16 @@ On the card the SVD runs cuSOLVER's gesvd: torch's default CUDA driver
 (gesvdj) left a rounding 140x less accurate.  Least squares is the
 minimum-norm solution through that SVD with ``jnp.linalg.lstsq``'s cutoff
 eps * max(m, n), since torch's CUDA lstsq (gels) assumes full rank.
-Sparse QR/QC/CQ and the sparse solve (the JAX package's native SPQR-style
-route) are not ported yet (ROADMAP Queue 1 item 8) and raise.
+Sparse QR/QC/CQ and the sparse one-right-hand-side solve take the sparse
+QR of ``sparse_qr.py`` (native Givens QR on the host, or one dense QR on
+the compute device for wide rows) and give sparse outputs, densified
+where desirable, as in the JAX package; where it declines (no library, a
+structurally deficient QR, a densifying solve) the dense route runs.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -33,9 +36,7 @@ from ..config import config, require
 from ..misc.performance import pa_section
 from .tensor import Tensor, Representation, _prod
 from .contract import contract
-
-_SPARSE_QR = ("sparse {} is not ported yet (ROADMAP Queue 1 item 8): "
-              "use a dense copy (Tensor.dense_copy())")
+from . import sparse_qr
 
 
 def _split_sizes(t: Tensor, split_pos: int) -> Tuple[int, int, int]:
@@ -121,10 +122,31 @@ def calculate_svd(t: Tensor, split_pos: int, max_rank: int = 0,
     return U, S, Vt
 
 
+def _sparse_factorization_output(t: Tensor, split_pos: int, rank: int,
+                                 lhs_flat, rhs_flat,
+                                 rhs_factor: float) -> Tuple[Tensor, Tensor]:
+    """The (lhs, rhs) sparse tensors of a sparse factorization, each
+    densified where desirable (tensor.cpp:1495-1570 output handling)."""
+    lhs = Tensor(t.dimensions[:split_pos] + [rank], Representation.Sparse)
+    lhs._sparse = lhs_flat
+    rhs = Tensor([rank] + t.dimensions[split_pos:], Representation.Sparse)
+    rhs._sparse = rhs_flat
+    rhs.factor = rhs_factor
+    lhs.use_dense_representation_if_desirable()
+    rhs.use_dense_representation_if_desirable()
+    return lhs, rhs
+
+
 def calculate_qr(t: Tensor, split_pos: int) -> Tuple[Tensor, Tensor]:
     lhs_size, rhs_size, rank = _split_sizes(t, split_pos)
     if t.is_sparse():
-        raise NotImplementedError(_SPARSE_QR.format("QR"))
+        # the SPQR path of tensor.cpp:1495-1503; plain QR must come out
+        # full-rank, structurally deficient inputs take the dense route
+        pos, vals = t.sparse_coo()
+        out = sparse_qr.sparse_qc(pos, vals, lhs_size, rhs_size, 0.0)
+        if out is not None and out[2] == rank:
+            return _sparse_factorization_output(t, split_pos, rank, out[0],
+                                                out[1], t.factor)
     a = _matrix(t, lhs_size, rhs_size)
     with pa_section("Dense LAPACK", "QR Factorisation",
                     f"{lhs_size}x{rhs_size}"):
@@ -155,6 +177,11 @@ def calculate_rq(t: Tensor, split_pos: int) -> Tuple[Tensor, Tensor]:
 _QC_RANK_EPS_MULT = 16.0
 
 
+def _qc_tol() -> float:
+    """The Heath rank tolerance of the sparse QC / CQ: 16 eps."""
+    return _QC_RANK_EPS_MULT * float(np.finfo(config.value_dtype).eps)
+
+
 def _qc_dense_factor(a: torch.Tensor):
     """Rank-revealing split of a dense (lhs, rhs) matrix: returns
     (basis, coeff, rank) with a = basis[:, :rank] @ coeff[:rank] and
@@ -178,10 +205,16 @@ def _revealed_rank(s_host: np.ndarray) -> int:
 
 
 def calculate_qc(t: Tensor, split_pos: int) -> Tuple[Tensor, Tensor]:
-    """Rank-revealing A = Q C, Q with orthonormal columns (tensor.cpp:1528)."""
+    """Rank-revealing A = Q C, Q with orthonormal columns (tensor.cpp:1528).
+    Sparse inputs take the sparse QR with the Heath rank rule
+    |R_jj| >= 16 eps max|R_ii| (tensor.cpp:1532-1539)."""
     lhs_size, rhs_size, _ = _split_sizes(t, split_pos)
     if t.is_sparse():
-        raise NotImplementedError(_SPARSE_QR.format("QC"))
+        pos, vals = t.sparse_coo()
+        out = sparse_qr.sparse_qc(pos, vals, lhs_size, rhs_size, _qc_tol())
+        if out is not None:
+            return _sparse_factorization_output(t, split_pos, out[2], out[0],
+                                                out[1], t.factor)
     a = _matrix(t, lhs_size, rhs_size)
     with pa_section("Dense LAPACK", "QRP Factorisation",
                     f"{lhs_size}x{rhs_size}"):
@@ -198,7 +231,13 @@ def calculate_cq(t: Tensor, split_pos: int) -> Tuple[Tensor, Tensor]:
     """Rank-revealing A = C Q, Q with orthonormal rows (tensor.cpp:1548)."""
     lhs_size, rhs_size, _ = _split_sizes(t, split_pos)
     if t.is_sparse():
-        raise NotImplementedError(_SPARSE_QR.format("CQ"))
+        pos, vals = t.sparse_coo()
+        out = sparse_qr.sparse_cq(pos, vals, lhs_size, rhs_size, _qc_tol())
+        if out is not None:
+            C, Q = _sparse_factorization_output(t, split_pos, out[2],
+                                                out[0], out[1], 1.0)
+            C.factor = t.factor
+            return C, Q
     a = _matrix(t, lhs_size, rhs_size)
     with pa_section("Dense LAPACK", "QRP Factorisation",
                     f"{lhs_size}x{rhs_size}"):
@@ -270,11 +309,21 @@ def _solve_matrix(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return _lstsq(a, b)
 
 
-def _check_sparse_solve(A: Tensor, p: int) -> None:
-    """The JAX package solves a sparse A with one right-hand side through
-    its sparse QR (tensor.cpp:1608-1630): not ported yet."""
-    if A.is_sparse() and p == 1:
-        raise NotImplementedError(_SPARSE_QR.format("solve"))
+def _try_sparse_solve(A: Tensor, B: Tensor, m: int, n: int, p: int,
+                      out_dims) -> Optional[Tensor]:
+    """A sparse A with one right-hand side: the reference's SuiteSparseQR
+    solve (tensor.cpp:1608-1630, cholmod_wrapper.cpp:173-225) on the
+    host.  None where the sparse QR declines (the dense solve runs)."""
+    if not (A.is_sparse() and p == 1):
+        return None
+    pos, vals = A.sparse_coo()
+    b = B._torch(apply_factor=False).cpu().numpy().reshape(m)
+    x = sparse_qr.sparse_solve_ls(pos, vals, m, n, b, float(config.epsilon))
+    if x is None:
+        return None
+    X = Tensor.from_ndarray(x.reshape(out_dims))
+    X.factor = B.factor / A.factor
+    return X
 
 
 def _solve_dims(A: Tensor, B: Tensor, extra_degree: int, what: str):
@@ -285,7 +334,6 @@ def _solve_dims(A: Tensor, B: Tensor, extra_degree: int, what: str):
     m = _prod(A.dimensions[:deg_m])
     n = _prod(A.dimensions[deg_m:])
     p = _prod(B.dimensions[deg_m:])
-    _check_sparse_solve(A, p)
     return m, n, p, A.dimensions[deg_m:] + B.dimensions[deg_m:]
 
 
@@ -299,6 +347,9 @@ def solve(A: Tensor, B: Tensor, extra_degree: int = 0) -> Tensor:
     """Solve A x = b (tensor.cpp:1654-1704).  ``extra_degree`` trailing modes
     of B are independent right-hand sides."""
     m, n, p, out_dims = _solve_dims(A, B, extra_degree, "solve")
+    X = _try_sparse_solve(A, B, m, n, p, out_dims)
+    if X is not None:
+        return X
     x = _solve_matrix(_matrix(A, m, n), _matrix(B, m, p))
     return _solution(x, out_dims, A, B)
 
@@ -306,6 +357,9 @@ def solve(A: Tensor, B: Tensor, extra_degree: int = 0) -> Tensor:
 def solve_least_squares(A: Tensor, B: Tensor, extra_degree: int = 0) -> Tensor:
     """min ||A X - B||_F (tensor.cpp:1583-1652)."""
     m, n, p, out_dims = _solve_dims(A, B, extra_degree, "lstsq")
+    X = _try_sparse_solve(A, B, m, n, p, out_dims)
+    if X is not None:
+        return X
     with pa_section("Dense LAPACK", "Solve Least Squares",
                     f"{m}x{n} * {p}"):
         x = _lstsq(_matrix(A, m, n), _matrix(B, m, p))

@@ -13,49 +13,20 @@ available the search falls back to the pure-Python portfolio
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
 import subprocess
 from typing import List, Optional, Set, Tuple
 
 import numpy as np
 
-from ..build import BUILD_DIR
+from .. import build
 
 _LIB = None
 _TRIED = False
 
-_SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__)))), "native", "pathopt.cpp")
-# native/Makefile's CXXFLAGS and its -shared link
-CXX_FLAGS = ["-O3", "-march=native", "-fPIC", "-std=c++17", "-Wall",
-             "-shared"]
-
 
 def library_path() -> str:
     """Where the library of the current source and flags lives."""
-    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    with open(_SOURCE, "rb") as fh:
-        h.update(fh.read())
-    return os.path.join(BUILD_DIR, f"libpathopt_{h.hexdigest()[:12]}.so")
-
-
-def _build() -> str:
-    path = library_path()
-    if os.path.exists(path):
-        return path
-    cxx = shutil.which("g++")
-    if cxx is None:
-        raise OSError("no C++ compiler (g++) for native/pathopt.cpp")
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    proc = subprocess.run([cxx, *CXX_FLAGS, "-o", tmp, _SOURCE],
-                          capture_output=True, text=True, timeout=120)
-    if proc.returncode != 0:
-        raise OSError(f"g++ failed on {_SOURCE}:\n{proc.stderr}")
-    os.replace(tmp, path)
-    return path
+    return build.host_library_path("pathopt")
 
 
 def _load() -> Optional[ctypes.CDLL]:
@@ -64,7 +35,7 @@ def _load() -> Optional[ctypes.CDLL]:
         return _LIB
     _TRIED = True
     try:
-        lib = ctypes.CDLL(_build())
+        lib = ctypes.CDLL(build.build_host_library("pathopt"))
     except (OSError, subprocess.SubprocessError):
         return None
     lib.pathopt_best_order.restype = ctypes.c_double

@@ -541,8 +541,6 @@ class TensorNetwork:
         t = nf.tensor
         if perm_target != list(range(nf.degree())):
             t = core_reshuffle(t, [perm_target.index(p) for p in range(nf.degree())])
-        if t.is_sparse():
-            t = t.dense_copy()   # no sparse QR route yet (ROADMAP item 8)
         if allow_rank_reduction:
             Q, C = fact.calculate_qc(t, t.degree() - 1)
         else:

@@ -16,7 +16,16 @@ are Python loops that read one stop flag per iteration to the host
 the adaptive run takes its Gaussian vectors from an explicit
 ``torch.Generator`` on the CPU, copied to the cores' device, where the JAX
 package drew them from ``jax.random``; the kicks differ between the
-packages by design.  The mesh-sharded factories are not ported.
+packages by design.
+
+The dp-sharded iterations (``adf_iteration_sharded``,
+``adf_multi_iteration_sharded``, ``adf_device_run(mesh=...)``; point
+measurements only, as in the JAX package) split the measurement axis of
+the one-hots and values over the mesh's ``dp`` axis: each rank sweeps
+its block of measurements and the sums over measurements (the residual,
+the projected gradient, the slice-wise step denominators) are summed
+over dp with one all_reduce each, where the JAX package's GSPMD inserted
+the psums.  Cores stay replicated.
 """
 
 from __future__ import annotations
@@ -54,14 +63,19 @@ def _backward_stacks(cores, onehots, M):
     return B
 
 
-def _pointwise_step(core, onehot, F, B, res):
-    """Projected gradient of one core with slice-wise optimal steps."""
+def _pointwise_step(core, onehot, F, B, res, reduce=None):
+    """Projected gradient of one core with slice-wise optimal steps;
+    ``reduce`` sums a partial sum over measurements across ranks."""
     outer = torch.einsum("m,ma,mb->mab", res, F, B)
     grad_by_slice = torch.einsum("mn,mab->nab", onehot, outer)
+    if reduce is not None:
+        grad_by_slice = reduce(grad_by_slice)
     grad = grad_by_slice.permute(1, 0, 2)
     Ggath = torch.einsum("mn,nab->mab", onehot, grad_by_slice)
     val = torch.einsum("ma,mab,mb->m", F, Ggath, B)
     norms = torch.einsum("mn,m->n", onehot, val * val)
+    if reduce is not None:
+        norms = reduce(norms)
     PyR = torch.sum(grad_by_slice * grad_by_slice, dim=(1, 2))
     alpha = _step_size(PyR, norms)
     return core + alpha[None, :, None] * grad
@@ -76,10 +90,11 @@ def _rankone_step(core, W, F, B, res):
     return core + alpha * grad
 
 
-def _sweep(cores, onehots, values, rank_one, colmask=None):
+def _sweep(cores, onehots, values, rank_one, colmask=None, reduce=None):
     """One left-to-right ADF sweep; (new_cores, residual norm at its
     start).  ``colmask[k]`` re-masks the Q columns of bond k (the padded,
-    rank-masked form)."""
+    rank-masked form); ``reduce`` sums the sums over measurements across
+    ranks (point measurements, ``adf_iteration_sharded``)."""
     d = len(cores)
     M = values.shape[0]
     B = _backward_stacks(cores, onehots, M)
@@ -92,8 +107,13 @@ def _sweep(cores, onehots, values, rank_one, colmask=None):
                             B[cp + 1])
         res = values - pred
         if cp == 0:
-            residual0 = torch.linalg.vector_norm(res)
-        new_core = step(cores[cp], onehots[cp], F, B[cp + 1], res)
+            residual0 = (torch.linalg.vector_norm(res) if reduce is None
+                         else torch.sqrt(reduce(torch.sum(res * res))))
+        if reduce is None:
+            new_core = step(cores[cp], onehots[cp], F, B[cp + 1], res)
+        else:
+            new_core = _pointwise_step(cores[cp], onehots[cp], F,
+                                       B[cp + 1], res, reduce)
         if cp + 1 < d:
             rl, n, rr = new_core.shape
             q, r = torch.linalg.qr(new_core.reshape(rl * n, rr))
@@ -147,6 +167,35 @@ def adf_multi_iteration(cores, onehots, values, k: int,
     return cs, torch.stack(hist)
 
 
+def _dp_measurements(onehots, values, mesh):
+    """This rank's block of the measurement axis and the dp sum."""
+    from ..parallel.mesh import Axis
+    dp = Axis(mesh, "dp")
+    return tuple(dp.block(o) for o in onehots), dp.block(values), dp.psum
+
+
+def adf_iteration_sharded(cores, onehots, values, mesh):
+    """One ADF iteration on point measurements with the measurement axis
+    dp-sharded over ``mesh`` (the JAX package's
+    ``make_adf_iteration_sharded``); every rank passes the same cores,
+    one-hots and values and gets the same (new_cores, residual)."""
+    oh, vals, reduce = _dp_measurements(onehots, values, mesh)
+    return _sweep(cores, oh, vals, False, reduce=reduce)
+
+
+def adf_multi_iteration_sharded(cores, onehots, values, k: int, mesh):
+    """K chained (dp-sharded iteration + left re-canonicalization) steps
+    (``make_adf_multi_iteration_sharded``); returns (cores, history)."""
+    oh, vals, reduce = _dp_measurements(onehots, values, mesh)
+    cs = tuple(cores)
+    hist = []
+    for _ in range(k):
+        out, res = _sweep(cs, oh, vals, False, reduce=reduce)
+        cs = canonicalize_left_cores(out)
+        hist.append(res)
+    return cs, torch.stack(hist)
+
+
 def _ratio(res0, last):
     one = torch.ones_like(res0)
     return torch.minimum(res0 / torch.where(last > 0, last, one), one)
@@ -154,7 +203,7 @@ def _ratio(res0, last):
 
 def adf_device_run(cores, onehots, values, target, min_decrease, res_dec0,
                    last0, remaining: int, max_iters: int,
-                   rank_one: bool = False):
+                   rank_one: bool = False, mesh=None):
     """The fixed-rank ADF solve: (iteration + left re-canonicalization)
     until the start-of-iteration residual drops below ``target`` or the
     product of the last four clamped residual-decrease ratios exceeds
@@ -162,9 +211,17 @@ def adf_device_run(cores, onehots, values, target, min_decrease, res_dec0,
     ``res_dec0`` (4,) and ``last0`` carry the stagnation window in, as the
     JAX while_loop's inputs do.  One host read per iteration.
 
+    With ``mesh`` (point measurements) every iteration is
+    ``adf_iteration_sharded``'s; the flag read is the same on every rank.
+
     Returns (cores, hist, count): hist[i] is the residual norm at the
     start of inner iteration i, valid for i < count."""
     base = _adf_iteration_rankone if rank_one else _adf_iteration
+    if mesh is not None and not rank_one:
+        oh, vals, reduce = _dp_measurements(onehots, values, mesh)
+
+        def base(cs, _oh, _vals):
+            return _sweep(cs, oh, vals, False, reduce=reduce)
     dtype, dev = values.dtype, values.device
     target = torch.as_tensor(target, dtype=dtype, device=dev)
     thresh = torch.as_tensor(min_decrease, dtype=dtype, device=dev) ** 4

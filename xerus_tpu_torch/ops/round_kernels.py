@@ -614,11 +614,85 @@ def sketch_shapes(shapes, target_rank: int, oversample: int):
             for i in range(d - 1)]
 
 
+# Public speed presets of the randomized rounding sweep, exposed through
+# TTNetwork.round_fast(speed=...): the JAX package's table
+# (xerus_tpu/ops/tt_kernels.py:2703).  Guardrail: gram_precision stays
+# >= 'high' whenever the bulk precision is lowered; cholqr1 panel
+# orthogonality degrades as u_gram * kappa^2 and the loss compounds along
+# the chain (the JAX package measured a 4.6x truncation-error blowup at
+# gram='default' on the decaying-spectrum instance).
+SPEED_PRESETS = {
+    "exact": {"precision": None, "gram_precision": None},
+    "bf16_frontier": {"precision": "default", "gram_precision": "high"},
+}
+PRECISIONS = (None, "highest", "high", "default")
+
+
+def _bf16_pass(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """One bf16 GEMM of two bf16 matrices, accumulated and returned in
+    float32: cuBLAS's bf16 GEMM with float32 output on the card (counted
+    in ``_bf16_pass.gemms``), and on the CPU the plain version, a float32
+    product of the bf16 values (their products are exact in float32)."""
+    if a.device.type == "cuda":
+        _bf16_pass.gemms += 1
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+_bf16_pass.gemms = 0
+
+
+def mm_precision(a: torch.Tensor, b: torch.Tensor, precision) -> torch.Tensor:
+    """a @ b of two matrices at one of the JAX package's matmul precisions,
+    per call (torch's global flags stay as ``config`` pins them): None or
+    'highest' multiply in the operands' dtype; 'default' is one bf16 pass
+    (operands rounded to bf16); 'high' is bf16x3, the products hi*hi,
+    hi*lo and lo*hi of the bf16 splits x = hi + lo, each with float32
+    output, summed in float32 (the small terms first).  The result takes
+    a's dtype."""
+    if precision in (None, "highest"):
+        return a @ b
+    if precision not in ("default", "high"):
+        raise ValueError(f"unknown matmul precision {precision!r}")
+    ah, bh = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    out = _bf16_pass(ah, bh)
+    if precision == "high":
+        al = (a - ah.to(a.dtype)).to(torch.bfloat16)
+        bl = (b - bh.to(b.dtype)).to(torch.bfloat16)
+        out = (_bf16_pass(al, bh) + _bf16_pass(ah, bl)) + out
+    return out.to(a.dtype)
+
+
+def _contract(eq: str, x: torch.Tensor, y: torch.Tensor, precision
+              ) -> torch.Tensor:
+    """The randomized sweep's three-index contractions at ``precision``:
+    torch.einsum at full precision, else the same contraction as one 2-D
+    GEMM through ``mm_precision``."""
+    if precision in (None, "highest"):
+        return torch.einsum(eq, x, y)
+    if eq == "anb,bq->anq":
+        a, n, b = x.shape
+        return mm_precision(x.reshape(a * n, b), y, precision).reshape(
+            a, n, -1)
+    if eq == "anq,pnq->ap":
+        return mm_precision(x.reshape(x.shape[0], -1),
+                            y.reshape(y.shape[0], -1).T, precision)
+    if eq == "ka,anb->knb":
+        a, n, b = y.shape
+        return mm_precision(x, y.reshape(a, n * b), precision).reshape(
+            x.shape[0], n, b)
+    if eq == "ank,anb->kb":
+        return mm_precision(x.reshape(-1, x.shape[2]).T,
+                            y.reshape(-1, y.shape[2]), precision)
+    raise ValueError(f"no GEMM form for {eq!r}")
+
+
 def _round_randomized(cores: Sequence[torch.Tensor], target_rank: int,
                       oversample: int, qr_method: str = "householder",
                       precision=None, gram_precision=None,
                       sketches: Optional[Sequence[torch.Tensor]] = None,
-                      generator: Optional[torch.Generator] = None
+                      generator: Optional[torch.Generator] = None,
+                      max_ranks: Optional[Sequence[int]] = None
                       ) -> Tuple[torch.Tensor, ...]:
     """Randomized rounding to a fixed target rank: right-to-left sketch
     build W_i = G_i (x) R_i against a random rank-l TT (l = target +
@@ -630,15 +704,33 @@ def _round_randomized(cores: Sequence[torch.Tensor], target_rank: int,
     them R_i is drawn from ``generator`` (a torch.Generator on the cores'
     device; default seed 0), in the reference's order i = d-2 .. 0.
     ``qr_method``: 'householder', 'cholqr1' (one shifted Gram + Cholesky +
-    triangular solve on tall panels) or 'cholqr1_invl' (the same with
-    L^{-T} formed against the (l, l) identity and applied as a GEMM)."""
-    if precision is not None or gram_precision is not None:
-        raise NotImplementedError(
-            "precision/gram_precision: the SPEED_PRESETS bf16 mapping is "
-            "not ported yet (ROADMAP Queue 1, bench item: the SPEED_PRESETS "
-            "mapping)")
-    if qr_method not in ("householder", "cholqr1", "cholqr1_invl"):
+    triangular solve on tall panels), 'cholqr1_invl' (the same with
+    L^{-T} formed against the (l, l) identity and applied as a GEMM) or
+    'cholqr' (shifted CholeskyQR2 on tall panels, the padded scan's form).
+    ``max_ranks``: a cap on each bond's rank below ``target_rank`` (the
+    logical ranks ``tt_round_randomized_uniform`` returns).
+
+    ``precision`` sets the matmul precision (``mm_precision``) of the bulk
+    GEMMs: sketch build, panel build Y = G W and the projection / carry
+    updates; ``gram_precision`` that of the cholqr1 Gram and of the
+    L^{-T} apply, as in the JAX package (``SPEED_PRESETS``).  A lowered
+    precision runs the sweep in float32, as the JAX package's presets run
+    (its f32 kernel; float64 cores are cast down on the TPU): the
+    Cholesky shift is then set by float32's epsilon, which covers the
+    Gram's bf16x3 error.  The result takes the cores' dtype."""
+    if qr_method not in ("householder", "cholqr", "cholqr1", "cholqr1_invl"):
         raise ValueError(f"unknown qr_method {qr_method!r}")
+    if precision not in PRECISIONS or gram_precision not in PRECISIONS:
+        raise ValueError(f"unknown matmul precision {precision!r} / "
+                         f"{gram_precision!r}")
+    pP, pG = precision, gram_precision
+    if (cores[0].dtype == torch.float64
+            and not {pP, pG} <= {None, "highest"}):
+        out = _round_randomized(
+            [c.float() for c in cores], target_rank, oversample, qr_method,
+            pP, pG, None if sketches is None else
+            [r.float() for r in sketches], generator, max_ranks)
+        return tuple(c.double() for c in out)
     d = len(cores)
     l = target_rank + oversample
     dtype = cores[0].dtype
@@ -660,8 +752,8 @@ def _round_randomized(cores: Sequence[torch.Tensor], target_rank: int,
                           device=dev)
     for i in range(d - 2, -1, -1):
         R = sketches[i].to(dtype) / sqrt_l
-        GW = torch.einsum("anb,bq->anq", cores[i + 1], W[i + 1])
-        Wi = torch.einsum("anq,pnq->ap", GW, R)
+        GW = _contract("anb,bq->anq", cores[i + 1], W[i + 1], pP)
+        Wi = _contract("anq,pnq->ap", GW, R, pP)
         # only the column span of W matters: safe to renormalize
         W[i] = Wi / (torch.linalg.vector_norm(Wi) + TINY)
 
@@ -669,31 +761,41 @@ def _round_randomized(cores: Sequence[torch.Tensor], target_rank: int,
     log_scale = torch.zeros((), dtype=dtype, device=dev)
     carry = None
     for i in range(d - 1):
-        G = out[i] if carry is None else torch.einsum("ka,anb->knb", carry,
-                                                      out[i])
+        G = (out[i] if carry is None
+             else _contract("ka,anb->knb", carry, out[i], pP))
         rl, n, rr = G.shape
-        Y = torch.einsum("anb,bl->anl", G, W[i]).reshape(rl * n, -1)
-        if qr_method != "householder" and rl * n >= Y.shape[1]:
+        Y = _contract("anb,bq->anq", G, W[i], pP).reshape(rl * n, -1)
+        if qr_method == "cholqr" and rl * n >= Y.shape[1]:
+            q = _cholqr2(Y, TINY)
+        elif qr_method != "householder" and rl * n >= Y.shape[1]:
             lc = Y.shape[1]
-            Gm = Y.T @ Y
+            Gm = mm_precision(Y.T, Y, pG)
             shift = (torch.diagonal(Gm).max() * (10 * Y.shape[0] * _eps(dtype))
                      + TINY)
             eye = torch.eye(lc, dtype=dtype, device=dev)
             Lc = _cholesky(Gm + shift * eye)
             if qr_method == "cholqr1_invl":
-                q = Y @ _solve_lower(Lc, eye).T
+                q = mm_precision(Y, _solve_lower(Lc, eye).T, pG)
             else:
                 q = _solve_lower(Lc, Y.T).T
         else:
             q = torch.linalg.qr(Y)[0]
-        k = min(target_rank, q.shape[1])
+        k = min(target_rank if max_ranks is None else max_ranks[i],
+                q.shape[1])
         q = q[:, :k]
         out[i] = q.reshape(rl, n, k)
-        carry = torch.einsum("ank,anb->kb", out[i], G)
+        carry = _contract("ank,anb->kb", out[i], G, pP)
         nrm = torch.linalg.vector_norm(carry) + TINY
         log_scale = log_scale + torch.log(nrm)
         carry = carry / nrm
-    final = torch.einsum("ka,anb->knb", carry, out[d - 1])
+    final = _contract("ka,anb->knb", carry, out[d - 1], pP)
     per_core = torch.exp(log_scale / d)
     return tuple(c * per_core for c in out[:d - 1]) + (final * per_core,)
 
+
+def tt_round_randomized(cores: Sequence[torch.Tensor], target_rank: int,
+                        oversample: int = 8) -> Tuple[torch.Tensor, ...]:
+    """Randomized rounding with Householder panels at full precision (the
+    JAX package's ``tt_round_randomized``, xerus_tpu/ops/tt_kernels.py:
+    2097, which jits ``_round_randomized`` with its default QR)."""
+    return _round_randomized(cores, int(target_rank), int(oversample))

@@ -6,7 +6,8 @@ CholeskyQR3 + Gram-eigh sweep, ``_round_gram_parallel`` and
 ``_round_subspace_parallel`` (every bond truncated at once from the
 interface Gram matrices), ``_round_streaming_scan`` (two-sided sketches,
 generalized Nystrom), their entries ``tt_round_sweep_uniform`` and
-``tt_round_streaming_uniform``, and ``tt_round_eps_fast``.
+``tt_round_streaming_uniform``, ``tt_round_randomized_uniform`` (the
+randomized sweep at logical ranks) and ``tt_round_eps_fast``.
 
 The JAX package ran each form as ``lax.scan``s over a (d, r, n, r)
 zero-padded stack; here each scan is a loop over sites at the padded
@@ -21,6 +22,7 @@ of ``round_kernels``, the same truncation at true shapes.  Cores are
 
 from __future__ import annotations
 
+import math
 from typing import List, Sequence, Tuple
 
 import numpy as np
@@ -481,6 +483,30 @@ def tt_round_streaming_uniform(cores: Sequence[torch.Tensor],
     return res
 
 
+def tt_round_randomized_uniform(cores: Sequence[torch.Tensor],
+                                target_rank: int, oversample: int = 8,
+                                qr_method: str = "householder"
+                                ) -> List[torch.Tensor]:
+    """Randomized rounding to ``target_rank`` with every bond at its
+    logical rank min(target, n_0 ... n_i, n_{i+1} ... n_{d-1}) (the JAX
+    package's entry over ``_round_randomized_scan``).  The scan pads each
+    bond to l = target + oversample, masks the columns past the target and
+    slices back to the logical ranks; here the sweep runs at true shapes
+    and caps each bond at its logical rank, which drops the same
+    directions.  ``qr_method``: 'householder', 'cholqr' (shifted
+    CholeskyQR2) or 'cholqr1' (one shifted pass)."""
+    if qr_method not in ("householder", "cholqr", "cholqr1"):
+        raise ValueError(f"unknown qr_method {qr_method!r}")
+    d = len(cores)
+    if d < 2:
+        return list(cores)
+    dims = [int(c.shape[1]) for c in cores]
+    caps = [min(int(target_rank), math.prod(dims[:i + 1]),
+                math.prod(dims[i + 1:])) for i in range(d - 1)]
+    return list(_round_randomized(cores, int(target_rank), int(oversample),
+                                  qr_method=qr_method, max_ranks=caps))
+
+
 def tt_round_eps_fast(cores: Sequence[torch.Tensor], max_rank: int,
                       eps: float, oversample: int = 8,
                       qr_method: str = "householder") -> List[torch.Tensor]:
@@ -489,7 +515,7 @@ def tt_round_eps_fast(cores: Sequence[torch.Tensor], max_rank: int,
     at true shapes), then the exact eps-truncating svd sweep on the now
     small cores.  Error: eps-optimal on the randomized stage's
     quasi-optimal rank-l image."""
-    mid = list(_round_randomized(cores, int(max_rank), int(oversample),
-                                 qr_method=qr_method))
+    mid = tt_round_randomized_uniform(cores, int(max_rank), int(oversample),
+                                      qr_method=qr_method)
     return tt_round_sweep_uniform(mid, int(max_rank), method="svd",
                                   eps=float(eps))

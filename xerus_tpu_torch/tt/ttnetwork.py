@@ -490,8 +490,6 @@ class TTNetwork:
         require(abs(frm - to) == 1, "transfer_core requires adjacent components")
         cf = self.components[frm]
         ct = self.components[to]
-        if cf.is_sparse():
-            cf = cf.dense_copy()   # no sparse QR route yet (ROADMAP item 8)
         if to > frm:  # left-orthogonalize frm, push factor right
             split = cf.degree() - 1
             if allow_rank_reduction:
@@ -660,14 +658,27 @@ class TTNetwork:
         for the reference's eps-per-edge object semantics
         (ttNetwork.cpp:644-685).
 
-        Every ``speed`` other than 'exact' raises NotImplementedError
-        (ROADMAP Queue 1 item 2b)."""
+        ``speed`` names a preset of ``ops.round_kernels.SPEED_PRESETS``:
+        'exact' (default) keeps every product at the cores' precision;
+        'bf16_frontier' runs the bulk GEMMs of the randomized sweep as one
+        bf16 pass with float32 accumulation and the cholqr1 Gram and
+        orthonormalization at bf16x3 ('high'), never lower (``mm_precision``;
+        on a CUDA tensor these are cuBLAS bf16 GEMMs, on the CPU their plain
+        version).  A speed other than 'exact' needs a randomized method and
+        a uniform int rank, and runs 'randomized_unrolled' (cholqr1
+        panels)."""
         from ..ops import round_kernels as rk
         from ..ops import round_uniform as ru
+        require(speed in rk.SPEED_PRESETS,
+                f"speed must be one of {sorted(rk.SPEED_PRESETS)}")
+        preset = rk.SPEED_PRESETS[speed]
         if speed != "exact":
-            raise NotImplementedError(
-                f"speed={speed!r}: the SPEED_PRESETS mapping is not ported "
-                "yet (ROADMAP Queue 1 item 2b)")
+            require(method in ("randomized", "randomized_unrolled"),
+                    f"speed={speed!r} is a randomized-kernel preset "
+                    "(method='randomized'/'randomized_unrolled')")
+            require(isinstance(max_rank, (int, np.integer)),
+                    f"speed={speed!r} needs a uniform int max_rank")
+            method = "randomized_unrolled"
         require(method in _ROUND_METHODS,
                 f"unknown round_fast method {method!r}")
         rank_vec = None
@@ -712,8 +723,10 @@ class TTNetwork:
             # compile to share), 'randomized_unrolled' cholqr1 panels and
             # with eps > 0 the exact svd-eps sweep on the rounded cores
             qr = "householder" if method == "randomized" else "cholqr1"
-            out = list(rk._round_randomized(cores, max_rank, _OVERSAMPLE,
-                                            qr_method=qr))
+            out = list(rk._round_randomized(
+                cores, max_rank, _OVERSAMPLE, qr_method=qr,
+                precision=preset["precision"],
+                gram_precision=preset["gram_precision"]))
             if eps > 0.0:
                 out = segmented(out, max_rank, eps=eps, method="svd")
         elif method == "streaming":
