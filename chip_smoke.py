@@ -12,11 +12,20 @@ full width:
 - the d=32, rank-30 QTT Poisson mixed-precision ALS solve (f32
   half-sweeps to the f32 plateau, then two double-word half-sweeps), the
   instance of ``bench.py``'s north-star row; kernel K1 (df_matvec) and
-  K1q (df_qr: the CGS2 df QR, one launch per call);
+  K1q (df_qr: the CGS2 df QR, one launch per call), inside the captured
+  programs (``ops/programs.py``: one CUDA graph per half-sweep) that the
+  solve replays: its plain version (``eager=True``), a one-shot solve
+  (the programs' first calls run eagerly), a second that captures, a
+  third that replays and a fourth that replays under torch.profiler, whose
+  K1 and K1q kernels counted on the device are the kernels line's
+  launches; all held bit for bit, with walls, graph nodes, pool memory
+  and the df phase's idle share eager and replayed;
 - TT rounding of ``bench.py``'s workload-1 instance (d=32, n=2, rank 256
   -> 128) and its numerically rank-96 "cliff" variant, deterministic
   (gemm_exact and svd truncation) and randomized (cholqr1); kernel K2
-  (gemm_exact);
+  (gemm_exact); the gemm_exact rounding's Newton-Schulz QR sweep in
+  chunks of masked steps against its per-step loop (host reads,
+  iterations, outputs bit for bit);
 - the rest of TT rounding on the same instance and its f64 LAPACK chain:
   double-word rounding (``tt_round_df_from_f64``: df CholeskyQR with
   CGS2 fallbacks, whose column loops are K1c (df_chol: the df Cholesky's
@@ -32,8 +41,9 @@ full width:
   ``host()``;
 - tensor completion: the d=10, n=4, rank-8 instance from 20,000 samples
   (measure, rank-adaptive ADF solve, test, every entry of the recovered TT
-  and of the truth), benchmark workload 5 on the card and on the CPU, and
-  IHT; kernel K3 (tt_eval);
+  and of the truth; the solve's iteration program replayed and its plain
+  loop, walls, ms per iteration and idle shares), benchmark workload 5 on
+  the card and on the CPU, and IHT; kernel K3 (tt_eval);
 - the object layer in float64 through its public names (no hand kernel:
   torch.matmul and torch.linalg): SVD, QR/RQ/QC/CQ, the Cholesky, LU and
   least-squares solves of ``x(i) << b(j) / A(j, i)``, a contraction and a
@@ -359,57 +369,176 @@ def phase_kernels(dev):
     return max_abs, timing
 
 
-def _solve(d, rank, dev, df_sweeps=DF_SWEEPS):
+def _solve(d, rank, dev, df_sweeps=DF_SWEEPS, eager=False):
     from xerus_tpu_torch.convert import cores_to_df, cores_to_torch
     from xerus_tpu_torch.examples import qtt_poisson_instance
     from xerus_tpu_torch.ops.mixed_precision import als_f32_df_run
     xs, A, b = qtt_poisson_instance(d, rank, SEED)
     inputs = (cores_to_torch(xs, dev), cores_to_torch(A, dev),
               cores_to_torch(b, dev), cores_to_df(A, dev), cores_to_df(b, dev))
-    return (A, b), lambda: als_f32_df_run(*inputs, MAX_F32_SWEEPS, df_sweeps)
+    return (A, b), lambda: als_f32_df_run(*inputs, MAX_F32_SWEEPS, df_sweeps,
+                                          eager=eager)
+
+
+class _ProgramLog:
+    """Keeps the programs (ops/programs.py) captured while it stands."""
+
+    def __enter__(self):
+        from xerus_tpu_torch.ops import programs as pg
+        self.pg, self.real, self.programs = pg, pg.Program._capture, []
+        log = self
+
+        def capture(program, *args):
+            out = log.real(program, *args)
+            log.programs.append(program)
+            return out
+        pg.Program._capture = capture
+        return self
+
+    def __exit__(self, *exc):
+        self.pg.Program._capture = self.real
+
+    def lines(self):
+        return [f"{p.name}: {p.nodes} graph nodes, private pool "
+                f"{p.pool_bytes / 2 ** 20:.1f} MiB reserved, capture and "
+                f"instantiation {p.capture_s:.3f} s"
+                for p in self.programs]
+
+
+def _max_abs_per_core(a, b):
+    import numpy as np
+    return [float(np.max(np.abs(x - y))) for x, y in zip(a, b)]
+
+
+def _kernel_counts(fn, names):
+    """``fn()`` once under torch.profiler (CUDA activity): its result and,
+    for each of ``names``, the device kernels whose name holds it; a kernel
+    replayed in a CUDA graph counts like one launched alone."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA]
+    return out, [sum(n in k for k in kernels) for n in names]
+
+
+# kernel names of K1 and K1q (csrc/df_matvec.cu, csrc/df_qr.cu)
+K1_KERNEL, K1Q_KERNEL = "df_matvec_kernel", "df_qr_kernel"
 
 
 def phase_slice(dev):
-    """The main path at full width, counted and checked."""
+    """The main path at full width, counted and checked: the solve's plain
+    version (``eager=True``) for the comparison, then the solve through
+    the programs four times: the first runs each program eagerly (a
+    one-shot solve; ``programs.EAGER_CALLS``), the second captures them
+    (after one eager warm-up run each, which is its result), the third
+    replays them only and is timed, the fourth replays them under
+    torch.profiler, which counts K1 and K1q by kernel name on the device:
+    those counts go into the kernels line.  Every count is zeroed just
+    before each run and read just after; every run equals the plain
+    version bit for bit (cores and f32 history)."""
     import numpy as np
     import torch
     from xerus_tpu_torch.convert import df_to_numpy
     from xerus_tpu_torch.examples import host_poisson_residual
     from xerus_tpu_torch.ops import df_loops as dl
     from xerus_tpu_torch.ops import mixed_precision as mp
+    from xerus_tpu_torch.ops import programs as pg
     from xerus_tpu_torch.ops.df_matvec import df_matvec
     (A64, b64), run = _solve(D, RANK, dev)
-    torch.cuda.synchronize()
-    df_matvec.launches = dl.df_qr_launch.launches = 0
-    mp.df_qr.calls = 0
-    t0 = time.perf_counter()
-    out, hist, cnt = run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = df_matvec.launches
-    k1q, qr_calls = dl.df_qr_launch.launches, mp.df_qr.calls
-    sol = df_to_numpy(out)
-    if not all(np.all(np.isfinite(c)) for c in sol):
-        raise AssertionError("non-finite cores in the solution")
-    res = host_poisson_residual(sol, A64, b64)
-    print(f"slice d={D} rank={RANK}: host-f64 residual {res:.3e} (bar "
-          f"{RESIDUAL_BAR:g}), f32 half-sweeps {cnt}, df half-sweeps "
-          f"{DF_SWEEPS}, f32 history "
-          f"{[f'{v:.3e}' for v in hist[:cnt].tolist()]}, "
-          f"solve wall {wall:.3f} s ({EAGER_SOLVE_WALL_S:.3f} s with the "
-          f"eager df_qr loop), K1 launches {launches}, df_qr calls "
-          f"{qr_calls}, K1q launches {k1q}")
-    if not res <= RESIDUAL_BAR:
-        raise AssertionError(f"residual {res:.3e} above {RESIDUAL_BAR:g}")
-    if launches != EXPECTED_K1_LAUNCHES:
-        raise AssertionError(f"K1 launched {launches} times in the solve, "
-                             f"expected {EXPECTED_K1_LAUNCHES}")
-    if not k1q == qr_calls == EXPECTED_K1Q_LAUNCHES:
-        raise AssertionError(f"K1q launched {k1q} times for {qr_calls} "
-                             f"df_qr calls, expected "
+    _, run_eager = _solve(D, RANK, dev, eager=True)
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        df_matvec.launches = dl.df_qr_launch.launches = 0
+        mp.df_qr.calls = 0
+        e0, c0, r0 = (pg.Program.eager_runs, pg.Program.captures,
+                      pg.Program.replays)
+        t0 = time.perf_counter()
+        out, hist, cnt = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = (df_matvec.launches, dl.df_qr_launch.launches,
+                  mp.df_qr.calls, pg.Program.captures - c0,
+                  pg.Program.replays - r0, pg.Program.eager_runs - e0)
+        return df_to_numpy(out), hist[:cnt].tolist(), cnt, wall, counts
+
+    eager = counted(run_eager)
+    with _ProgramLog() as log:
+        first = counted(run)
+        second = counted(run)
+    replay = counted(run)
+    profiled, (k1_dev, k1q_dev) = _kernel_counts(
+        lambda: counted(run), (K1_KERNEL, K1Q_KERNEL))
+    names = ("eager", "one-shot (programs run eagerly)",
+             "second call (captures)", "replay", "replay under profiler")
+    runs = (eager, first, second, replay, profiled)
+    for name, (sol, hist, cnt, wall, n) in zip(names, runs):
+        if not all(np.all(np.isfinite(c)) for c in sol):
+            raise AssertionError(f"{name}: non-finite cores in the solution")
+        res = host_poisson_residual(sol, A64, b64)
+        print(f"slice d={D} rank={RANK} ({name}): host-f64 residual "
+              f"{res:.3e} (bar {RESIDUAL_BAR:g}), f32 half-sweeps {cnt}, df "
+              f"half-sweeps {DF_SWEEPS}, f32 history "
+              f"{[f'{v:.3e}' for v in hist]}, solve wall {wall:.3f} s "
+              f"({EAGER_SOLVE_WALL_S:.3f} s with the eager df_qr loop), K1 "
+              f"launches {n[0]}, df_qr calls {n[2]}, K1q launches {n[1]}, "
+              f"program eager runs {n[5]}, captures {n[3]}, replays {n[4]}")
+        if not res <= RESIDUAL_BAR:
+            raise AssertionError(f"{name}: residual {res:.3e} above "
+                                 f"{RESIDUAL_BAR:g}")
+        if n[0] != EXPECTED_K1_LAUNCHES:
+            raise AssertionError(f"{name}: K1 launched {n[0]} times in the "
+                                 f"solve, expected {EXPECTED_K1_LAUNCHES}")
+        if not n[1] == n[2] == EXPECTED_K1Q_LAUNCHES:
+            raise AssertionError(f"{name}: K1q launched {n[1]} times for "
+                                 f"{n[2]} df_qr calls, expected "
+                                 f"{EXPECTED_K1Q_LAUNCHES}")
+    if first[4][3:5] != (0, 0) or second[4][3] < 3 or replay[4][3] != 0 \
+            or replay[4][4] != replay[2] + DF_SWEEPS:
+        raise AssertionError(f"programs: the one-shot solve captured "
+                             f"{first[4][3]} and replayed {first[4][4]}, the "
+                             f"second captured {second[4][3]}, the third "
+                             f"captured {replay[4][3]} and replayed "
+                             f"{replay[4][4]} (expected none, every program, "
+                             f"none and every f32 and df half-sweep)")
+    print(f"slice programs: the replay under torch.profiler ran "
+          f"{k1_dev} {K1_KERNEL} and {k1q_dev} {K1Q_KERNEL} kernels on the "
+          f"device (the counters through replays: {profiled[4][0]} and "
+          f"{profiled[4][1]})")
+    if (k1_dev, k1q_dev) != (EXPECTED_K1_LAUNCHES, EXPECTED_K1Q_LAUNCHES):
+        raise AssertionError(f"the replayed solve ran {k1_dev} K1 and "
+                             f"{k1q_dev} K1q kernels on the device, expected "
+                             f"{EXPECTED_K1_LAUNCHES} and "
                              f"{EXPECTED_K1Q_LAUNCHES}")
-    return (launches, k1q), sol, res, {"hist": hist[:cnt].tolist(),
-                                       "wall": wall}
+    for line in log.lines():
+        print(f"slice programs: {line}")
+    for name, other in zip(names[1:], runs[1:]):
+        diff = _max_abs_per_core(other[0], eager[0])
+        same = other[1] == eager[1] and other[2] == eager[2]
+        print(f"slice programs: {name} vs eager solution: max |diff| "
+              f"{max(diff):.3e} over the {len(diff)} cores, "
+              f"{sum(x > 0 for x in diff)} cores differ, f32 histories "
+              f"equal: {same}")
+        if max(diff) != 0.0 or not same:
+            raise AssertionError(f"slice programs: the {name} solve is not "
+                                 "the eager solve bit for bit")
+    print(f"slice programs: eager wall {eager[3]:.3f} s, one-shot "
+          f"{first[3]:.3f} s, second call {second[3]:.3f} s (eager warm-ups "
+          f"and {sum(p.capture_s for p in log.programs):.3f} s of "
+          f"captures), replay {replay[3]:.3f} s; pool memory "
+          f"{sum(p.pool_bytes for p in log.programs) / 2 ** 20:.1f} MiB in "
+          f"{len(log.programs)} programs, "
+          f"{pg.held_bytes() / 2 ** 20:.1f} MiB held by all live programs")
+    return (k1_dev, k1q_dev), replay[0], host_poisson_residual(
+        replay[0], A64, b64), {"hist": replay[1], "wall": replay[3],
+                               "eager wall": eager[3],
+                               "one-shot wall": first[3],
+                               "capture wall": second[3]}
 
 
 def _device_busy(fn, top: int = 0):
@@ -446,17 +575,18 @@ def _device_busy(fn, top: int = 0):
 
 
 def phase_breakdown(dev, smi):
-    """Where the solve's time goes: a second full solve (K1q's inputs
-    recorded, one call per shape), then the f32 phase alone
-    (df_sweeps=0); the df phase is the difference.  The df half-sweeps
-    alone, from the f32 phase's seed, under torch.profiler give the
-    device's idle share there.  K1q is held on the recorded inputs against
-    its plain version and float64 (``_loop_checks``).  Returns K1q's rows
-    and its max |kernel - plain|."""
+    """Where the solve's time goes: the solve's plain version again (K1q's
+    inputs recorded, one call per shape), then the f32 phase alone
+    (df_sweeps=0, replayed programs); the df phase is the difference.  The
+    df half-sweeps alone, from the f32 phase's seed, under torch.profiler,
+    eagerly and replayed, give the device's idle share there.  K1q is held
+    on the recorded inputs against its plain version and float64
+    (``_loop_checks``).  Returns K1q's rows and its max |kernel -
+    plain|."""
     import torch
     from xerus_tpu_torch.convert import cores_to_df
     from xerus_tpu_torch.ops import mixed_precision as mp
-    _, run_all = _solve(D, RANK, dev)
+    _, run_all = _solve(D, RANK, dev, eager=True)
     (A64, b64), run_f32 = _solve(D, RANK, dev, df_sweeps=0)
 
     def timed(name, run):
@@ -469,17 +599,20 @@ def phase_breakdown(dev, smi):
 
     rec = _LoopRecorder()
     with rec:
-        timed("full solve (repeat)", run_all)
-    seed = timed("f32 phase alone", run_f32)[0]
+        timed("full solve (repeat, eager)", run_all)
+    seed = timed("f32 phase alone (replayed)", run_f32)[0]
     A_df, b_df = cores_to_df(A64, dev), cores_to_df(b64, dev)
-    wall, busy, kernels = _device_busy(
-        lambda: mp.df_als_multi_sweep(seed, A_df, b_df, DF_SWEEPS))
-    idle = "not measured (the profiler saw no device time)" if busy is None \
-        else f"{1.0 - busy / wall:.3f}"
-    print(f"breakdown: df phase alone ({DF_SWEEPS} df half-sweeps from the "
-          f"f32 phase's seed) {wall:.3f} s wall under torch.profiler, "
-          f"{kernels} kernels, device busy {busy if busy is None else round(busy, 4)} s, "
-          f"idle share {idle}")
+    for name, eager in (("eager", True), ("replayed", False)):
+        wall, busy, kernels = _device_busy(
+            lambda: mp.df_als_multi_sweep(seed, A_df, b_df, DF_SWEEPS,
+                                          eager=eager))
+        idle = ("not measured (the profiler saw no device time)"
+                if busy is None else f"{1.0 - busy / wall:.3f}")
+        print(f"breakdown: df phase alone, {name} ({DF_SWEEPS} df "
+              f"half-sweeps from the f32 phase's seed) {wall:.3f} s wall "
+              f"under torch.profiler, {kernels} kernels, device busy "
+              f"{busy if busy is None else round(busy, 4)} s, idle share "
+              f"{idle} ({smi})")
     rows, max_abs, fails = _loop_checks(rec, "Poisson")
     k = rows["df_qr"][(60, 30)]
     print(f"breakdown: df_qr (60, 30) {k['ms']:.4f} ms per call (K1q, CUDA "
@@ -793,6 +926,7 @@ def phase_round_slice(dev):
             if method != "randomized" and not rel <= ROUND_F64_BAR:
                 raise AssertionError(f"round {inst} {method}: log-norm rel "
                                      f"err {rel:.3e} above {ROUND_F64_BAR:g}")
+        _ns_loops(inst, cores, lnorm["gemm_exact"])
         d_ge = abs(lnorm["gemm_exact"] - lnorm["svd"]) / abs(lnorm["svd"])
         print(f"round {inst}: gemm_exact vs svd log-norm rel diff "
               f"{d_ge:.3e} (bar {GE_VS_SVD_BAR:g}); wall gemm_exact "
@@ -810,6 +944,74 @@ def phase_round_slice(dev):
     return k2_launches, refs["random"], ge_f32, {
         "host": host, "chain": chains["random"], "ref": refs["random"],
         "svd_f32_rel": f32_rel["random", "svd"]}
+
+
+class _Forward:
+    """Stands in for ``_ns_orth_cols`` in ops/round_kernels.py: calls
+    ``fn`` and records each call's Newton-Schulz count; ``iterations`` is
+    the real function's counter."""
+
+    def __init__(self, real, fn):
+        self.real, self.fn, self.counts = real, fn, []
+
+    @property
+    def iterations(self):
+        return self.real.iterations
+
+    @iterations.setter
+    def iterations(self, n):
+        self.real.iterations = n
+
+    def __call__(self, *args, **kw):
+        n0 = self.real.iterations
+        out = self.fn(*args, **kw)
+        self.counts.append(self.real.iterations - n0)
+        return out
+
+
+def _ns_loops(inst, cores, lnorm):
+    """The gemm_exact rounding with the QR sweep's Newton-Schulz loop in
+    chunks of ``NS_CHUNK`` masked steps (one host read each) and with the
+    per-step loop (one read per step): outputs bit for bit, iterations
+    call by call, K2 launches and fallbacks, host reads and walls."""
+    import numpy as np
+    import torch
+    from xerus_tpu_torch.examples import host_tt_log_norm
+    from xerus_tpu_torch.ops import gemm_exact as ge
+    from xerus_tpu_torch.ops import round_kernels as rk
+    real = rk._ns_orth_cols
+    runs = {}
+    for name, fn in (("chunked", real), ("per-step",
+                                         rk._ns_orth_cols_stepwise)):
+        rk._ns_orth_cols = _Forward(real, fn)
+        try:
+            torch.cuda.synchronize()
+            ge.reset_counters()
+            reads0 = rk.host_bool.reads
+            t0 = time.perf_counter()
+            out = _round("gemm_exact", cores)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            runs[name] = (_to_host(out), rk.host_bool.reads - reads0, wall,
+                          rk._ns_orth_cols.counts,
+                          ge.gemm_exact_kernel.launches,
+                          ge.trunc_step_gemm_exact.svd_fallbacks)
+        finally:
+            rk._ns_orth_cols = real
+    (h0, r0, w0, c0, k0, f0), (h1, r1, w1, c1, k1, f1) = runs.values()
+    same = all(np.array_equal(a, b) for a, b in zip(h0, h1))
+    ln = host_tt_log_norm(h0)
+    print(f"round {inst} gemm_exact Newton-Schulz QR sweep: chunks of "
+          f"{rk.NS_CHUNK} steps {r0} host reads, {w0:.4f} s; per-step loop "
+          f"{r1} host reads, {w1:.4f} s; iterations {sum(c0)} / {sum(c1)} "
+          f"over {len(c0)} calls (per call {c0}); outputs bitwise equal "
+          f"{same}; K2 launches {k0} / {k1}, fallbacks {f0} / {f1}; "
+          f"log-norm {ln:.9f} (the counted run's {lnorm:.9f}, diff "
+          f"{abs(ln - lnorm):.3e})")
+    if not (same and c0 == c1 and k0 == k1 == EXPECTED_K2_LAUNCHES
+            and f0 == f1 == 0):
+        raise AssertionError(f"round {inst}: the chunked Newton-Schulz "
+                             "loop differs from the per-step loop")
 
 
 # the rest of TT rounding (phase_rounding_rest): double-word rounding on
@@ -1880,9 +2082,61 @@ def phase_completion_slice(dev):
         raise AssertionError(f"K3 launched {launches} times in the "
                              f"completion path, expected "
                              f"{EXPECTED_K3_LAUNCHES}")
+    _adf_programs(inst, dev, out, wall)
     return launches, {"residual": out.residual, "iterations": out.iterations,
                       "ranks": out.ranks, "grid error": grid_err,
                       "wall": wall}
+
+
+def _adf_programs(inst, dev, out, wall):
+    """The d=10 solve again with its iteration program replayed (the main
+    path's run ran it eagerly ``programs.EAGER_CALLS`` times, then captured
+    it) and eagerly (the plain loop of ``adf_adaptive_run``,
+    ``eager=True``): iterations, ranks, histories and cores equal to the
+    main path's bit for bit, walls and ms per iteration; then 20
+    iterations of each under torch.profiler for the device's idle
+    share."""
+    import functools
+    import torch
+    from xerus_tpu_torch.ops import adf_kernels as ak
+    real = ak.adf_adaptive_run
+
+    def run(eager, iterations=2000):
+        ak.adf_adaptive_run = functools.partial(real, eager=eager)
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            o = _adf(inst, dev, iterations)
+            torch.cuda.synchronize()
+            return o, time.perf_counter() - t0
+        finally:
+            ak.adf_adaptive_run = real
+
+    runs = {"main path's run (captures)": (out, wall),
+            "replay": run(False), "eager": run(True)}
+    for name, (o, w) in runs.items():
+        hist_diff = max(abs(a - b) for a, b in zip(o.history, out.history))
+        cores_equal = all(torch.equal(a, b) for a, b in zip(o.cores,
+                                                             out.cores))
+        print(f"completion programs: {name} {w:.3f} s, {o.iterations} "
+              f"iterations ({w / o.iterations * 1e3:.3f} ms each), ranks "
+              f"{o.ranks}, residual {o.residual:.6e}; against the main "
+              f"path's run: max |history diff| {hist_diff:.3e}, cores "
+              f"bitwise equal {cores_equal}")
+        if o.iterations != out.iterations or o.ranks != out.ranks \
+                or hist_diff != 0.0 or not cores_equal:
+            raise AssertionError(f"completion {name}: iterations, ranks, "
+                                 "history or cores differ from the main "
+                                 "path's run")
+    for eager in (True, False):
+        w, busy, kernels = _device_busy(lambda: run(eager, 20))
+        idle = ("not measured (the profiler saw no device time)"
+                if busy is None else f"{1.0 - busy / w:.3f}")
+        print(f"completion programs: 20 iterations "
+              f"{'eager' if eager else 'replayed'} under torch.profiler "
+              f"{w:.3f} s wall, {kernels} kernels, device busy "
+              f"{busy if busy is None else round(busy, 4)} s, idle share "
+              f"{idle}")
 
 
 def phase_iht(dev):

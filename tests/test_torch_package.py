@@ -201,12 +201,11 @@ def _jax_package_top_level_names(package=("xerus_tpu",)):
 
 
 # names of xerus_tpu.ops the port leaves out by design (ROADMAP Queue 1):
-# the jit factories and the timed loop (the port compiles nothing), the
-# Pallas entries (their port is tt_eval_at_points and df_matvec)
+# the rounding's padded-scan factories and the timed loop, the Pallas
+# entries (their port is tt_eval_at_points and df_matvec)
 OPS_BY_DESIGN = {"make_round_sweep", "make_round_sweep_scan",
-                 "make_als_sweep_res", "make_als_multi_sweep_res",
-                 "make_als_sweep", "make_adf_iteration", "make_timed_loop",
-                 "tt_eval_at_points_pallas", "pallas_df_matvec"}
+                 "make_timed_loop", "tt_eval_at_points_pallas",
+                 "pallas_df_matvec"}
 
 
 def test_missing_top_level_names_are_roadmaps_list():

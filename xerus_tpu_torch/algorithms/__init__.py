@@ -40,7 +40,8 @@ def als_spd_fused(A, x, b, max_f32_sweeps: int = 16, df_sweeps: int = 2):
     (``ops/mixed_precision.als_f32_df_run``): float32 half-sweeps to the
     float32 plateau, then ``df_sweeps`` double-word half-sweeps, whose
     refinement residuals of the large local systems run kernel K1 on the
-    card.  Symmetric operators only (Cholesky local solves; ``ALS_SPD``
+    card; each half-sweep is a replay of a captured program there
+    (``ops/programs.py``) once its shape key has run eagerly twice.  Symmetric operators only (Cholesky local solves; ``ALS_SPD``
     picks LU for general ones).  ``x`` is not changed.  Returns (solution
     TTTensor, float32 residual history)."""
     require(A.is_symmetric(),

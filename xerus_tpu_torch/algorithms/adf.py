@@ -16,7 +16,10 @@ card unless the caller entered ``host()``, ``ops/adf_kernels.py``).
 residual after every iteration, K chains K iterations between reads, and
 ``"device"`` runs a whole fixed-rank solve (or, with ranks below
 ``max_ranks``, the whole rank-adaptive solve) with one stop-flag read per
-iteration and no other host decision.  With the other drivers the ranks
+iteration and no other host decision; on the card each of its iterations
+is one replay of a captured CUDA graph (``ops/programs.py``), after
+``programs.EAGER_CALLS`` eager iterations and the one that captures it.
+With the other solvers the ranks
 grow in the object layer: between fixed-rank solves, x gets a random
 rank-1 kick and ``TTTensor.round`` to the maximal ranks.
 

@@ -11,7 +11,9 @@ reference's single configurable engine (include/xerus/algorithms/als.h:
   on the normal equations A^T A x = A^T b (choose_energy_functional,
   als.cpp:255-300).
 * Single-site solves with an operator take the whole-sweep drivers of
-  ``ops/als_kernels.py`` on the components' tensors (``_solve_fast``);
+  ``ops/als_kernels.py`` on the components' tensors (``_solve_fast``),
+  which replay one captured half-sweep program per half-sweep on the
+  card (``ops/programs.py``);
   the rest runs the generic engine, whose left/right environment caches
   (localOperatorCache / rhsCache, als.cpp:217-253, 340-380) are torch
   tensors updated per step.

@@ -1,9 +1,11 @@
 from . import (adf_kernels, als_kernels, apply_kernels, df32, df_matvec,
                df_rounding, dmrg_kernels, gemm_exact, mixed_precision, ozaki,
-               round_kernels, round_uniform, sparse_kernels, stacking,
-               tt_eval)
+               programs, round_kernels, round_uniform, sparse_kernels,
+               stacking, tt_eval)
+from .adf_kernels import make_adf_iteration
 from .als_kernels import (als_half_sweep_batched, als_sweep_flops,
-                          tt_residual_rel)
+                          make_als_multi_sweep_res, make_als_sweep,
+                          make_als_sweep_res, tt_residual_rel)
 from .apply_kernels import (apply_operator_rounded,
                             apply_operator_rounded_cores)
 from .dmrg_kernels import dmrg_groundstate_fast

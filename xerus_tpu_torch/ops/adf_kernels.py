@@ -12,11 +12,17 @@ the iteration count, would change with it.
 
 The JAX ``while_loop`` solves (``adf_device_run``, ``adf_adaptive_run``)
 are Python loops that read one stop flag per iteration to the host
-(``round_kernels.host_bool``, which counts its reads).  The rank bump of
-the adaptive run takes its Gaussian vectors from an explicit
-``torch.Generator`` on the CPU, copied to the cores' device, where the JAX
-package drew them from ``jax.random``; the kicks differ between the
-packages by design.
+(``round_kernels.host_bool``, which counts its reads); each iteration,
+with the left re-canonicalization, the stagnation window and the stop
+flag, is one replay of a captured program (``ops/programs.py``; eager on
+the CPU, and on the card where the caller passes ``eager=True``).  The
+adaptive run's program works at the padded ``caps`` shapes with the bond
+masks as device inputs, so one capture serves every rank level.  The rank
+bump of the adaptive run, outside the program, takes its Gaussian vectors
+from an explicit ``torch.Generator`` on the CPU, copied to the cores'
+device, where the JAX package drew them from ``jax.random``; the kicks
+differ between the packages by design.  The dp-sharded run stays eager
+(its all_reduces are not captured).
 
 The dp-sharded iterations (``adf_iteration_sharded``,
 ``adf_multi_iteration_sharded``, ``adf_device_run(mesh=...)``; point
@@ -30,11 +36,13 @@ the psums.  Cores stay replicated.
 
 from __future__ import annotations
 
+from functools import lru_cache, partial
 from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F_nn
 
+from .programs import Program, call, factory
 from .round_kernels import host_bool
 
 Cores = Tuple[torch.Tensor, ...]
@@ -167,6 +175,24 @@ def adf_multi_iteration(cores, onehots, values, k: int,
     return cs, torch.stack(hist)
 
 
+@factory(32)
+def make_adf_iteration(shapes_key, dtype_str: str, rank_one: bool = False
+                       ) -> Program:
+    """One ADF iteration as a program: (cores, onehots, values) ->
+    (new_cores, residual norm at its start)."""
+    return Program(_adf_iteration_rankone if rank_one else _adf_iteration,
+                   "adf_iteration")
+
+
+@factory(32)
+def make_adf_multi_iteration(shapes_key, dtype_str: str, k: int,
+                             rank_one: bool = False) -> Program:
+    """``adf_multi_iteration`` as one program: (cores, onehots, values)
+    -> (cores after k iterations, (k,) history)."""
+    return Program(partial(adf_multi_iteration, k=k, rank_one=rank_one),
+                   f"adf_multi_iteration[{k}]")
+
+
 def _dp_measurements(onehots, values, mesh):
     """This rank's block of the measurement axis and the dp sum."""
     from ..parallel.mesh import Axis
@@ -201,46 +227,85 @@ def _ratio(res0, last):
     return torch.minimum(res0 / torch.where(last > 0, last, one), one)
 
 
+def _device_step(cores, onehots, values, res_dec, last, target, thresh,
+                 rank_one: bool = False, base=None):
+    """One iteration of the fixed-rank solve: (iteration + left
+    re-canonicalization), the stagnation window and the stop flag.
+    Returns (cores, res0, res_dec, stop); ``base`` replaces the iteration
+    (the dp-sharded one)."""
+    if base is None:
+        base = _adf_iteration_rankone if rank_one else _adf_iteration
+    new, res0 = base(cores, onehots, values)
+    cs = canonicalize_left_cores(new)
+    res_dec = torch.cat([_ratio(res0, last)[None], res_dec[:3]])
+    stop = (res0 < target) | (torch.prod(res_dec) > thresh)
+    return cs, res0, res_dec, stop
+
+
+@factory(32)
+def _make_device_step(shapes_key, dtype_str: str, rank_one: bool) -> Program:
+    return Program(partial(_device_step, rank_one=rank_one),
+                   "adf_device_step")
+
+
 def adf_device_run(cores, onehots, values, target, min_decrease, res_dec0,
                    last0, remaining: int, max_iters: int,
-                   rank_one: bool = False, mesh=None):
+                   rank_one: bool = False, mesh=None, eager: bool = False):
     """The fixed-rank ADF solve: (iteration + left re-canonicalization)
     until the start-of-iteration residual drops below ``target`` or the
     product of the last four clamped residual-decrease ratios exceeds
     ``min_decrease**4``, at most min(max_iters, remaining) iterations.
     ``res_dec0`` (4,) and ``last0`` carry the stagnation window in, as the
-    JAX while_loop's inputs do.  One host read per iteration.
+    JAX while_loop's inputs do.  Each iteration is one replay of a
+    captured program (``eager``: its function, run eagerly); one host read
+    per iteration.
 
     With ``mesh`` (point measurements) every iteration is
-    ``adf_iteration_sharded``'s; the flag read is the same on every rank.
+    ``adf_iteration_sharded``'s, run eagerly; the flag read is the same on
+    every rank.
 
     Returns (cores, hist, count): hist[i] is the residual norm at the
     start of inner iteration i, valid for i < count."""
-    base = _adf_iteration_rankone if rank_one else _adf_iteration
-    if mesh is not None and not rank_one:
-        oh, vals, reduce = _dp_measurements(onehots, values, mesh)
-
-        def base(cs, _oh, _vals):
-            return _sweep(cs, oh, vals, False, reduce=reduce)
     dtype, dev = values.dtype, values.device
     target = torch.as_tensor(target, dtype=dtype, device=dev)
     thresh = torch.as_tensor(min_decrease, dtype=dtype, device=dev) ** 4
     res_dec = torch.as_tensor(res_dec0, dtype=dtype, device=dev)
     last = torch.as_tensor(last0, dtype=dtype, device=dev)
+    onehots = tuple(onehots)
+    if mesh is not None and not rank_one:
+        oh, vals, reduce = _dp_measurements(onehots, values, mesh)
+
+        def base(cs, _oh, _vals):
+            return _sweep(cs, oh, vals, False, reduce=reduce)
+
+        def step(*args):
+            return _device_step(*args, base=base)
+    else:
+        def step(*args):
+            return call(_make_device_step, args, rank_one, eager=eager)
     limit = min(int(max_iters), int(remaining))
     hist = torch.full((max_iters,), -1.0, dtype=dtype, device=dev)
     cs = tuple(cores)
     i = 0
     while i < limit:
-        new, res0 = base(cs, onehots, values)
-        cs = canonicalize_left_cores(new)
+        cs, res0, res_dec, stop = step(cs, onehots, values, res_dec, last,
+                                       target, thresh)
         hist[i] = res0
-        res_dec = torch.cat([_ratio(res0, last)[None], res_dec[:3]])
         last = res0
         i += 1
-        if host_bool((res0 < target) | (torch.prod(res_dec) > thresh)):
+        if host_bool(stop):
             break
     return cs, hist, i
+
+
+@lru_cache(maxsize=32)
+def make_adf_device_run(shapes_key, dtype_str: str, max_iters: int,
+                        rank_one: bool = False, mesh=None):
+    """``adf_device_run`` with its static arguments bound: (cores,
+    onehots, values, target, min_decrease, res_dec0, last0, remaining) ->
+    (cores, hist, count)."""
+    return partial(adf_device_run, max_iters=max_iters, rank_one=rank_one,
+                   mesh=mesh)
 
 
 def _bond_masks(ranks: Sequence[int], caps: Sequence[int], device
@@ -249,6 +314,13 @@ def _bond_masks(ranks: Sequence[int], caps: Sequence[int], device
     the padded bond sizes)."""
     return [torch.arange(c, device=device) < int(ranks[k])
             for k, c in enumerate(caps)]
+
+
+def _colmasks(ranks: Sequence[int], caps: Sequence[int], device, dtype
+              ) -> Tuple[torch.Tensor, ...]:
+    """``_bond_masks`` in ``dtype``: the masks the Q columns are multiplied
+    by."""
+    return tuple(m.to(dtype) for m in _bond_masks(ranks, caps, device))
 
 
 def _adf_iteration_masked(cores, onehots, values, ranks, caps, dtype,
@@ -262,22 +334,48 @@ def _adf_iteration_masked(cores, onehots, values, ranks, caps, dtype,
     completes an orthonormal basis in the dead columns), so Q columns are
     re-masked after every factorization.  The matching R rows are zero
     already, so masking is an exact identity on the represented tensor."""
-    colmask = [m.to(dtype) for m in _bond_masks(ranks, caps, values.device)]
+    colmask = _colmasks(ranks, caps, values.device, dtype)
     return _sweep(cores, onehots, values, rank_one, colmask)
 
 
 def _canonicalize_left_masked(cs, ranks, caps, dtype) -> Cores:
     """Right-to-left QR sweep at padded shapes; Q columns re-masked (see
     _adf_iteration_masked)."""
-    bm = _bond_masks(ranks, caps, cs[0].device)
+    return _canonicalize_left_colmask(cs, _colmasks(ranks, caps,
+                                                    cs[0].device, dtype))
+
+
+def _canonicalize_left_colmask(cs, colmask) -> Cores:
+    """``_canonicalize_left_masked`` with the masks given as tensors."""
     cs = list(cs)
     for i in range(len(cs) - 1, 0, -1):
         rl, n, rr = cs[i].shape
         q, r = torch.linalg.qr(cs[i].reshape(rl, n * rr).T)
-        q = q * bm[i - 1].to(dtype)[None, :]
+        q = q * colmask[i - 1][None, :]
         cs[i] = q.T.reshape(q.shape[1], n, rr)
         cs[i - 1] = torch.einsum("anb,bk->ank", cs[i - 1], r.T)
     return tuple(cs)
+
+
+def _adaptive_step(cores, onehots, values, colmask, res_dec, last, target,
+                   thresh, rank_one: bool = False):
+    """One iteration of the rank-adaptive solve at padded shapes: the
+    masked iteration, the masked left canonicalization, the stagnation
+    window and the flags.  Returns (cores, res0, res_dec, flags) with
+    flags = [level stop, converged]."""
+    new, res0 = _sweep(cores, onehots, values, rank_one, colmask)
+    cs = _canonicalize_left_colmask(new, colmask)
+    res_dec = torch.cat([_ratio(res0, last)[None], res_dec[:3]])
+    converged = res0 < target
+    return cs, res0, res_dec, torch.stack(
+        [converged | (torch.prod(res_dec) > thresh), converged])
+
+
+@factory(32)
+def _make_adaptive_step(shapes_key, dtype_str: str, rank_one: bool
+                        ) -> Program:
+    return Program(partial(_adaptive_step, rank_one=rank_one),
+                   "adf_adaptive_step")
 
 
 def _bump_cores(cores, ranks, caps, gs: Sequence[torch.Tensor], scale,
@@ -317,15 +415,21 @@ def _bump_cores(cores, ranks, caps, gs: Sequence[torch.Tensor], scale,
 def adf_adaptive_run(cores, onehots, values, target, min_decrease,
                      ranks0: Sequence[int], last0, remaining: int,
                      max_iters: int, caps: Sequence[int], bump_scale: float,
-                     generator: torch.Generator, rank_one: bool = False):
+                     generator: torch.Generator, rank_one: bool = False,
+                     eager: bool = False):
     """The rank-adaptive ADF solve on cores padded to the ``caps`` rank
     vector, live ranks carried on the host.  The stagnation logic per rank
     level is ``adf_device_run``'s, with the window starting empty; when a
     level stagnates above ``target`` with ranks below ``caps``, a
     scale-``bump_scale*||x||`` rank-1 term goes into the dead pad slots
     (``_bump_cores``, vectors drawn from ``generator``), the window
-    restarts and the loop goes on.  One host read per iteration, one more
-    at each level's end while a bond is below its cap.
+    restarts and the loop goes on.  Each iteration is one replay of a
+    captured program whose bond masks are device inputs, rebuilt after
+    each bump, so every rank level replays the same graph (``eager``: its
+    function run eagerly, the masks built from the host ranks at every
+    iteration).  One host read
+    per iteration, one more at each level's end while a bond is below its
+    cap; the bump runs outside the program.
 
     Returns (cores, ranks, hist, count)."""
     dtype, dev = values.dtype, values.device
@@ -335,30 +439,45 @@ def adf_adaptive_run(cores, onehots, values, target, min_decrease,
     res_dec = values.new_zeros((4,))
     ranks = [int(r) for r in ranks0]
     caps = [int(c) for c in caps]
+    onehots = tuple(onehots)
     limit = min(int(max_iters), int(remaining))
     hist = torch.full((max_iters,), -1.0, dtype=dtype, device=dev)
     cs = tuple(cores)
+    colmask = _colmasks(ranks, caps, dev, dtype)
     i = 0
     while i < limit:
-        new, res0 = _adf_iteration_masked(cs, onehots, values, ranks, caps,
-                                          dtype, rank_one)
-        cs = _canonicalize_left_masked(new, ranks, caps, dtype)
+        masks = _colmasks(ranks, caps, dev, dtype) if eager else colmask
+        cs, res0, res_dec, flags = call(
+            _make_adaptive_step, (cs, onehots, values, masks, res_dec, last,
+                                  target, thresh), rank_one, eager=eager)
         hist[i] = res0
-        res_dec = torch.cat([_ratio(res0, last)[None], res_dec[:3]])
         last = res0
         i += 1
-        converged = res0 < target
-        if not host_bool(converged | (torch.prod(res_dec) > thresh)):
+        if not host_bool(flags[0]):
             continue
-        if all(r >= c for r, c in zip(ranks, caps)) or host_bool(converged):
+        if all(r >= c for r, c in zip(ranks, caps)) or host_bool(flags[1]):
             break
         gs = [torch.randn((c.shape[1],), generator=generator,
                           dtype=torch.float64) for c in cs]
         norm_x = torch.linalg.vector_norm(cs[0])   # left-canonical
         cs, ranks = _bump_cores(cs, ranks, caps, gs, bump_scale * norm_x,
                                 dtype)
+        colmask = _colmasks(ranks, caps, dev, dtype)
         res_dec = torch.zeros_like(res_dec)
     return cs, ranks, hist, i
+
+
+@lru_cache(maxsize=32)
+def make_adf_adaptive_run(shapes_key, dtype_str: str, max_iters: int,
+                          caps: Tuple[int, ...], bump_scale: float,
+                          generator: torch.Generator, rank_one: bool = False):
+    """``adf_adaptive_run`` with its static arguments bound: (cores,
+    onehots, values, target, min_decrease, ranks0, last0, remaining) ->
+    (cores, ranks, hist, count).  The JAX factory's ``seed`` becomes the
+    ``generator`` the bumps draw from."""
+    return partial(adf_adaptive_run, max_iters=max_iters, caps=caps,
+                   bump_scale=bump_scale, generator=generator,
+                   rank_one=rank_one)
 
 
 def build_onehots(positions: torch.Tensor, dims: Sequence[int], dtype

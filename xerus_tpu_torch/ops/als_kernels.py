@@ -5,23 +5,27 @@ The ALS half of ``xerus_tpu/ops/tt_kernels.py`` (``:2138-2710``): the SPD
 half-sweeps ``_als_half_sweep`` / ``_als_half_sweep_rl`` (Cholesky or LU
 local solves), the matrix-free CG half-sweep, the ASD half-sweep, the
 normal-equations half-sweep for general operators, ``_tt_log_norm_qr`` and
-``tt_residual_rel``; then the drivers the JAX package compiled through its
-``make_*`` factories, here plain functions: ``als_sweep``,
-``als_sweep_res``, ``als_multi_sweep_res``, ``als_run``, ``als_run_rev``,
-``als_half_sweep_batched`` and ``als_sweep_flops``.  The JAX package
-traced each half-sweep into one XLA program; here the same einsums, local
-solves and QRs run eagerly on whatever device the cores are on.  Cores
-are (left rank, n, right rank) tensors; operator cores are (left rank, m,
-n, right rank).
+``tt_residual_rel``; the plain loops ``als_sweep``, ``als_sweep_res``,
+``als_multi_sweep_res``, ``als_half_sweep_batched`` and
+``als_sweep_flops``; the factories ``make_als_sweep``,
+``make_als_sweep_res`` and ``make_als_multi_sweep_res``, which return the
+same functions as captured programs (``ops/programs.py``: a CUDA graph per
+shape key on the card, eager on the CPU); and the whole solves
+``als_run`` / ``als_run_rev``, which replay one sweep-and-residual program
+per half-sweep and read the stop flag between them.  Cores are (left
+rank, n, right rank) tensors; operator cores are (left rank, m, n, right
+rank).
 """
 
 from __future__ import annotations
 
 import math
+from functools import partial
 from typing import List, Sequence, Tuple
 
 import torch
 
+from .programs import Program, call, factory
 from .round_kernels import host_bool
 
 Cores = Tuple[torch.Tensor, ...]
@@ -369,9 +373,8 @@ def als_multi_sweep_res(x_cores, A_cores, b_cores, n_half_sweeps: int,
                         spd: bool = True, local_assume: str = "pos"):
     """``n_half_sweeps`` alternating half-sweeps (lr first; general
     operators run the normal-equations sweep each time, as the JAX
-    package does) with the relative residual after each
-    (``make_als_multi_sweep_res``).  Returns (cores, (n,) residuals); x
-    enters canonicalized at site 0."""
+    package does) with the relative residual after each.  Returns (cores,
+    (n,) residuals); x enters canonicalized at site 0."""
     cores, hist = tuple(x_cores), []
     for s in range(n_half_sweeps):
         if spd:
@@ -384,16 +387,72 @@ def als_multi_sweep_res(x_cores, A_cores, b_cores, n_half_sweeps: int,
     return cores, torch.stack(hist)
 
 
-def _run_loop(x_cores, A_cores, b_cores, conv_eps, parity0: int,
-              remaining: int, last0: float, last20: float, max_sweeps: int,
-              sweep_even, sweep_odd):
+def _rev_sweep_res(x_cores, A_cores, b_cores, solver: str):
+    """The left-to-right-only half-sweep of ``solver`` ("nonspd", "asd",
+    "cg") run right to left on the site-reversed system, and the relative
+    residual after it."""
+    body = _sweep_body("lr", spd=(solver != "nonspd"),
+                       solver=solver if solver in ("asd", "cg") else "lapack")
+    out = reverse_tt(body(reverse_tt(x_cores), reverse_op(A_cores),
+                          reverse_tt(b_cores)))
+    return out, tt_residual_rel(out, A_cores, b_cores)
+
+
+# ---------------------------------------------------------------------------
+# The JAX package's factories: the same functions as captured programs
+# ---------------------------------------------------------------------------
+
+@factory(64)
+def make_als_sweep(shapes_key, dtype_str: str, direction: str = "lr",
+                   spd: bool = True, solver: str = "lapack",
+                   local_assume: str = "pos") -> Program:
+    """``als_sweep`` as a program for inputs of ``shapes_key``
+    (``programs.shapes_key(x, A, b)``): (x, A, b) -> cores."""
+    return Program(_sweep_body(direction, spd, solver, local_assume),
+                   f"als_sweep[{direction}]")
+
+
+@factory(64)
+def make_als_sweep_res(shapes_key, dtype_str: str, direction: str = "lr",
+                       spd: bool = True, solver: str = "lapack",
+                       local_assume: str = "pos") -> Program:
+    """``als_sweep_res`` as a program: one half-sweep and the relative
+    residual after it, (x, A, b) -> (cores, 0-d residual), nothing read
+    back."""
+    return Program(partial(als_sweep_res, direction=direction, spd=spd,
+                           solver=solver, local_assume=local_assume),
+                   f"als_sweep_res[{direction}]")
+
+
+@factory(16)
+def make_als_multi_sweep_res(shapes_key, dtype_str: str, n_half_sweeps: int,
+                             spd: bool = True, local_assume: str = "pos"
+                             ) -> Program:
+    """``als_multi_sweep_res`` as one program: (x, A, b) -> (cores, (n,)
+    residuals)."""
+    return Program(partial(als_multi_sweep_res, n_half_sweeps=n_half_sweeps,
+                           spd=spd, local_assume=local_assume),
+                   f"als_multi_sweep_res[{n_half_sweeps}]")
+
+
+@factory(16)
+def _make_rev_sweep_res(shapes_key, dtype_str: str, solver: str) -> Program:
+    """``_rev_sweep_res`` as a program (``als_run_rev``'s odd
+    half-sweeps)."""
+    return Program(partial(_rev_sweep_res, solver=solver),
+                   f"als_rev_sweep_res[{solver}]")
+
+
+def _run_loop(x_cores, conv_eps, parity0: int, remaining: int, last0: float,
+              last20: float, max_sweeps: int, step):
     """The carry protocol of ``make_als_run`` / ``make_als_run_rev``:
-    half-sweep i runs ``sweep_even`` when (parity0 + i) is even, else
-    ``sweep_odd``; after each, the relative residual goes into hist[i] and
-    the two-back stagnation test |last - res| < eps or |last2 - res| < eps
-    decides the stop, at most min(max_sweeps, remaining) half-sweeps.
-    One boolean is read to the host per half-sweep (the JAX package's
-    lax.while_loop kept it on the device)."""
+    half-sweep i is ``step(even, cores)`` with ``even`` true when
+    (parity0 + i) is even, returning (cores, relative residual); the
+    residual goes into hist[i] and the two-back stagnation test
+    |last - res| < eps or |last2 - res| < eps decides the stop, at most
+    min(max_sweeps, remaining) half-sweeps.  One boolean is read to the
+    host per half-sweep (the JAX package's lax.while_loop kept it on the
+    device)."""
     cores = tuple(x_cores)
     ref = cores[0]
     hist = torch.full((max_sweeps,), math.inf, dtype=ref.dtype,
@@ -404,9 +463,7 @@ def _run_loop(x_cores, A_cores, b_cores, conv_eps, parity0: int,
     limit = min(int(max_sweeps), int(remaining))
     i = 0
     while i < limit:
-        sweep = sweep_even if (int(parity0) + i) % 2 == 0 else sweep_odd
-        cores = sweep(cores)
-        res = tt_residual_rel(cores, A_cores, b_cores)
+        cores, res = step((int(parity0) + i) % 2 == 0, cores)
         hist[i] = res
         stop = ((last - res).abs() < eps) | ((last2 - res).abs() < eps)
         last2, last = last, res
@@ -418,7 +475,7 @@ def _run_loop(x_cores, A_cores, b_cores, conv_eps, parity0: int,
 
 def als_run(x_cores, A_cores, b_cores, conv_eps, parity0: int,
             remaining: int, last0: float, last20: float, max_sweeps: int,
-            local_assume: str = "pos"):
+            local_assume: str = "pos", eager: bool = False):
     """The whole fixed-rank SPD ALS solve (``make_als_run``): lr and rl
     half-sweeps alternating by parity, the relative residual after each,
     stopped by the two-back stagnation test or after min(max_sweeps,
@@ -428,34 +485,39 @@ def als_run(x_cores, A_cores, b_cores, conv_eps, parity0: int,
     stagnation history across calls (pass inf on the first); the caller
     calls again while the count equals the bucket ``max_sweeps``.  Returns
     (cores, hist, count): hist is (max_sweeps,), hist[i] the residual after
-    half-sweep i for i < count, inf past it.  Reads one boolean to the host
-    per half-sweep."""
-    return _run_loop(
-        x_cores, A_cores, b_cores, conv_eps, parity0, remaining, last0,
-        last20, max_sweeps,
-        lambda cs: _als_half_sweep(cs, A_cores, b_cores, assume=local_assume),
-        lambda cs: _als_half_sweep_rl(cs, A_cores, b_cores,
-                                      assume=local_assume))
+    half-sweep i for i < count, inf past it.  Each half-sweep is a replay
+    of ``make_als_sweep_res``'s program (on the card; ``eager`` runs its
+    function eagerly instead); one boolean is read to the host per
+    half-sweep."""
+    def step(even, cs):
+        return call(make_als_sweep_res, (cs, A_cores, b_cores),
+                    "lr" if even else "rl", True, "lapack", local_assume,
+                    eager=eager)
+    return _run_loop(x_cores, conv_eps, parity0, remaining, last0, last20,
+                     max_sweeps, step)
 
 
 def als_run_rev(x_cores, A_cores, b_cores, conv_eps, parity0: int,
                 remaining: int, last0: float, last20: float,
-                max_sweeps: int, solver: str = "nonspd"):
+                max_sweeps: int, solver: str = "nonspd", eager: bool = False):
     """``als_run`` for the half-sweeps that exist left to right only
     (``make_als_run_rev``): the normal equations (``solver="nonspd"``),
     ASD (``"asd"``) and matrix-free CG (``"cg"``).  Odd half-sweeps run
-    the lr sweep on the site-reversed system.  Cores enter canonicalized
-    at site 0 and leave with the core at d-1 after an even executed count
-    (parity0 + count), at 0 after an odd one.  Same carry protocol and
-    host reads as ``als_run``."""
-    body = _sweep_body("lr", spd=(solver != "nonspd"),
-                       solver=solver if solver in ("asd", "cg") else "lapack")
-    A_rev, b_rev = reverse_op(A_cores), reverse_tt(b_cores)
-    return _run_loop(
-        x_cores, A_cores, b_cores, conv_eps, parity0, remaining, last0,
-        last20, max_sweeps,
-        lambda cs: body(cs, A_cores, b_cores),
-        lambda cs: reverse_tt(body(reverse_tt(cs), A_rev, b_rev)))
+    the lr sweep on the site-reversed system (``_rev_sweep_res``).  Cores
+    enter canonicalized at site 0 and leave with the core at d-1 after an
+    even executed count (parity0 + count), at 0 after an odd one.  Same
+    carry protocol, programs and host reads as ``als_run``."""
+    spd = solver != "nonspd"
+    lr_solver = solver if solver in ("asd", "cg") else "lapack"
+
+    def step(even, cs):
+        args = (cs, A_cores, b_cores)
+        if even:
+            return call(make_als_sweep_res, args, "lr", spd, lr_solver,
+                        eager=eager)
+        return call(_make_rev_sweep_res, args, solver, eager=eager)
+    return _run_loop(x_cores, conv_eps, parity0, remaining, last0, last20,
+                     max_sweeps, step)
 
 
 def als_half_sweep_batched(x_batch, A_cores, b_batch, direction: str = "lr",

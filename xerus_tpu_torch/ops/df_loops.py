@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from .. import build
+from . import programs
 from .df32 import df_add, df_mul, df_sub
 
 SMEM_MAX = 232_448        # dynamic shared memory a block may opt in to
@@ -291,6 +292,8 @@ def df_trsm_rlt_launch(Ah, Al, Lh, Ll, plan: LoopPlan):
 df_qr_launch.launches = 0
 df_chol_block_launch.launches = 0
 df_trsm_rlt_launch.launches = 0
+for _launch in (df_qr_launch, df_chol_block_launch, df_trsm_rlt_launch):
+    programs.counter(_launch, "launches")
 
 
 # ---------------------------------------------------------------------------

@@ -17,6 +17,7 @@ from functools import lru_cache
 import torch
 
 from .. import build
+from . import programs
 # the plain version: broadcast df products + pairwise tree, in torch
 from .df32 import df_matvec as df_matvec_reference
 
@@ -73,3 +74,5 @@ def df_matvec(Ah, Al, xh, xl):
 
 df_matvec.calls = 0
 df_matvec.launches = 0
+programs.counter(df_matvec, "calls")
+programs.counter(df_matvec, "launches")

@@ -30,7 +30,8 @@ from functools import lru_cache
 import torch
 
 from .. import build
-from .round_kernels import TINY, _eps, _ns_orth_cols, _trunc_step, host_bool
+from .round_kernels import (TINY, _eps, _ns_orth_cols, _ns_orth_cols_stepwise,
+                            _trunc_step, host_bool)
 
 # workspace of one launch: G and G/tr(G) (B, B), six (B, K) bases, the
 # (K, K) Newton-Schulz factor, one (K, M) scratch; the wrapper refuses
@@ -116,8 +117,10 @@ def _gemm_exact_body(cur: torch.Tensor, col_mask: torch.Tensor,
         return W / torch.clamp_min(nrm, TINY)[None, :]
 
     def orth(W):
-        Q, ok = _ns_orth_cols(balance(W) * col_mask[None, :], max_ns,
-                              colmask=col_mask)
+        # the per-step loop: the kernel's steps, no masked ones past the
+        # stop (its count goes to _ns_orth_cols.iterations)
+        Q, ok = _ns_orth_cols_stepwise(balance(W) * col_mask[None, :],
+                                       max_ns, colmask=col_mask)
         return Q * col_mask[None, :], ok
 
     V, _ = orth(V0raw)

@@ -8,14 +8,18 @@ preconditioner inside the refined local solves (``df_als_sweep``,
 ``df_als_multi_sweep``); ``als_f32_df_run``, the whole mixed-precision
 solve (f32 half-sweeps to the f32 plateau, then df half-sweeps); and
 ``als_spd_mixed``, df half-sweeps on TT objects.  The JAX package compiled
-each into one XLA program; here they run eagerly, with one host read per
-odd f32 half-sweep for the stop rule and none in the df phase.  The df
-QR's column loop is one launch of kernel K1q on the card
-(``ops/df_loops.py``).
+each into one XLA program; here each f32 half-sweep with its residual and
+each df half-sweep is one captured program (``make_als_sweep_res``,
+``make_df_als_sweep``; ``ops/programs.py``), replayed on the card and run
+eagerly on the CPU, with one host read per odd f32 half-sweep for the stop
+rule and none in the df phase.  The df QR's column loop is one launch of
+kernel K1q on the card (``ops/df_loops.py``), inside the df half-sweep's
+graph.
 """
 
 from __future__ import annotations
 
+from functools import lru_cache, partial
 from typing import List, Sequence, Tuple
 
 import numpy as np
@@ -24,7 +28,9 @@ import torch
 from .df32 import (DF, df_add, df_matmul, df_matvec, df_mul, df_reduce_sum,
                    df_solve_spd_refined, df_sub, fast_two_sum, two_prod)
 from . import df_loops
-from .als_kernels import _als_half_sweep, _als_half_sweep_rl, tt_residual_rel
+from .als_kernels import make_als_sweep_res
+from . import programs
+from .programs import Program, call, factory
 
 
 # ---------------------------------------------------------------------------
@@ -108,6 +114,7 @@ def df_qr(ah: torch.Tensor, al: torch.Tensor) -> Tuple[DF, DF]:
 
 
 df_qr.calls = 0
+programs.counter(df_qr, "calls")
 
 
 def df_qr_reference(ah: torch.Tensor, al: torch.Tensor) -> Tuple[DF, DF]:
@@ -254,22 +261,65 @@ def _reverse_df(cores: Sequence[DF], op: bool = False) -> Tuple[DF, ...]:
 df_als_sweep = _als_half_sweep_df
 
 
+def _contiguous(cores: Sequence[DF]) -> Tuple[DF, ...]:
+    """Copies with row-major strides, size-1 dimensions' included (which
+    ``Tensor.contiguous`` leaves as they are)."""
+    return tuple((h.clone(memory_format=torch.contiguous_format),
+                  l.clone(memory_format=torch.contiguous_format))
+                 for (h, l) in cores)
+
+
+@factory(16)
+def make_df_als_sweep(shapes_key, dtype_str: str, refine_iters: int = 3
+                      ) -> Program:
+    """One df half-sweep as a program: (x_df, A_df, b_df) -> x_df."""
+    return Program(partial(_als_half_sweep_df, refine_iters=refine_iters),
+                   "df_als_sweep")
+
+
 def df_als_multi_sweep(x_df: Sequence[DF], A_df: Sequence[DF],
                        b_df: Sequence[DF], n_half_sweeps: int,
-                       refine_iters: int = 3) -> Tuple[DF, ...]:
+                       refine_iters: int = 3, eager: bool = False
+                       ) -> Tuple[DF, ...]:
     """``n_half_sweeps`` df half-sweeps alternating direction by site
     reversal (exact transposes), starting left to right; x enters
-    canonicalized at site 0 and leaves unreversed
-    (``make_df_als_multi_sweep``)."""
+    canonicalized at site 0 and leaves unreversed.
+
+    Each half-sweep is one replay of ``make_df_als_sweep``'s program on
+    contiguous chains: the reversed operator and right-hand side are
+    copied once, x after each half-sweep, so a chain whose reversal has
+    its own shapes (the QTT Poisson system's symmetric ranks) replays one
+    graph in both directions.  ``eager`` runs the half-sweeps eagerly on
+    the reversed views instead (the plain version)."""
     x_df, A_df, b_df = tuple(x_df), tuple(A_df), tuple(b_df)
-    for _ in range(n_half_sweeps):
-        x_df = _als_half_sweep_df(x_df, A_df, b_df, refine_iters=refine_iters)
-        x_df = _reverse_df(x_df)
-        A_df = _reverse_df(A_df, op=True)
-        b_df = _reverse_df(b_df)
+    if eager:
+        for _ in range(n_half_sweeps):
+            x_df = _als_half_sweep_df(x_df, A_df, b_df,
+                                      refine_iters=refine_iters)
+            x_df = _reverse_df(x_df)
+            A_df = _reverse_df(A_df, op=True)
+            b_df = _reverse_df(b_df)
+    else:
+        x_df = _contiguous(x_df)
+        chains = ((_contiguous(A_df), _contiguous(b_df)),
+                  (_contiguous(_reverse_df(A_df, op=True)),
+                   _contiguous(_reverse_df(b_df))))
+        for s in range(n_half_sweeps):
+            A, b = chains[s % 2]
+            x_df = _contiguous(_reverse_df(call(
+                make_df_als_sweep, (x_df, A, b), refine_iters)))
     if n_half_sweeps % 2 == 1:
         x_df = _reverse_df(x_df)
     return x_df
+
+
+@lru_cache(maxsize=8)
+def make_df_als_multi_sweep(shapes_key, dtype_str: str, n_half_sweeps: int,
+                            refine_iters: int = 3):
+    """``df_als_multi_sweep`` with its static arguments bound: (x_df,
+    A_df, b_df) -> x_df, one program replay per half-sweep."""
+    return partial(df_als_multi_sweep, n_half_sweeps=n_half_sweeps,
+                   refine_iters=refine_iters)
 
 
 def df_split(t: torch.Tensor) -> DF:
@@ -291,7 +341,7 @@ def df_join(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
 def als_f32_df_run(x32: Sequence[torch.Tensor], A32: Sequence[torch.Tensor],
                    b32: Sequence[torch.Tensor], A_df: Sequence[DF],
                    b_df: Sequence[DF], max_f32_sweeps: int, df_sweeps: int,
-                   refine_iters: int = 3):
+                   refine_iters: int = 3, eager: bool = False):
     """f32 SPD half-sweeps (lr/rl by parity, relative residual after each)
     until the f32 plateau (res > 0.3 * res two sweeps back) or the cap,
     then a df seed (hi = f32 cores, lo = 0) and ``df_sweeps`` df
@@ -303,7 +353,12 @@ def als_f32_df_run(x32: Sequence[torch.Tensor], A32: Sequence[torch.Tensor],
 
     The df phase needs the core at site 0, so both exits of the f32 loop,
     the plateau stop and the cap, land on even counts; the stop rule reads
-    one boolean to the host after each odd half-sweep."""
+    one boolean to the host after each odd half-sweep.  Each f32
+    half-sweep with its residual is a replay of ``make_als_sweep_res``'s
+    program and each df half-sweep of ``make_df_als_sweep``'s (a program's
+    first ``programs.EAGER_CALLS`` calls per shape key run eagerly, the
+    next captures).  ``eager`` runs the same functions eagerly (the plain
+    version)."""
     max_even = max_f32_sweeps - (max_f32_sweeps % 2)
     ref = x32[0]
     hist = torch.full((max_f32_sweeps,), float("inf"), dtype=ref.dtype,
@@ -312,9 +367,8 @@ def als_f32_df_run(x32: Sequence[torch.Tensor], A32: Sequence[torch.Tensor],
     r_prev = r_prev2 = ref.new_full((), float("inf"))
     i = 0
     while i < max_even:
-        sweep = _als_half_sweep if i % 2 == 0 else _als_half_sweep_rl
-        cores = sweep(cores, A32, b32)
-        res = tt_residual_rel(cores, A32, b32)
+        cores, res = call(make_als_sweep_res, (cores, tuple(A32), tuple(b32)),
+                          "lr" if i % 2 == 0 else "rl", eager=eager)
         hist[i] = res
         stop = i % 2 == 1 and bool(res > 0.3 * r_prev2)
         r_prev2, r_prev = r_prev, res
@@ -323,8 +377,17 @@ def als_f32_df_run(x32: Sequence[torch.Tensor], A32: Sequence[torch.Tensor],
             break
 
     x_df = tuple((c, torch.zeros_like(c)) for c in cores)
-    return (df_als_multi_sweep(x_df, A_df, b_df, df_sweeps, refine_iters),
-            hist, i)
+    return (df_als_multi_sweep(x_df, A_df, b_df, df_sweeps, refine_iters,
+                               eager), hist, i)
+
+
+@lru_cache(maxsize=8)
+def make_als_f32_df_run(shapes_key, dtype_str: str, max_f32_sweeps: int,
+                        df_sweeps: int, refine_iters: int = 3):
+    """``als_f32_df_run`` with its static arguments bound: (x32, A32, b32,
+    A_df, b_df) -> (df_cores, f32_hist, f32_count)."""
+    return partial(als_f32_df_run, max_f32_sweeps=max_f32_sweeps,
+                   df_sweeps=df_sweeps, refine_iters=refine_iters)
 
 
 def als_spd_mixed(A, x, b, num_half_sweeps: int = 6) -> List[torch.Tensor]:

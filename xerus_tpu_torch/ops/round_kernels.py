@@ -19,9 +19,13 @@ which counts its reads).  Cores are (left rank, n, right rank) tensors.
 from __future__ import annotations
 
 import numbers
+from functools import partial
 from typing import List, Optional, Sequence, Tuple
 
 import torch
+
+from . import programs
+from .programs import Program, call, factory
 
 TINY = 1e-30
 
@@ -34,6 +38,7 @@ def host_bool(t: torch.Tensor) -> bool:
 
 
 host_bool.reads = 0
+programs.counter(host_bool, "reads", moves=False)
 
 
 def host_float(t: torch.Tensor) -> float:
@@ -41,6 +46,13 @@ def host_float(t: torch.Tensor) -> float:
     ``host_bool.reads``."""
     host_bool.reads += 1
     return float(t)
+
+
+def host_ints(t: torch.Tensor) -> List[int]:
+    """Read a 1-d integer tensor to the host as a list, one read counted
+    in ``host_bool.reads``."""
+    host_bool.reads += 1
+    return [int(v) for v in t.tolist()]
 
 
 def _eps(dtype) -> float:
@@ -197,16 +209,19 @@ def _pad_to(arr: torch.Tensor, shape) -> torch.Tensor:
     return out
 
 
-def _ns_orth_cols(X: torch.Tensor, max_it: int, colmask=None,
-                  tol_mult: float = 64.0):
-    """Column-orthonormalize by scaled Newton-Schulz polar iteration,
-    X <- X (1.5 I - 0.5 X^T X), from the Frobenius prescale; same column
-    space.  Stops when max|X^T X - diag(colmask)| <= tol_mult*eps (one host
-    read per iteration) or after ``max_it`` iterations.  Padded dead
-    columns are exactly zero and stay zero.  Returns (Q, ok) with ok a 0-d
-    bool tensor: False flags a rank-deficient or too ill-conditioned live
-    block.  The Gram of one iteration's check is the next iteration's S,
-    as in the reference's loop (the same product of the same matrix)."""
+# Newton-Schulz steps between two host reads of _ns_orth_cols.  The QR
+# sweep of the d=32 rank-256 rounding runs 31 calls of 6-59 steps, 12 of
+# them 14, and its cliff variant 18 calls that reach the cap of 64 (the
+# same counts on the CPU and on an H100); 16 divides the cap and takes the
+# two roundings' reads from 636 to 88 and from 1,451 to 136 (chip_smoke's
+# "Newton-Schulz QR sweep" lines, NVIDIA H100 80GB HBM3, 700 W).  The
+# chunk is a captured program: run eagerly, its masked steps' launches
+# cost more than the reads they save (0.387 s against the per-step loop's
+# 0.295 s there; captured, 0.262 s against 0.313 s)
+NS_CHUNK = 16
+
+
+def _ns_start(X, colmask, tol_mult):
     dtype = X.dtype
     tol = torch.tensor(tol_mult * _eps(dtype), dtype=dtype, device=X.device)
     alpha = torch.linalg.vector_norm(X) + TINY
@@ -215,7 +230,62 @@ def _ns_orth_cols(X: torch.Tensor, max_it: int, colmask=None,
     target = eye if colmask is None else eye * colmask[None, :]
     X = X / alpha
     S = X.T @ X
-    err = (S - target).abs().max()
+    return X, S, (S - target).abs().max(), tol, eye, target
+
+
+def _ns_chunk(X, S, err, it, tol, eye, target, max_it: int):
+    """``NS_CHUNK`` masked Newton-Schulz steps: a step is active while
+    (err > tol) and (it < max_it); ``torch.where`` keeps X, S and err of
+    the last active one.  Returns (X, S, err, it, [go on, it])."""
+    for _ in range(NS_CHUNK):
+        active = (err > tol) & (it < max_it)
+        Xn = X @ (1.5 * eye - 0.5 * S)
+        Sn = Xn.T @ Xn
+        X = torch.where(active, Xn, X)
+        S = torch.where(active, Sn, S)
+        err = torch.where(active, (Sn - target).abs().max(), err)
+        it = it + active
+    return X, S, err, it, torch.stack(
+        [((err > tol) & (it < max_it)).to(torch.int64), it])
+
+
+@factory(16)
+def _make_ns_chunk(shapes_key, dtype_str: str, max_it: int) -> Program:
+    """``_ns_chunk`` as a captured program (``ops/programs.py``)."""
+    return Program(partial(_ns_chunk, max_it=max_it), "ns_chunk")
+
+
+def _ns_orth_cols(X: torch.Tensor, max_it: int, colmask=None,
+                  tol_mult: float = 64.0):
+    """Column-orthonormalize by scaled Newton-Schulz polar iteration,
+    X <- X (1.5 I - 0.5 X^T X), from the Frobenius prescale; same column
+    space.  Stops when max|X^T X - diag(colmask)| <= tol_mult*eps or after
+    ``max_it`` iterations.  Padded dead columns are exactly zero and stay
+    zero.  Returns (Q, ok) with ok a 0-d bool tensor: False flags a
+    rank-deficient or too ill-conditioned live block.  The Gram of one
+    iteration's check is the next iteration's S, as in the reference's
+    loop (the same product of the same matrix).
+
+    The counterpart of the JAX package's ``lax.while_loop``: chunks of
+    ``NS_CHUNK`` masked steps (``_ns_chunk``, a captured program replayed
+    on the card), with one host read per chunk (the flag and the count).
+    The result and the count equal ``_ns_orth_cols_stepwise``'s bit for
+    bit."""
+    X, S, err, tol, eye, target = _ns_start(X, colmask, tol_mult)
+    it = torch.zeros((), dtype=torch.int64, device=X.device)
+    more = True
+    while more:
+        X, S, err, it, state = call(_make_ns_chunk,
+                                    (X, S, err, it, tol, eye, target), max_it)
+        more, count = host_ints(state)
+    _ns_orth_cols.iterations += count
+    return X, err <= tol
+
+
+def _ns_orth_cols_stepwise(X: torch.Tensor, max_it: int, colmask=None,
+                           tol_mult: float = 64.0):
+    """The plain version of ``_ns_orth_cols``: one host read per step."""
+    X, S, err, tol, eye, target = _ns_start(X, colmask, tol_mult)
     it = 0
     while it < max_it and host_bool(err > tol):
         X = X @ (1.5 * eye - 0.5 * S)
@@ -226,8 +296,10 @@ def _ns_orth_cols(X: torch.Tensor, max_it: int, colmask=None,
     return X, err <= tol
 
 
-# Newton-Schulz iterations run by _ns_orth_cols, all calls
+# Newton-Schulz iterations run by _ns_orth_cols, all calls (its plain
+# version's too)
 _ns_orth_cols.iterations = 0
+programs.counter(_ns_orth_cols, "iterations")
 
 
 def _qr_sweep_segmented(cores: Sequence[torch.Tensor], min_run: int = 3,
