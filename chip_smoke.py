@@ -69,12 +69,21 @@ full width:
   instance through ``xt.ADFVariant`` with K3 counted, workload 5 through
   the host-bump loop, IHT), the largest entry of the d=10 truth against
   its full grid, and UQ-ADF on the card and under ``host()``;
+- K4 and K5 (small_eigh, small_svd: Jacobi eigh and SVD in float64,
+  ``csrc/jacobi.cu``) against their plain versions and torch.linalg at the
+  eigensolver path's shapes and (256, 256), with a penalized Ritz matrix,
+  a rank-deficient split and route gmem bitwise route smem;
 - the eigensolver and the rest of the algorithms layer through the public
   names, in float64: workload 4 (the d=32 Heisenberg chain's ground state
   at max_rank 16) by ``xt.smallest_eigenvalue`` with the dense local eigh
-  and with the card's default Lanczos sweeps, against the recorded CPU
-  energy and residual and the JAX package's CPU Lanczos energy, then at
-  max_rank 32 and 64; ``xt.dmrg_solve``, the fused apply + round on
+  and with the card's default Lanczos sweeps (captured half-sweep
+  programs on K4 and K5: no eigh/svd info check, a replay bitwise its
+  eager run, K4 and K5 counted by kernel name on the device in a replayed
+  solve), against the recorded CPU energy and residual and the JAX
+  package's CPU Lanczos energy, then at max_rank 32 and 64 and as a
+  4-start race; ``dmrg_groundstate_scan`` with the dense local eigh
+  (eager) on the d=6 chain against its exact ground energy;
+  ``xt.dmrg_solve`` (its splits on K5), the fused apply + round on
   slice 2's rank-256 TT, the Riemannian kit, SD, CG,
   ``decomposition_als``, ``randomTTSVD`` and the cascade example on the
   card and under ``host()``;
@@ -160,7 +169,8 @@ EAGER_CGS2_SITES = (7, 23)
 # round, one for the norm
 CLUSTER_BARRIER_US, K1Q_BARRIERS_PER_COLUMN = 0.548, 5
 
-KERNELS = ("df_matvec", "df_qr", "df_chol", "gemm_exact", "tt_eval")
+KERNELS = ("df_matvec", "df_qr", "df_chol", "gemm_exact", "tt_eval",
+           "jacobi")
 
 # rounding: bench.py workload 1
 ROUND_D, ROUND_N, ROUND_RANK, ROUND_TARGET, OVERSAMPLE = 32, 2, 256, 128, 8
@@ -1974,6 +1984,236 @@ def phase_k3(dev):
     return max_abs, timing
 
 
+# K4 and K5 (ops/small_eig.py, csrc/jacobi.cu): Jacobi eigh and SVD in
+# float64 at the eigensolver path's shapes: the Ritz problems (m = 24 for
+# Lanczos, 3 for LOBPCG; batch 4 for the multistart race) and the masked
+# splits (2r, 2r) at max_rank 16 / 32 / 64 and (60, 60) in dmrg_solve at
+# rank 30; then (256, 256), past the path, for the df rounding's eigh seed
+# and SVD.  Each against its plain version, torch.linalg.eigh /
+# svd(driver="gesvd") and its bound; value gaps relative to the largest
+# value, ||Q^T Q - I|| as its largest entry, reconstructions relative in
+# the Frobenius norm, all within JAC_BAR up to n = 128 and JAC_BAR n / 128
+# past it: rounding grows with the rotations a column takes (about
+# sweeps x n; K4's (256, 256) reconstruction 1.339e-13 on an H100)
+JAC_EIGH = [("Ritz, Lanczos", 1, 24), ("Ritz, multistart", 4, 24),
+            ("Ritz, LOBPCG", 1, 3), ("Ritz, LOBPCG multistart", 4, 3),
+            ("past the path", 1, 256)]
+JAC_SVD = [("split, rank 16", 1, 32, 32), ("split, multistart", 4, 32, 32),
+           ("split, rank 32", 1, 64, 64), ("split, rank 64", 1, 128, 128),
+           ("split, dmrg_solve rank 30", 1, 60, 60),
+           ("past the path", 1, 256, 256)]
+JAC_BAR = 1e-13
+# the main shapes of the kernels line: the rank-16 Lanczos solve's
+JAC_MAIN = {"small_eigh": "Ritz, Lanczos", "small_svd": "split, rank 16"}
+# kernel names of K4 and K5 (csrc/jacobi.cu), counted on the device
+K4_KERNEL, K5_KERNEL = "small_eigh_kernel", "small_svd_kernel"
+
+
+def _ritz_matrix(rng, m=24, valid=10):
+    """A Lanczos Ritz matrix as dmrg_kernels._ritz_smallest makes it: a
+    tridiagonal block of ``valid`` steps, the other directions lifted by
+    1e4 (max|T| + 1)."""
+    import numpy as np
+    T = np.zeros((m, m))
+    a, b = rng.standard_normal(valid), rng.random(valid - 1)
+    T[:valid, :valid] = np.diag(a) + np.diag(b, 1) + np.diag(b, -1)
+    return T + np.diag([0.0] * valid + [1e4 * (np.abs(T).max() + 1.0)]
+                       * (m - valid))
+
+
+def _deficient_split(rng, r=16, n=2, right=3):
+    """The (r n, n r) two-site block at a chain's boundary: the left bond
+    of true rank 2 and ``right`` on the right, the padded rows and columns
+    exact zeros; sigma is zero from min(2 n, n right) on."""
+    import numpy as np
+    G = np.zeros((r, n, n, r))
+    G[:2, :, :, :right] = rng.standard_normal((2, n, n, right))
+    return G.reshape(r * n, n * r)
+
+
+def _function_ops(kind, shape):
+    """FP64 operations the function needs, whatever computes it (Golub and
+    Van Loan's counts): a symmetric eigh with its vectors about 9 m^3 a
+    matrix (the symmetric QR algorithm); a thin SVD with U and V of R
+    rows and C <= R columns min(14 R C^2 + 8 C^3, 6 R C^2 + 20 C^3)
+    (Golub-Reinsch or R-SVD).  The bound counts these."""
+    B = shape[0]
+    if kind == "eigh":
+        return B * 9 * shape[1] ** 3
+    R, C = max(shape[1:]), min(shape[1:])
+    return B * min(14 * R * C * C + 8 * C ** 3, 6 * R * C * C + 20 * C ** 3)
+
+
+def _jacobi_ops(kind, shape, h):
+    """FP64 operations Jacobi did in one launch, from its health record
+    ``h``: the pair tests of every sweep, the rotations done, the final
+    norms.  Printed beside the bound, which counts ``_function_ops``."""
+    B = shape[0]
+    if kind == "eigh":
+        m = shape[1]
+        pairs = m * (m - 1) // 2
+        return h["total_sweeps"] * pairs * 6 + h["rotations"] * (18 * m + 20)
+    R, C = max(shape[1:]), min(shape[1:])
+    pairs = C * (C - 1) // 2
+    return (h["total_sweeps"] * pairs * 6 * R
+            + h["rotations"] * (6 * (R + C) + 20) + B * 2 * R * C)
+
+
+def _jacobi_case(kind, name, A, dev, smi):
+    """One K4 or K5 case on the card: kernel, plain version, torch.linalg
+    on the same input; gaps, orthogonality, reconstruction, times, bound.
+    Returns (row, fails)."""
+    import torch
+    from xerus_tpu_torch.ops import small_eig as se
+    fails = []
+    shape = tuple(A.shape)
+    se.check_health(dev)
+    if kind == "eigh":
+        plan = se.eigh_plan(shape[1])
+        w, V, st = se.small_eigh_launch(A)
+        h = se.check_health(dev)
+        wp, Vp, sp = se.small_eigh_plain(A)
+        wl = torch.linalg.eigh(A)[0]
+        vals, plain_vals, lib_vals = w, wp, wl
+        factors = [V]
+        rec = V @ torch.diag_embed(w) @ V.transpose(1, 2)
+        run = lambda: se.small_eigh_launch(A)              # noqa: E731
+        plain = lambda: se.small_eigh_plain(A)             # noqa: E731
+        lib = lambda: torch.linalg.eigh(A)                 # noqa: E731
+        nbytes = 8 * A.numel() * 2 + 8 * w.numel()
+        lib_name = "torch.linalg.eigh"
+    else:
+        plan = se.svd_plan(*shape[1:])
+        U, S, Vh, st = se.small_svd_launch(A)
+        h = se.check_health(dev)
+        Up, Sp, Vhp, sp = se.small_svd_plain(A)
+        Sl = torch.linalg.svd(A, full_matrices=False, driver="gesvd")[1]
+        vals, plain_vals, lib_vals = S, Sp, Sl
+        factors = [U, Vh.transpose(1, 2)]
+        rec = U @ torch.diag_embed(S) @ Vh
+        run = lambda: se.small_svd_launch(A)               # noqa: E731
+        plain = lambda: se.small_svd_plain(A)              # noqa: E731
+        lib = lambda: torch.linalg.svd(A, full_matrices=False,  # noqa: E731
+                                       driver="gesvd")
+        nbytes = 8 * (A.numel() + U.numel() + S.numel() + Vh.numel())
+        lib_name = "torch.linalg.svd(gesvd)"
+    torch.cuda.synchronize()
+    scale = float(lib_vals.abs().max()) or 1.0
+    gap_plain = float((vals - plain_vals).abs().max())
+    gap_lib = float((vals - lib_vals).abs().max()) / scale
+    orth = max(float((Q.transpose(1, 2) @ Q - torch.eye(
+        Q.shape[-1], dtype=Q.dtype, device=dev)).abs().max())
+        for Q in factors)
+    rel = float((rec - A).norm() / (A.norm() if float(A.norm()) else 1.0))
+    reps = 50 if A.shape[-1] <= 64 else 10
+    ms = _time_ms(run, reps=reps)
+    plain_ms = _wall_ms(plain, reps=1)
+    lib_ms = _time_ms(lib, reps=reps)
+    ops, jac_ops = _function_ops(kind, shape), _jacobi_ops(kind, shape, h)
+    bound_ms, bound_by = _bound(nbytes, ops, "float64")
+    sweeps = st.tolist()
+    print(f"jacobi: K{4 if kind == 'eigh' else 5} {name} {shape}: route "
+          f"{plan.route}, sweeps {sweeps} (plain {sp.tolist()}), rotations "
+          f"{h['rotations']}, Jacobi's FP64 operations {jac_ops} against "
+          f"the function's {ops} (the bound's, {jac_ops / ops:.2f}x); gap "
+          f"to the plain version {gap_plain:.3e}, "
+          f"value gap to {lib_name} {gap_lib:.3e} of the largest, "
+          f"||Q^T Q - I|| {orth:.3e}, ||A - rec|| / ||A|| {rel:.3e} (bar "
+          f"{JAC_BAR * max(1.0, max(shape[1:]) / 128):g}); {ms:.4f} ms, plain {plain_ms:.2f} ms, {lib_name} "
+          f"{lib_ms:.4f} ms, bound {bound_ms:.6f} ms by {bound_by} "
+          f"({bound_ms / ms:.2%} reached); {smi}")
+    bar = JAC_BAR * max(1.0, max(shape[1:]) / 128)
+    if not (min(sweeps) > 0 and gap_plain <= bar * scale
+            and gap_lib <= bar and orth <= bar and rel <= bar):
+        fails.append(f"K{4 if kind == 'eigh' else 5} {name} {shape}")
+    row = {"shape": list(shape), "route": plan.route, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": lib_ms, "max_abs_err": gap_plain,
+           "sweeps_max": max(sweeps), "ops": ops, "jacobi_ops": jac_ops}
+    return row, fails
+
+
+def phase_jacobi(dev, smi):
+    """K4 and K5 against their plain versions and torch.linalg on the card
+    at the eigensolver path's shapes and (256, 256); the penalized Ritz
+    matrix; a rank-deficient boundary split (an orthonormal U where sigma
+    is zero); route gmem bitwise route smem.  Returns {kernel: {"rows":
+    {case: row}, "max_abs_err": ...}}."""
+    import numpy as np
+    import torch
+    from xerus_tpu_torch.ops import small_eig as se
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 15)
+    out = {"small_eigh": {"rows": {}}, "small_svd": {"rows": {}}}
+    fails = []
+    for name, B, m in JAC_EIGH:
+        A = rng.standard_normal((B, m, m))
+        A = torch.from_numpy(A + A.transpose(0, 2, 1)).to(dev)
+        row, f = _jacobi_case("eigh", name, A, dev, smi)
+        out["small_eigh"]["rows"][name] = row
+        fails += f
+    for name, B, M, N in JAC_SVD:
+        A = torch.from_numpy(rng.standard_normal((B, M, N))).to(dev)
+        row, f = _jacobi_case("svd", name, A, dev, smi)
+        out["small_svd"]["rows"][name] = row
+        fails += f
+    for kernel in out.values():
+        kernel["max_abs_err"] = max(r["max_abs_err"]
+                                    for r in kernel["rows"].values())
+
+    # the penalized Ritz matrix: the valid block's lowest pair resolved to
+    # its own scale under a 1e4 (max|T| + 1) lift
+    T = _ritz_matrix(rng)
+    w, V, st = se.small_eigh(torch.from_numpy(T[None]).to(dev))
+    ref_w, ref_v = np.linalg.eigh(T[:10, :10])
+    v0 = V[0, :, 0].cpu().numpy()
+    gap = abs(float(w[0, 0]) - ref_w[0]) / np.abs(T[:10, :10]).max()
+    align = 1.0 - abs(float(v0[:10] @ ref_v[:, 0]))
+    print(f"jacobi: K4 penalized Ritz matrix (24, 10 valid): lowest "
+          f"eigenvalue gap {gap:.3e} of the block's scale, 1 - |<v, v_ref>| "
+          f"{align:.3e}, lifted components {np.abs(v0[10:]).max():.3e}, "
+          f"sweeps {st.tolist()}")
+    if not (gap <= JAC_BAR and align <= JAC_BAR and int(st[0]) > 0):
+        fails.append("the penalized Ritz matrix")
+
+    # a rank-deficient split: sigma zero within the kept rank
+    A = torch.from_numpy(np.stack([_deficient_split(rng)
+                                   for _ in range(2)])).to(dev)
+    U, S, Vh, st = se.small_svd(A)
+    zeros = int((S[0] == 0).sum())
+    orth = float((U.transpose(1, 2) @ U - torch.eye(32, dtype=U.dtype,
+                                                    device=dev)).abs().max())
+    rel = float((U @ torch.diag_embed(S) @ Vh - A).norm() / A.norm())
+    print(f"jacobi: K5 rank-deficient split (32, 32), rank "
+          f"{32 - zeros}: {zeros} zero sigma, ||U^T U - I|| {orth:.3e} with "
+          f"the completion, ||A - U S Vh|| / ||A|| {rel:.3e}, sweeps "
+          f"{st.tolist()}")
+    if not (zeros == 32 - min(2 * 2, 2 * 3) and orth <= JAC_BAR and rel <= JAC_BAR
+            and int(st.min()) > 0):
+        fails.append("the rank-deficient split")
+
+    # route gmem runs route smem's steps in its order: bitwise equal
+    A = torch.from_numpy(rng.standard_normal((2, 24, 24))).to(dev)
+    A = A + A.transpose(1, 2)
+    same = [all(torch.equal(x, y) for x, y in zip(
+        se.small_eigh_launch(A, se.eigh_plan(24)),
+        se.small_eigh_launch(A, se.eigh_plan(24, se.GMEM))))]
+    for M in (32, 64):
+        A = torch.from_numpy(rng.standard_normal((2, M, M))).to(dev)
+        same.append(all(torch.equal(x, y) for x, y in zip(
+            se.small_svd_launch(A, se.svd_plan(M, M)),
+            se.small_svd_launch(A, se.svd_plan(M, M, se.GMEM)))))
+    se.check_health(dev)
+    print(f"jacobi: route gmem bitwise route smem at K4 (2, 24, 24), K5 "
+          f"(2, 32, 32), (2, 64, 64): {same}; phase "
+          f"{time.perf_counter() - t0:.1f} s")
+    if not all(same):
+        fails.append("route gmem differs from route smem")
+    if fails:
+        raise AssertionError("jacobi: " + "; ".join(fails))
+    return out
+
+
 def _adf(inst, dev, max_iterations):
     import torch
     from xerus_tpu_torch.algorithms import ADFVariant, adf_cores
@@ -3284,6 +3524,13 @@ EIG_APPLY_EXACT = 1e-10        # relative, where the target holds the product
 EIG_CARD_HOST = 1e-10          # the kit and the cascade, card vs host()
 EIG_CASCADE = (10, 32, 10)     # proteins, copies per site, Euler steps
 EIG_PHASE_S = 150.0
+# ops.dmrg_kernels.dmrg_groundstate_scan by the dense local eigh (solver
+# 'eigh', eager: cuSOLVER's info read forbids a capture) on the d=6
+# Heisenberg chain at its full ranks, every half-sweep run (conv_eps 0)
+# after the shift estimate's two: d, max_rank, half-sweeps; its energy is
+# held to the dense 64 x 64 Hamiltonian's lowest eigenvalue
+EIG_SCAN_EIGH = (6, 8, 4)
+EIG_SCAN_BAR = 1e-10
 
 
 def _workload4(xt, max_rank, count_syncs=False, **kw):
@@ -3294,13 +3541,19 @@ def _workload4(xt, max_rank, count_syncs=False, **kw):
     the singular values at the middle bond."""
     import torch
     from xerus_tpu_torch.ops import dmrg_kernels as dk
+    from xerus_tpu_torch.ops import programs
     from xerus_tpu_torch.ops import round_kernels as rk
+    from xerus_tpu_torch.ops import small_eig as se
     xt.set_seed(SEED + 4)
     H = xt.examples.heisenberg_mpo(EIG_D)
     g = xt.TTTensor.random([2] * EIG_D, 4)
     perf = xt.PerformanceData()
     reads0, checks0 = rk.host_bool.reads, dk.linalg_host_checks()
     fallbacks0 = dk._eigh.fallbacks
+    P = programs.Program
+    runs0 = (P.eager_runs, P.captures, P.replays)
+    launches0 = (se.small_eigh_launch.launches, se.small_svd_launch.launches)
+    se.last_health.clear()
     torch.cuda.synchronize()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -3321,13 +3574,19 @@ def _workload4(xt, max_rank, count_syncs=False, **kw):
     g.move_core(EIG_D // 2)
     core = g.components[EIG_D // 2]._torch()
     sv = torch.linalg.svdvals(core.reshape(core.shape[0], -1))
+    runs = [b - a for a, b in zip(runs0, (P.eager_runs, P.captures,
+                                          P.replays))]
     return {"E": lam, "res": var, "rank": max(g.ranks()),
             "half_sweeps": len(perf.data) if exact else reads,
             "reads": reads, "checks": dk.linalg_host_checks() - checks0,
             "fallbacks": dk._eigh.fallbacks - fallbacks0,
             "syncs": syncs if count_syncs else None, "wall": wall,
             "sv": [float(v) for v in sv[12:20]],
-            "on_card": core.device.type == "cuda"}
+            "on_card": core.device.type == "cuda",
+            "eager": runs[0], "captures": runs[1], "replays": runs[2],
+            "k4": se.small_eigh_launch.launches - launches0[0],
+            "k5": se.small_svd_launch.launches - launches0[1],
+            "health": dict(se.last_health)}
 
 
 def _w4_line(name, r):
@@ -3339,8 +3598,37 @@ def _w4_line(name, r):
             + (f" ({r['syncs']} syncs by torch's sync debug mode)"
                if r["syncs"] is not None else "")
             + f", eigh retries {r['fallbacks']}, wall {r['wall']:.3f} s; "
-            f"singular values 13.. at the middle bond "
+            f"programs: {r['eager']} eager runs, {r['captures']} captures, "
+            f"{r['replays']} replays; K4 {r['k4']}, K5 {r['k5']} launches"
+            + (f", Jacobi sweeps at most {r['health']['max_sweeps']} "
+               f"({r['health']['total_sweeps'] / r['health']['matrices']:.2f}"
+               f" a matrix)" if r["health"].get("matrices") else "")
+            + "; singular values 13.. at the middle bond "
             + ", ".join(f"{v:.6e}" for v in r["sv"]))
+
+
+def _scan_eigh(xt):
+    """``dmrg_groundstate_scan(solver="eigh")`` on ``EIG_SCAN_EIGH``'s
+    chain on the current compute device: (energy, the exact ground energy,
+    energy reads, eigh/svd info checks, K5 launches, wall)."""
+    import numpy as np
+    from xerus_tpu_torch.ops import dmrg_kernels as dk
+    from xerus_tpu_torch.ops import round_kernels as rk
+    from xerus_tpu_torch.ops import small_eig as se
+    d, rank, sweeps = EIG_SCAN_EIGH
+    xt.set_seed(SEED + 6)
+    H = xt.examples.heisenberg_mpo(d)
+    g = xt.TTTensor.random([2] * d, rank)
+    counts0 = (rk.host_bool.reads, dk.linalg_host_checks(),
+               se.small_svd_launch.launches)
+    e, wall = _timed(lambda: dk.dmrg_groundstate_scan(
+        H, g, num_half_sweeps=sweeps, conv_eps=0.0, solver="eigh"))
+    counts = [b - a for a, b in zip(counts0, (
+        rk.host_bool.reads, dk.linalg_host_checks(),
+        se.small_svd_launch.launches))]
+    Hd = H.to_tensor().to_ndarray().reshape(2 ** d, 2 ** d)
+    exact = float(np.linalg.eigvalsh((Hd + Hd.T) / 2)[0])
+    return (e, exact, *counts, wall)
 
 
 def _timed(fn):
@@ -3361,6 +3649,7 @@ def _dmrg_solve_case(xt, dev):
     x, A, b = _poisson_objects(xt, D, RANK, dev)
     res, wall = _timed(lambda: xt.dmrg_solve(A, x, b, max_rank=max_rank,
                                             num_half_sweeps=half_sweeps))
+    _solve_counts.last = _solve_counts()
     d, max_rank, half_sweeps = EIG_SOLVE_SMALL
     xt.set_seed(SEED)
     L = xt.examples.laplace_operator([2] * d)
@@ -3372,6 +3661,46 @@ def _dmrg_solve_case(xt, dev):
         L, y, b, max_rank=max_rank, num_half_sweeps=half_sweeps))
     err = (y - truth).frob_norm() / truth.frob_norm()
     return (res, x.ranks(), wall), (res_s, y.ranks(), err, wall_s)
+
+
+def _solve_counts():
+    """(eager runs, captures, replays, K5 launches, eigh/svd info checks)
+    so far; ``_solve_counts.last`` holds them after the d=32 dmrg_solve."""
+    from xerus_tpu_torch.ops import dmrg_kernels as dk
+    from xerus_tpu_torch.ops import programs
+    from xerus_tpu_torch.ops import small_eig as se
+    P = programs.Program
+    return (P.eager_runs, P.captures, P.replays,
+            se.small_svd_launch.launches, dk.linalg_host_checks())
+
+
+def _replay_vs_eager(xt, rank):
+    """The workload-4 half-sweep program at ``rank`` (captured by the
+    solve) on a fresh normalized rank-``rank`` state: its replay against
+    its function run eagerly on the same input.  Returns (bitwise equal,
+    the program, its arguments)."""
+    import torch
+    from xerus_tpu_torch.ops import dmrg_kernels as dk
+    from xerus_tpu_torch.ops import programs
+    xt.set_seed(SEED + 5)
+    H = xt.examples.heisenberg_mpo(EIG_D)
+    g = xt.TTTensor.random([2] * EIG_D, rank)
+    g.move_core(0)
+    g /= g.frob_norm()
+    xs = dk.pad_cores([c._torch() for c in g.components])[0].contiguous()
+    As = dk._pad_operator_stack([c._torch() for c in H.components],
+                                xs.dtype)
+    args = (xs, As, torch.zeros((), dtype=xs.dtype, device=xs.device))
+    prog = dk.make_dmrg_step(programs.shapes_key(*args),
+                             programs.dtype_str(xs), rank, "lanczos", 24,
+                             False)
+    replays = prog.replays
+    got = prog(*args)
+    want = prog.fn(*args)
+    torch.cuda.synchronize()
+    same = (prog.graph is not None and prog.replays == replays + 1
+            and all(torch.equal(a, b) for a, b in zip(got, want)))
+    return same, prog, args
 
 
 def _kit_cases(xt, timer):
@@ -3449,10 +3778,12 @@ def phase_eigensolver(dev, smi):
     """The eigensolver and the rest of the algorithms layer on the card
     through the public names, in float64: workload 4 by
     ``solver="exact"`` (one timed run) and by the card's default solver,
-    Lanczos with shift 0 (a warm run that also counts the syncs, then a
-    timed run), against the recorded CPU float64 energy and residual and
-    the JAX package's CPU float64 Lanczos energy; the rank 16 / 32 / 64
-    cell; ``xt.dmrg_solve`` on the d=32 rank-30 Poisson objects on the
+    Lanczos with shift 0 (a warm run that also counts the syncs, a timed
+    run, then a run under torch.profiler that counts K4 and K5 on the
+    device: the kernels line's launches), against the recorded CPU float64
+    energy and residual and the JAX package's CPU float64 Lanczos energy;
+    the rank 16 / 32 / 64 cell; the 4-start race; ``dmrg_groundstate_scan``
+    by the dense local eigh on the card and under ``host()``; ``xt.dmrg_solve`` on the d=32 rank-30 Poisson objects on the
     card and under ``host()``; ``xt.ops.apply_operator_rounded`` of the
     north-star operator on slice 2's rank-256 TT against
     ``apply_operator`` and its svd rounding; the Riemannian kit,
@@ -3465,6 +3796,15 @@ def phase_eigensolver(dev, smi):
     t_phase = time.perf_counter()
     fails = []
 
+    from xerus_tpu_torch.ops import programs
+
+    def on_kernels(c):
+        # the Lanczos sweeps on K4/K5 in captured programs: no eigh/svd
+        # info check, both kernels launched, no Jacobi failure
+        return (c["checks"] == 0 and c["k4"] > 0 and c["k5"] > 0
+                and c["health"].get("failures") == 0 and c["on_card"]
+                and c["fallbacks"] == 0)
+
     # 1. workload 4, the dense local eigh
     r = _workload4(xt, 16, solver="exact")
     print(_w4_line("solver='exact'", r) + f"; {smi}")
@@ -3473,26 +3813,106 @@ def phase_eigensolver(dev, smi):
             and r["on_card"] and r["fallbacks"] == 0):
         fails.append(f"workload 4 by the exact local eigh: E {r['E']!r}, "
                      f"eig_residual {r['res']:.6e}")
+    exact_wall = r["wall"]
 
-    # 2. the card's default solver (Lanczos), warm then timed
+    # 2. the card's default solver (Lanczos), shift 0: the first run at
+    # its shape key runs programs.EAGER_CALLS half-sweeps eagerly, captures
+    # the third and replays the rest; the timed run replays every one
     warm = _workload4(xt, 16, count_syncs=True, shift=0.0)
-    print(_w4_line("default solver, shift 0, warm run", warm))
-    r = _workload4(xt, 16, shift=0.0)
+    print(_w4_line("default solver, shift 0, first run", warm))
+    r = _workload4(xt, 16, count_syncs=True, shift=0.0)
     print(_w4_line("default solver, shift 0", r)
           + f"; JAX CPU f64 Lanczos {EIG_E_JAX_LANCZOS!r}, gap "
-          f"{r['E'] - EIG_E_JAX_LANCZOS:+.3e}; {smi}")
+          f"{r['E'] - EIG_E_JAX_LANCZOS:+.3e}; wall {r['wall']:.3f} s "
+          f"against the dense local eigh's {exact_wall:.3f} s in this run "
+          f"(ROADMAP's bar: below it; no pass/fail); {smi}")
+    n = r["half_sweeps"]
     if not (abs(r["E"] - EIG_E_JAX_LANCZOS) <= EIG_E_BAR
-            and r["reads"] > 0 and r["on_card"]
-            and warm["fallbacks"] == r["fallbacks"] == 0):
-        fails.append(f"workload 4 by Lanczos: E {r['E']!r}")
+            and on_kernels(r) and on_kernels(warm)
+            and warm["eager"] == programs.EAGER_CALLS
+            and warm["captures"] == 1
+            and warm["replays"] == warm["half_sweeps"] - 1 - warm["eager"]
+            and r["replays"] == n and r["eager"] == r["captures"] == 0
+            and r["k4"] == r["k5"] == n * (EIG_D - 1)):
+        fails.append(f"workload 4 by Lanczos: E {r['E']!r}, info checks "
+                     f"{r['checks']} / {warm['checks']}, programs "
+                     f"{r['eager']} / {r['captures']} / {r['replays']}")
+    # the kernels line's K4/K5 launches: the replayed solve once more under
+    # torch.profiler, its kernels counted by name on the device (a replay
+    # calls no wrapper)
+    pr, jac_launches = _kernel_counts(
+        lambda: _workload4(xt, 16, shift=0.0), (K4_KERNEL, K5_KERNEL))
+    jac_launches = tuple(jac_launches)
+    print(f"eigensolver: the replayed Lanczos solve under torch.profiler "
+          f"ran {jac_launches[0]} {K4_KERNEL} and {jac_launches[1]} "
+          f"{K5_KERNEL} kernels on the device in {pr['half_sweeps']} "
+          f"half-sweeps of {EIG_D - 1} sites ({pr['replays']} replays; the "
+          f"counters through replays: {pr['k4']} and {pr['k5']})")
+    if not (pr["replays"] == pr["half_sweeps"] == n
+            and jac_launches == (n * (EIG_D - 1),) * 2
+            and abs(pr["E"] - EIG_E_JAX_LANCZOS) <= EIG_E_BAR):
+        fails.append(f"the replayed Lanczos solve ran {jac_launches} K4 / "
+                     f"K5 kernels on the device in {pr['half_sweeps']} "
+                     f"half-sweeps, expected {n * (EIG_D - 1)} each")
+    same, prog, args = _replay_vs_eager(xt, 16)
+    print(f"eigensolver: workload 4's half-sweep program (rank 16): replay "
+          f"bitwise equal to its eager run on a fresh state: {same}; "
+          f"{prog.nodes} graph nodes, pool {prog.pool_bytes / 2**20:.1f} "
+          f"MiB, capture {prog.capture_s:.3f} s, {prog.eager_runs} eager "
+          f"runs, {prog.captures} capture, {prog.replays} replays")
+    if not same:
+        fails.append("a replayed half-sweep differs from its eager run")
+    # where the replayed solve's wall goes: one half-sweep replayed alone
+    # (host wall; device busy under torch.profiler) against the solve's
+    one = statistics.median(_timed(lambda: prog(*args))[1]
+                            for _ in range(3))
+    pw, busy, kernels, top = _device_busy(lambda: prog(*args), top=4)
+    print(f"eigensolver: one replayed half-sweep {one * 1e3:.2f} ms (median "
+          f"of 3); under torch.profiler {pw * 1e3:.2f} ms, device busy "
+          + (f"{busy * 1e3:.2f} ms, idle {1 - busy / pw:.3f}"
+             if busy is not None else "not measured")
+          + f", {kernels} kernels, by device time "
+          + ", ".join(f"{name[:40]} {t * 1e3:.2f} ms x{k}"
+                      for name, t, k in top)
+          + f"; the replayed solve's {n} half-sweeps take about "
+          f"{n * one:.3f} s of its {r['wall']:.3f} s, the rest is the "
+          f"object layer around them (rank bump, canonicalization) and its "
+          f"syncs")
 
     # 3. the measurement cell: is 1.055e-02 the rank-16 floor?
     for rank in EIG_RANK_CELL:
-        c = r if rank == 16 else _workload4(xt, rank, solver="lanczos",
-                                             shift=0.0)
+        c = r if rank == 16 else _workload4(xt, rank, count_syncs=True,
+                                             solver="lanczos", shift=0.0)
         print(_w4_line(f"cell, Lanczos max_rank {rank}", c))
-        if c["fallbacks"]:
-            fails.append(f"{c['fallbacks']} eigh retries at rank {rank}")
+        if not on_kernels(c):
+            fails.append(f"the rank-{rank} cell is not on K4/K5")
+
+    # the 4-start race: one batch per half-sweep, the first start x itself
+    m = _workload4(xt, 16, count_syncs=True, shift=0.0, num_starts=4)
+    print(_w4_line("multistart, 4 starts, max_rank 16", m)
+          + f"; against one start {m['E'] - r['E']:+.3e}")
+    if not (on_kernels(m) and m["E"] <= r["E"] + EIG_E_BAR
+            and m["captures"] == 1):
+        fails.append(f"the 4-start race: E {m['E']!r}")
+
+    # the dense local eigh's scan runs eagerly past the third half-sweep
+    # at one shape key (where a program would capture)
+    d, rank, sweeps = EIG_SCAN_EIGH
+    sc = _scan_eigh(xt)
+    with xt.host():
+        sh = _scan_eigh(xt)
+    print(f"eigensolver: ops.dmrg_kernels.dmrg_groundstate_scan(solver="
+          f"'eigh') d={d} rank {rank}, shift estimated, {sweeps} "
+          f"half-sweeps: E card {sc[0]!r}, host() {sh[0]!r}, exact "
+          f"{sc[1]!r} (gaps {sc[0] - sc[1]:+.3e} / {sh[0] - sh[1]:+.3e}, "
+          f"bar {EIG_SCAN_BAR:g}), energy reads {sc[2]} / {sh[2]}, card "
+          f"eigh/svd info checks {sc[3]}, K5 launches {sc[4]}, wall card "
+          f"{sc[5]:.3f} s, host() {sh[5]:.3f} s")
+    if not (abs(sc[0] - sc[1]) <= EIG_SCAN_BAR
+            and abs(sh[0] - sh[1]) <= EIG_SCAN_BAR
+            and sc[2] == sh[2] == 2 + sweeps and sc[3] > 0 and sc[4] > 0):
+        fails.append(f"dmrg_groundstate_scan(solver='eigh'): E {sc[0]!r} "
+                     f"/ {sh[0]!r}, {sc[2]} energy reads")
 
     # 4. dmrg_solve, card and host(): on the north-star objects the
     # reference's fixed 32 CG steps a site meet local systems of condition
@@ -3500,21 +3920,32 @@ def phase_eigensolver(dev, smi):
     # (gesvd on the card converges, gesdd under host() does not; ROADMAP
     # Queue 3 fault 11), so the two residuals are printed and held to no
     # bar; test_als.py's instance is held to its bars on both
+    counts0 = _solve_counts()
     card, small_c = _dmrg_solve_case(xt, dev)
+    big = [b - a for a, b in zip(counts0, _solve_counts.last)]
+    small = [b - a for a, b in zip(_solve_counts.last, _solve_counts())]
     with xt.host():
         cpu, small_h = _dmrg_solve_case(xt, torch.device("cpu"))
     print(f"eigensolver: xt.dmrg_solve d={D} rank {RANK} Poisson objects, "
           f"max_rank {EIG_SOLVE[0]}, {EIG_SOLVE[1]} half-sweeps: residual "
-          f"card {card[0]!r}, host() {cpu[0]!r} (no bar: ROADMAP Queue 3 "
-          f"fault 11), max ranks {max(card[1])} / {max(cpu[1])}, wall "
-          f"card {card[2]:.3f} s, host() {cpu[2]:.3f} s")
+          f"card {card[0]!r} (splits on K5's Jacobi SVD), host() {cpu[0]!r} "
+          f"(LAPACK gesdd; no bar: ROADMAP Queue 3 fault 11), max ranks "
+          f"{max(card[1])} / {max(cpu[1])}, wall card {card[2]:.3f} s, "
+          f"host() {cpu[2]:.3f} s; programs {big[0]} eager runs, {big[1]} "
+          f"captures, {big[2]} replays, K5 {big[3]} launches, {big[4]} "
+          f"eigh/svd info checks")
+    for c in (big, small):
+        if not (c[3] > 0 and c[4] == 0 and c[1] >= 1):
+            fails.append(f"dmrg_solve not on K5 through programs: {c}")
     d, max_rank, half_sweeps = EIG_SOLVE_SMALL
     print(f"eigensolver: xt.dmrg_solve test_als.py's d={d} instance, rank 2 "
           f"-> {max_rank}, {half_sweeps} half-sweeps: residual card "
           f"{small_c[0]:.3e}, host() {small_h[0]:.3e}, error against the "
           f"truth {small_c[2]:.3e} / {small_h[2]:.3e} (bar "
           f"{EIG_SOLVE_BAR:g}), ranks {small_c[1]} / {small_h[1]}, wall "
-          f"card {small_c[3]:.3f} s, host() {small_h[3]:.3f} s")
+          f"card {small_c[3]:.3f} s, host() {small_h[3]:.3f} s; programs "
+          f"{small[0]} eager runs, {small[1]} captures, {small[2]} replays, "
+          f"K5 {small[3]} launches, {small[4]} eigh/svd info checks")
     for r in (small_c, small_h):
         if not (r[0] < EIG_SOLVE_BAR and r[2] < EIG_SOLVE_BAR
                 and max(r[1]) == max_rank and r[1] == small_h[1]):
@@ -3611,6 +4042,7 @@ def phase_eigensolver(dev, smi):
         fails.append(f"the phase took {wall:.1f} s")
     if fails:
         raise AssertionError("eigensolver: " + "; ".join(fails))
+    return jac_launches
 
 
 # the sparse QR (phase_sparse_qr): benchmarks/sparseqr_scale.py's
@@ -4001,6 +4433,20 @@ def _loop_entries(k1q_poisson, poisson_rows, poisson_abs, rest_rows,
     return k1c, k1q
 
 
+def _jacobi_entry(kernel, name):
+    """K4's or K5's timing at the main path's shape (``JAC_MAIN``) and,
+    beside it, every other shape of ``phase_jacobi``."""
+    rows = kernel["rows"]
+    main_row = rows[JAC_MAIN[name]]
+    out = {k: main_row[k] for k in ("ms", "plain_ms", "bound_ms",
+                                    "bound_by", "library_ms")}
+    out["shape"] = main_row["shape"]
+    out["shapes"] = [{"case": case, **{k: v for k, v in row.items()
+                                       if k != "max_abs_err"}}
+                     for case, row in rows.items()]
+    return out
+
+
 def main():
     sys.path.insert(0, HERE)
     smi = phase_environment()
@@ -4012,6 +4458,7 @@ def main():
     k1_max_abs, k1_timing = phase_kernels(dev)
     k2_max_abs, k2_timing = phase_k2(dev)
     k3_max_abs, k3_timing = phase_k3(dev)
+    jacobi = phase_jacobi(dev, smi)
     phase_small_agreement(dev)
     phase_small_rounding(dev)
     phase_completion_small(dev)
@@ -4029,7 +4476,7 @@ def main():
     k2_timing.update(k2_f64)
     phase_algorithms(dev, smi, slice_run, host_residual, completion,
                      iht_residual)
-    phase_eigensolver(dev, smi)
+    k4_launches, k5_launches = phase_eigensolver(dev, smi)
     phase_sparse_qr(dev, smi)
     phase_speed_presets(dev, smi)
     phase_parallel(dev, smi)
@@ -4069,7 +4516,17 @@ def main():
               k1c["max_abs_err"], k1c),
         entry("df_qr", "xerus_tpu_torch/csrc/df_qr.cu",
               "xerus_tpu/ops/pallas_df.py:60", k1q["launches"],
-              k1q["max_abs_err"], k1q)]}))
+              k1q["max_abs_err"], k1q),
+        # K4 and K5 replace no Pallas kernel: the JAX package's
+        # jnp.linalg.eigh / svd inside its half-sweep programs
+        entry("small_eigh", "xerus_tpu_torch/csrc/jacobi.cu",
+              "xerus_tpu/ops/dmrg_kernels.py:305", k4_launches,
+              jacobi["small_eigh"]["max_abs_err"],
+              _jacobi_entry(jacobi["small_eigh"], "small_eigh")),
+        entry("small_svd", "xerus_tpu_torch/csrc/jacobi.cu",
+              "xerus_tpu/ops/dmrg_kernels.py:365", k5_launches,
+              jacobi["small_svd"]["max_abs_err"],
+              _jacobi_entry(jacobi["small_svd"], "small_svd"))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -36,9 +36,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # flags of one kernel beside the common ones: the error-free
 # transformations of the df kernels (df_matvec, df_qr, df_chol) must never
 # see a multiply and an add contracted into an FMA (-fmad=false); the
-# GEMM-only gemm_exact and the TT evaluation tt_eval want FFMA contraction
+# GEMM-only gemm_exact, the TT evaluation tt_eval and the Jacobi eigh / SVD
+# (jacobi) want FFMA contraction
 KERNEL_FLAGS = {"df_matvec": ["-fmad=false"], "df_qr": ["-fmad=false"],
-                "df_chol": ["-fmad=false"], "gemm_exact": [], "tt_eval": []}
+                "df_chol": ["-fmad=false"], "gemm_exact": [], "tt_eval": [],
+                "jacobi": []}
 
 _loaded = {}
 # seconds and compiler output of the builds made by this process

@@ -9,8 +9,8 @@ them itself: the same tensor in another gauge), and from the start with
 its cores scaled entrywise by 1 + s N(0, 1) noise (s = 1e-15, 1e-13,
 numpy seed 0), and prints one JSON line each: the SVD routine of the
 sweeps' two-site splits, the relative residual and the ranks.
-On the card (cuSOLVER gesvd) unless ``--cpu`` (LAPACK gesdd, the object
-layer's CPU SVD); ``--cpu --gesvd`` splits with LAPACK's gesvd through
+On the card (K5, the Jacobi SVD of ``ops/small_eig.py``) unless ``--cpu``
+(LAPACK gesdd, the object layer's CPU SVD); ``--cpu --gesvd`` splits with LAPACK's gesvd through
 scipy instead:
 
     python3 -m xerus_tpu_torch.examples.dmrg_solve_sensitivity [--cpu [--gesvd]]
@@ -44,7 +44,7 @@ def main() -> None:
     xs, A_np, b_np = qtt_poisson_instance(32, 30, 0xBAADF00D)
     on_cpu = "--cpu" in sys.argv
     device = "cpu" if on_cpu else xt.cuda_device()
-    routine = "gesvd" if not on_cpu else "gesdd"
+    routine = "jacobi" if not on_cpu else "gesdd"
     if on_cpu and "--gesvd" in sys.argv:
         dmrg_kernels.thin_svd = _lapack_gesvd
         routine = "gesvd"

@@ -1,7 +1,7 @@
 from . import (adf_kernels, als_kernels, apply_kernels, df32, df_matvec,
                df_rounding, dmrg_kernels, gemm_exact, mixed_precision, ozaki,
-               programs, round_kernels, round_uniform, sparse_kernels,
-               stacking, tt_eval)
+               programs, round_kernels, round_uniform, small_eig,
+               sparse_kernels, stacking, tt_eval)
 from .adf_kernels import make_adf_iteration
 from .als_kernels import (als_half_sweep_batched, als_sweep_flops,
                           make_als_multi_sweep_res, make_als_sweep,
@@ -23,3 +23,4 @@ from .df_rounding import tt_round_df, tt_round_df_from_f64
 from .stacking import pad_cores
 from .tt_eval import tt_eval_at_points
 from .sparse_kernels import sparse_times_dense, dense_times_sparse
+from .small_eig import small_eigh, small_svd

@@ -15,7 +15,8 @@ Each JAX name maps to one function here:
   the spectral shift; ``make_dmrg_sweep_scan`` / ``make_dmrg_sweep_lobpcg``
   are these functions themselves;
 - ``dmrg_run`` (``make_dmrg_run``), the whole ground-state solve as a host
-  loop with one energy read per half-sweep;
+  loop with one energy read per half-sweep, its body (half-sweep, the
+  sweep's core normalized, site reversal) the program ``make_dmrg_step``;
 - ``_cg_solve_local``, ``_dmrg_solve_half_sweep_scan`` and ``dmrg_solve``,
   the two-site SPD solver;
 - ``dmrg_half_sweep_batched`` (``make_dmrg_sweep_batched``) and
@@ -33,23 +34,36 @@ eigenvalues.  When the ground energy is negative these never win; for
 ground energies >= 0 the drivers solve (A - s P) with P the carried
 true-subspace projector and s > lambda_min, estimated by ``_estimate_shift``.
 
-Host reads.  Every eigh and every svd on a CUDA tensor checks the
-solver's ``info`` on the host (``linalg_host_checks`` counts them), and
-the drivers read one energy per half-sweep (``round_kernels.host_float``,
-counted in ``host_bool.reads``): a Lanczos half-sweep at d=32 makes 31
-small eigh and 31 svd calls.  The thresholds that decide (Lanczos' ``nb >
-1e-7``, the Ritz penalty ``1e4 (max|T| + 1)``, the 1e-30 guards) are the
+Programs and host reads.  On the card the Ritz problems of the Lanczos
+and LOBPCG local solves run on K4 and the masked split on K5
+(``ops/small_eig.py``, Jacobi in float64), which read nothing back, so a
+ground-state half-sweep (single or batched) and the SPD solve's half-sweep
+are captured programs (``ops/programs.py``): ``make_dmrg_step``,
+``make_dmrg_sweep`` (the shift estimate's) and ``make_dmrg_solve_step``,
+replayed after ``programs.EAGER_CALLS`` eager calls per shape key.  The
+shift enters them as a 0-d device tensor.  The solves read one energy
+(or residual) per half-sweep (``round_kernels.host_float``, counted in
+``host_bool.reads``) and K4/K5's health record once per solve
+(``small_eig.check_health``), which raises if a matrix failed.  On the
+CPU the same calls are ``torch.linalg``'s (LAPACK, the routines the JAX
+package's CPU run reaches).  The dense-eigh sweeps keep cuSOLVER's eigh,
+whose ``info`` torch reads to the host (``linalg_host_checks`` counts
+those calls), and stay eager.  The thresholds that decide (Lanczos' ``nb
+> 1e-7``, the Ritz penalty ``1e4 (max|T| + 1)``, the 1e-30 guards) are the
 JAX package's, bit for bit.
 """
 
 from __future__ import annotations
 
 import math
+from functools import partial
 
 import torch
 import torch.nn.functional as F
 
 from ..core.factorizations import _svd as thin_svd
+from . import programs, small_eig
+from .programs import Program, factory
 from .round_kernels import _eigh_sym, host_float, res_rank
 from .stacking import pad_cores
 
@@ -105,6 +119,29 @@ def _svd(M: torch.Tensor):
     counted."""
     _info_check(M)
     return thin_svd(M)
+
+
+def _ritz_eigh(T: torch.Tensor):
+    """Eigenpairs of the (B, m, m) Ritz problems: K4 on the card, LAPACK's
+    syevd on the CPU."""
+    if T.is_cuda:
+        return small_eig.small_eigh_launch(T)[:2]
+    return _eigh(T)
+
+
+def _split_svd(M: torch.Tensor):
+    """Thin SVD of the (B, r n, n r) two-site blocks: K5 on the card (an
+    orthonormal U also where sigma is zero), LAPACK's gesdd on the CPU."""
+    if M.is_cuda:
+        return small_eig.small_svd_launch(M)[:3]
+    return _svd(M)
+
+
+def _check_kernels(t: torch.Tensor) -> None:
+    """Read K4/K5's health record of ``t``'s card once (a solve's end) and
+    raise if a matrix failed; nothing on the CPU."""
+    if t.is_cuda:
+        small_eig.check_health(t.device)
 
 
 # ---------------------------------------------------------------------------
@@ -236,7 +273,7 @@ def _masked_split(ground, rank: int, r: int, n: int):
     ``rank`` singular directions, trimmed to the bond dimension r (the
     block has r*n >= r of them): (U, S Vt) as (B, r, n, r) cores."""
     B = ground.shape[0]
-    uu, ss, vt = _svd(ground.reshape(B, r * n, n * r))
+    uu, ss, vt = _split_svd(ground.reshape(B, r * n, n * r))
     K = uu.shape[-1]
     m2 = (torch.arange(K, device=ground.device) < min(rank, K)).to(
         ground.dtype)
@@ -301,7 +338,7 @@ def _ritz_smallest(T, valid):
     directions lifted by 1e4 (max|T| + 1) so they never win."""
     big = 1e4 * (T.abs().amax(dim=(1, 2)) + 1.0)
     T = T + torch.diag_embed((1.0 - valid) * big[:, None])
-    evals, evecs = _eigh(T)
+    evals, evecs = _ritz_eigh(T)
     return evals[:, 0], evecs[:, :, 0] * valid
 
 
@@ -315,7 +352,8 @@ def _lobpcg_smallest(apply, v0, iters: int):
     p = torch.zeros_like(x)
     lam = v0.new_zeros((v0.shape[0],))
     ones = v0.new_ones((v0.shape[0],))
-    drop_x = torch.tensor([0.0, 1.0, 1.0], dtype=dt, device=v0.device)
+    drop_x = v0.new_ones((3,))           # no host-to-device copy
+    drop_x[0] = 0.0
     for _ in range(iters):
         Ax = apply(x)
         lam = _bsum(x * Ax)
@@ -442,32 +480,86 @@ def _normalize_last(xs):
                      dim=-4)
 
 
+def _row_major(t: torch.Tensor) -> torch.Tensor:
+    """A copy of ``t`` with row-major strides, size-1 dimensions included
+    (``contiguous()`` keeps theirs), so a step's outputs have its inputs'
+    shape key and one program serves every half-sweep of a solve."""
+    out = t.new_empty(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _run_step(xs, As, shift, *, rank: int, solver: str, lobpcg_iters: int,
+              shifted: bool):
+    """``make_dmrg_run``'s loop body: one half-sweep (of A - shift P where
+    ``shifted``; ``shift`` a 0-d tensor), the sweep's core normalized,
+    both stacks site-reversed.  Returns (xs, As, energy) with the stacks
+    row-major (``_row_major``)."""
+    xs, e = _half_sweep(solver, rank, lobpcg_iters)(
+        xs, As, shift if shifted else None)
+    xs = _normalize_last(xs)
+    return _row_major(_rev_x_stack(xs)), _row_major(_rev_A_stack(As)), e
+
+
+@factory(16)
+def make_dmrg_step(shapes_key, dtype_str: str, rank: int, solver: str,
+                   lobpcg_iters: int, shifted: bool) -> Program:
+    """``_run_step`` as a program for inputs of ``shapes_key``
+    (``programs.shapes_key(xs, As, shift)``; a stack or a batch)."""
+    return Program(partial(_run_step, rank=rank, solver=solver,
+                           lobpcg_iters=lobpcg_iters, shifted=shifted),
+                   f"dmrg_step[{solver}]")
+
+
+@factory(16)
+def make_dmrg_sweep(shapes_key, dtype_str: str, rank: int, solver: str,
+                    lobpcg_iters: int) -> Program:
+    """The unshifted half-sweep as a program: (xs, As) -> (xs, energy)."""
+    return Program(_half_sweep(solver, rank, lobpcg_iters),
+                   f"dmrg_sweep[{solver}]")
+
+
+def _eager(solver: str) -> bool:
+    """Whether ``solver``'s half-sweeps run eagerly: the dense local eigh
+    ('eigh') calls cuSOLVER, whose ``info`` read forbids a capture."""
+    return solver == "eigh"
+
+
+def _sweep_program(rank: int, solver: str, lobpcg_iters: int):
+    """``_estimate_shift``'s half-sweep through ``make_dmrg_sweep``."""
+    return lambda xs, As: programs.call(make_dmrg_sweep, (xs, As), rank,
+                                        solver, lobpcg_iters,
+                                        eager=_eager(solver))
+
+
 def dmrg_run(x_stack, A_stack, shift, conv_eps, remaining, energy0, *,
              rank: int, solver: str, lobpcg_iters: int, shifted: bool,
              max_sweeps: int = CAP):
-    """The whole ground-state solve (``make_dmrg_run``) as a host loop:
-    half-sweep, normalization of the sweep's core, the energy convergence
-    test |e - energy| < conv_eps (one energy read per half-sweep), site
-    reversal; at most min(max_sweeps, remaining) half-sweeps.  The
+    """The whole ground-state solve (``make_dmrg_run``) as a host loop of
+    ``make_dmrg_step`` programs (run eagerly for solver 'eigh'):
+    half-sweep, normalization of the sweep's core, site reversal, then the
+    energy convergence test |e - energy| < conv_eps (one energy read per
+    half-sweep); at most min(max_sweeps, remaining) half-sweeps.  The
     reversal follows every half-sweep, so the state is un-reversed at the
-    end when the count is odd, as the JAX program does.  ``energy0``
-    carries the convergence reference across calls (inf on the first).
-    Returns (x_stack, energy, count)."""
-    body = _half_sweep(solver, rank, lobpcg_iters)
+    end when the count is odd, as the JAX program does.  ``energy0`` carries the convergence reference across
+    calls (inf on the first).  On the card K4/K5's health record is read
+    at the end.  Returns (x_stack, energy, count)."""
     limit = min(int(max_sweeps), int(remaining))
-    xs, As = x_stack, A_stack
+    xs, As = _row_major(x_stack), _row_major(A_stack)
+    shift_t = torch.full((), float(shift), dtype=xs.dtype, device=xs.device)
     energy = float(energy0)
     i, stop = 0, False
     while i < limit and not stop:
-        xs, e = body(xs, As, shift if shifted else None)
+        xs, As, e = programs.call(make_dmrg_step, (xs, As, shift_t), rank,
+                                  solver, lobpcg_iters, shifted,
+                                  eager=_eager(solver))
         e = host_float(e + shift)
-        xs = _normalize_last(xs)
         stop = abs(e - energy) < conv_eps
-        xs, As = _rev_x_stack(xs), _rev_A_stack(As)
         energy = e
         i += 1
     if i % 2 == 1:
         xs = _rev_x_stack(xs)
+    _check_kernels(xs)
     return xs, energy, i
 
 
@@ -502,13 +594,14 @@ def _estimate_shift(fn0, x0, A_stack, reduce_fn=host_float) -> float:
     caller's stack is not touched), with a throwaway state.  -A's ground
     -lambda_max is negative exactly when a shift is needed.  Returns
     1.1 lam_hat, or 0.0 when the spectrum is non-positive."""
-    xs = x0
+    xs = _row_major(x0)
     As = torch.cat([-A_stack[:1], A_stack[1:]])
     e_neg = math.inf
     for _ in range(2):
         xs, e = fn0(xs, As)
         e_neg = reduce_fn(e)
-        xs, As = _rev_x_stack(xs), _rev_A_stack(As)
+        # row-major, so both half-sweeps share one program's shape key
+        xs, As = _row_major(_rev_x_stack(xs)), _row_major(_rev_A_stack(As))
     lam_hat = -e_neg
     return 1.1 * lam_hat if lam_hat > 0 else 0.0
 
@@ -616,6 +709,24 @@ def _dmrg_solve_half_sweep_scan(x_stack, A_stack, b_stack, rank: int,
     return (out[0], res2[0]) if single else (out, res2)
 
 
+def _solve_step(x_stack, A_stack, b_stack, *, rank: int, cg_iters: int):
+    """One SPD half-sweep and the site reversal of the three stacks
+    (row-major): (x, A, b) -> (x, A, b, squared local residual)."""
+    x, res2 = _dmrg_solve_half_sweep_scan(x_stack, A_stack, b_stack, rank,
+                                          cg_iters)
+    return (_row_major(_rev_x_stack(x)), _row_major(_rev_A_stack(A_stack)),
+            _row_major(_rev_x_stack(b_stack)), res2)
+
+
+@factory(16)
+def make_dmrg_solve_step(shapes_key, dtype_str: str, rank: int,
+                         cg_iters: int) -> Program:
+    """``_solve_step`` as a program (``make_dmrg_solve_sweep`` and the
+    reversal of ``dmrg_solve``'s loop)."""
+    return Program(partial(_solve_step, rank=rank, cg_iters=cg_iters),
+                   "dmrg_solve_step")
+
+
 def dmrg_solve(A, x, b, max_rank: int = 0, num_half_sweeps: int = 8,
                conv_eps: float = 1e-10, cg_iters: int = 32) -> float:
     """Two-site SPD solver on TT objects (the reference's DMRG_SPD,
@@ -636,23 +747,24 @@ def dmrg_solve(A, x, b, max_rank: int = 0, num_half_sweeps: int = 8,
         r = rank
     d = len(A_cores)
     n = A_cores[0].shape[1]
-    A_stack = _pad_operator_stack(A_cores, x_stack.dtype)
-    b_stack, _ = pad_cores(b_cores)
+    A_stack = _row_major(_pad_operator_stack(A_cores, x_stack.dtype))
+    b_stack = _row_major(pad_cores(b_cores)[0])
+    x_stack = _row_major(x_stack)
     prev = math.inf
     reversed_state = False
     for _ in range(num_half_sweeps):
-        x_stack, res2 = _dmrg_solve_half_sweep_scan(x_stack, A_stack,
-                                                    b_stack, rank, cg_iters)
+        # each step ends site-reversed, the stop half-sweep too
+        x_stack, A_stack, b_stack, res2 = programs.call(
+            make_dmrg_solve_step, (x_stack, A_stack, b_stack), rank,
+            int(cg_iters))
+        reversed_state = not reversed_state
         res2 = host_float(res2)
         if abs(prev - res2) < conv_eps * max(res2, 1e-30):
             break
         prev = res2
-        x_stack = _rev_x_stack(x_stack)
-        A_stack = _rev_A_stack(A_stack)
-        b_stack = _rev_x_stack(b_stack)
-        reversed_state = not reversed_state
     if reversed_state:
         x_stack = _rev_x_stack(x_stack)
+    _check_kernels(x_stack)
     _set_components(x, x_stack, d, n, rank, normalize=False)
     return float((apply_operator(A, x) - b).frob_norm()
                  / max(b.frob_norm(), 1e-300))
@@ -666,8 +778,11 @@ def dmrg_half_sweep_batched(x_stacks, A_stack, rank: int,
                             solver: str = "lanczos", lobpcg_iters: int = 32):
     """One batched ground-state half-sweep (``make_dmrg_sweep_batched`` with
     a shared operator): x_stacks (B, d, r, n, r) padded instance stacks,
-    A_stack (d, a, n, n, a).  Returns (new stacks, energies (B,))."""
-    return _half_sweep(solver, rank, lobpcg_iters)(x_stacks, A_stack)
+    A_stack (d, a, n, n, a).  On the card K4/K5's health record is read
+    at the end.  Returns (new stacks, energies (B,))."""
+    out = _half_sweep(solver, rank, lobpcg_iters)(x_stacks, A_stack)
+    _check_kernels(out[0])
+    return out
 
 
 def dmrg_groundstate_multistart(A, x, num_starts: int = 4,
@@ -693,31 +808,34 @@ def dmrg_groundstate_multistart(A, x, num_starts: int = 4,
     x_stacks = torch.stack(stacks)
     d = len(A_cores)
     n = A_cores[0].shape[1]
-    A_stack = _pad_operator_stack(A_cores, x_stacks.dtype)
-    body = _half_sweep(solver, int(r), int(lobpcg_iters))
+    A_stack = _row_major(_pad_operator_stack(A_cores, x_stacks.dtype))
+    x_stacks = _row_major(x_stacks)
     if shift is None:
-        shift = _estimate_shift(body, x_stacks, A_stack,
-                                reduce_fn=lambda es: host_float(es.min()))
+        shift = _estimate_shift(
+            _sweep_program(int(r), solver, int(lobpcg_iters)), x_stacks,
+            A_stack, reduce_fn=lambda es: host_float(es.min()))
     shift = float(shift)
     shifted = shift != 0.0
+    shift_t = torch.full((), shift, dtype=x_stacks.dtype,
+                         device=x_stacks.device)
     best_prev = math.inf
     reversed_state = False
     energies = x_stacks.new_full((num_starts,), math.inf)
     for _ in range(num_half_sweeps):
-        x_stacks, energies = body(x_stacks, A_stack,
-                                  shift if shifted else None)
+        # each step ends site-reversed, the stop half-sweep too
+        x_stacks, A_stack, energies = programs.call(
+            make_dmrg_step, (x_stacks, A_stack, shift_t), int(r), solver,
+            int(lobpcg_iters), shifted, eager=_eager(solver))
+        reversed_state = not reversed_state
         energies = energies + shift
-        x_stacks = _normalize_last(x_stacks)
         best = host_float(energies.min())
         if abs(best - best_prev) < conv_eps:
             best_prev = best
             break
         best_prev = best
-        x_stacks = _rev_x_stack(x_stacks)
-        A_stack = _rev_A_stack(A_stack)
-        reversed_state = not reversed_state
     if reversed_state:
         x_stacks = _rev_x_stack(x_stacks)
+    _check_kernels(x_stacks)
     winner = int(torch.argmin(energies))
     _set_components(x, x_stacks[winner], d, n, int(r), normalize=True)
     return best_prev
@@ -741,11 +859,12 @@ def dmrg_groundstate_scan(A, x, num_half_sweeps: int = 8,
     d = len(A_cores)
     n = A_cores[0].shape[1]
     A_stack = _pad_operator_stack(A_cores, x_stack.dtype)
-    body = _half_sweep(solver, int(r), int(lobpcg_iters))
     if shift is None:
         # the estimate needs no shift itself: unshifted half-sweeps, so a
         # negative-ground problem never carries the projector
-        shift = _estimate_shift(body, x_stack, A_stack)
+        shift = _estimate_shift(
+            _sweep_program(int(r), solver, int(lobpcg_iters)), x_stack,
+            A_stack)
     shift = float(shift)
     shifted = shift != 0.0
     energy = math.inf
