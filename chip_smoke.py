@@ -71,8 +71,11 @@ full width:
   its full grid, and UQ-ADF on the card and under ``host()``;
 - K4 and K5 (small_eigh, small_svd: Jacobi eigh and SVD in float64,
   ``csrc/jacobi.cu``) against their plain versions and torch.linalg at the
-  eigensolver path's shapes and (256, 256), with a penalized Ritz matrix,
-  a rank-deficient split and route gmem bitwise route smem;
+  eigensolver path's shapes and (256, 256), graded splits, a penalized
+  Ritz matrix, a rank-deficient split, two cluster sizes and route gmem
+  against route cluster bitwise, route gmem past a cluster's shared
+  memory against torch.linalg, and K4's route cta against its cluster
+  route on one CTA;
 - the eigensolver and the rest of the algorithms layer through the public
   names, in float64: workload 4 (the d=32 Heisenberg chain's ground state
   at max_rank 16) by ``xt.smallest_eigenvalue`` with the dense local eigh
@@ -420,19 +423,28 @@ def _max_abs_per_core(a, b):
     return [float(np.max(np.abs(x - y))) for x, y in zip(a, b)]
 
 
+def _device_events(prof):
+    """The device activities torch.profiler recorded, as (name, start ns,
+    end ns), read from its raw results: building its FunctionEvent tree
+    for the 250,000 kernels of a replayed Lanczos solve took most of a
+    minute on the host."""
+    from torch.autograd import DeviceType
+    return [(e.name(), e.start_ns(), e.end_ns())
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA]
+
+
 def _kernel_counts(fn, names):
     """``fn()`` once under torch.profiler (CUDA activity): its result and,
     for each of ``names``, the device kernels whose name holds it; a kernel
     replayed in a CUDA graph counts like one launched alone."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         out = fn()
         torch.cuda.synchronize()
-    kernels = [e.name for e in prof.events()
-               if e.device_type == DeviceType.CUDA]
+    kernels = [name for name, _, _ in _device_events(prof)]
     return out, [sum(n in k for k in kernels) for n in names]
 
 
@@ -555,9 +567,9 @@ def _device_busy(fn, top: int = 0):
     """``fn`` once under torch.profiler (CUDA activity): (host wall s,
     device busy s or None where the profiler saw no device time, kernels),
     busy the union of the kernels' intervals; with ``top``, a fourth item:
-    the ``top`` kernel names by summed device time, as (name, s, count)."""
+    the ``top`` kernel names by summed device time, as (name, s, count)
+    (every name for ``top`` < 0)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -565,23 +577,23 @@ def _device_busy(fn, top: int = 0):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    busy, end = 0.0, float("-inf")
+    kernels = _device_events(prof)
+    spans = sorted((a, b) for _, a, b in kernels)
+    busy, end = 0, float("-inf")
     for a, b in spans:
         if b > end:
             busy += b - max(a, end)
             end = b
-    out = (wall, (busy * 1e-6 if spans else None), len(spans))
+    out = (wall, (busy * 1e-9 if spans else None), len(spans))
     if not top:
         return out
     by_name = {}
-    for e in kernels:
-        t, n = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (t + (e.time_range.end - e.time_range.start) * 1e-6,
-                           n + 1)
-    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
-    return out + ([(name, t, n) for name, (t, n) in ranked],)
+    for name, a, b in kernels:
+        t, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (t + (b - a) * 1e-9, n + 1)
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    return out + ([(name, t, n) for name, (t, n) in
+                   (ranked if top < 0 else ranked[:top])],)
 
 
 def phase_breakdown(dev, smi):
@@ -2003,10 +2015,28 @@ JAC_SVD = [("split, rank 16", 1, 32, 32), ("split, multistart", 4, 32, 32),
            ("split, dmrg_solve rank 30", 1, 60, 60),
            ("past the path", 1, 256, 256)]
 JAC_BAR = 1e-13
+# graded splits (sigma = logspace(0, -11) under seeded orthogonal factors,
+# the grading of the DMRG blocks): K5's QR-preconditioned Jacobi must take
+# at most JAC_GRADED_SWEEPS sweeps (one-sided Jacobi alone took up to 27)
+JAC_GRADED = [("graded split, rank 16", 32), ("graded split, rank 64", 128)]
+JAC_GRADED_SWEEPS = 12
+# pairs of cluster sizes that must give the same bits: (kind, n, sizes)
+JAC_CLUSTER_PAIRS = [("eigh", 64, (1, 2)), ("eigh", 256, (8, 16)),
+                     ("svd", 64, (2, 4)), ("svd", 128, (4, 8))]
+# route gmem (the columns in global memory) against route cluster at the
+# same plan, which must give the same bits: (kind, n, cluster size)
+JAC_GMEM_PAIRS = [("eigh", 64, 2), ("eigh", 256, 16), ("svd", 32, 1),
+                  ("svd", 128, 16)]
+# past a cluster's shared memory, where the plans take route gmem: against
+# torch.linalg only (the plain version would take minutes there)
+JAC_PAST_SMEM = [("eigh", 512), ("svd", 384)]
+# K4's route cluster on one CTA against route cta at the Ritz shapes
+JAC_ONE_CTA = [24, 3]
 # the main shapes of the kernels line: the rank-16 Lanczos solve's
 JAC_MAIN = {"small_eigh": "Ritz, Lanczos", "small_svd": "split, rank 16"}
-# kernel names of K4 and K5 (csrc/jacobi.cu), counted on the device
-K4_KERNEL, K5_KERNEL = "small_eigh_kernel", "small_svd_kernel"
+# kernel names of K4 (its cta and cluster routes share the prefix) and K5
+# (csrc/jacobi.cu), counted on the device
+K4_KERNEL, K5_KERNEL = "small_eigh_", "small_svd_kernel"
 
 
 def _ritz_matrix(rng, m=24, valid=10):
@@ -2046,8 +2076,10 @@ def _function_ops(kind, shape):
 
 def _jacobi_ops(kind, shape, h):
     """FP64 operations Jacobi did in one launch, from its health record
-    ``h``: the pair tests of every sweep, the rotations done, the final
-    norms.  Printed beside the bound, which counts ``_function_ops``."""
+    ``h``: K4 the pair tests of every sweep and the rotations done; K5
+    besides them the pivoted QR (4 R C^2 - 4 C^3 / 3), the left factor's
+    reflectors (4 R C^2) and the final norms.  Printed beside the bound,
+    which counts ``_function_ops``."""
     B = shape[0]
     if kind == "eigh":
         m = shape[1]
@@ -2055,8 +2087,18 @@ def _jacobi_ops(kind, shape, h):
         return h["total_sweeps"] * pairs * 6 + h["rotations"] * (18 * m + 20)
     R, C = max(shape[1:]), min(shape[1:])
     pairs = C * (C - 1) // 2
-    return (h["total_sweeps"] * pairs * 6 * R
-            + h["rotations"] * (6 * (R + C) + 20) + B * 2 * R * C)
+    return (h["total_sweeps"] * pairs * 6 * C
+            + h["rotations"] * (12 * C + 20)
+            + B * (8 * R * C * C - 4 * C ** 3 // 3 + 2 * C * C))
+
+
+def _graded(n, seed):
+    """sigma = logspace(0, -11, n) under seeded orthogonal factors."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    U = np.linalg.qr(rng.standard_normal((n, n)))[0]
+    V = np.linalg.qr(rng.standard_normal((n, n)))[0]
+    return (U * np.logspace(0, -11, n)) @ V.T
 
 
 def _jacobi_case(kind, name, A, dev, smi):
@@ -2113,7 +2155,9 @@ def _jacobi_case(kind, name, A, dev, smi):
     bound_ms, bound_by = _bound(nbytes, ops, "float64")
     sweeps = st.tolist()
     print(f"jacobi: K{4 if kind == 'eigh' else 5} {name} {shape}: route "
-          f"{plan.route}, sweeps {sweeps} (plain {sp.tolist()}), rotations "
+          f"{plan.route} ({plan.ctas} CTA{'s' if plan.ctas > 1 else ''} of "
+          f"{plan.threads} threads a matrix), sweeps {sweeps} (plain "
+          f"{sp.tolist()}), rotations "
           f"{h['rotations']}, Jacobi's FP64 operations {jac_ops} against "
           f"the function's {ops} (the bound's, {jac_ops / ops:.2f}x); gap "
           f"to the plain version {gap_plain:.3e}, "
@@ -2126,18 +2170,95 @@ def _jacobi_case(kind, name, A, dev, smi):
     if not (min(sweeps) > 0 and gap_plain <= bar * scale
             and gap_lib <= bar and orth <= bar and rel <= bar):
         fails.append(f"K{4 if kind == 'eigh' else 5} {name} {shape}")
-    row = {"shape": list(shape), "route": plan.route, "ms": ms,
+    row = {"shape": list(shape), "route": plan.route, "ctas": plan.ctas,
+           "threads": plan.threads, "ms": ms,
            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
            "library_ms": lib_ms, "max_abs_err": gap_plain,
            "sweeps_max": max(sweeps), "ops": ops, "jacobi_ops": jac_ops}
     return row, fails
 
 
+def _jacobi_past_smem(kind, n, rng, dev, smi):
+    """K4 or K5 at (1, n, n) on route gmem against torch.linalg: value
+    gap, orthogonality and reconstruction within JAC_BAR n / 128, and both
+    times.  Returns the fails."""
+    import torch
+    from xerus_tpu_torch.ops import small_eig as se
+    A = torch.from_numpy(rng.standard_normal((1, n, n))).to(dev)
+    if kind == "eigh":
+        A = A + A.transpose(1, 2)
+        plan = se.eigh_plan(n)
+        run = lambda: se.small_eigh_launch(A)              # noqa: E731
+        lib = lambda: torch.linalg.eigh(A)                 # noqa: E731
+        w, V, st = run()
+        vals, lib_vals, factors = w, lib()[0], [V]
+        rec = V @ torch.diag_embed(w) @ V.transpose(1, 2)
+        lib_name = "torch.linalg.eigh"
+    else:
+        plan = se.svd_plan(n, n)
+        run = lambda: se.small_svd_launch(A)               # noqa: E731
+        lib = lambda: torch.linalg.svd(A, full_matrices=False,  # noqa: E731
+                                       driver="gesvd")
+        U, S, Vh, st = run()
+        vals, lib_vals, factors = S, lib()[1], [U, Vh.transpose(1, 2)]
+        rec = U @ torch.diag_embed(S) @ Vh
+        lib_name = "torch.linalg.svd(gesvd)"
+    se.check_health(dev)
+    scale = float(lib_vals.abs().max())
+    gap = float((vals - lib_vals).abs().max()) / scale
+    orth = max(float((Q.transpose(1, 2) @ Q - torch.eye(
+        n, dtype=Q.dtype, device=dev)).abs().max()) for Q in factors)
+    rel = float((rec - A).norm() / A.norm())
+    ms, lib_ms = _time_ms(run, reps=5), _time_ms(lib, reps=5)
+    bar = JAC_BAR * n / 128
+    print(f"jacobi: K{4 if kind == 'eigh' else 5} past a cluster's shared "
+          f"memory (1, {n}, {n}): route {plan.route} ({plan.ctas} CTAs of "
+          f"{plan.threads} threads, {plan.smem} bytes of shared memory "
+          f"each), sweeps {st.tolist()}; value gap to {lib_name} {gap:.3e} "
+          f"of the largest, ||Q^T Q - I|| {orth:.3e}, ||A - rec|| / ||A|| "
+          f"{rel:.3e} (bar {bar:g}); {ms:.4f} ms, {lib_name} {lib_ms:.4f} "
+          f"ms ({ms / lib_ms:.2f}x); {smi}")
+    if not (plan.route == se.GMEM and int(st[0]) > 0 and gap <= bar
+            and orth <= bar and rel <= bar):
+        return [f"K{4 if kind == 'eigh' else 5} (1, {n}, {n}) on route gmem"]
+    return []
+
+
+def _jacobi_one_cta(rng, dev, smi):
+    """K4's route cluster forced onto one CTA against route cta at the
+    Ritz shapes: both times on the same input, and their eigenvalues
+    within JAC_BAR.  Returns the fails."""
+    import torch
+    from xerus_tpu_torch.ops import small_eig as se
+    fails = []
+    for m in JAC_ONE_CTA:
+        A = rng.standard_normal((1, m, m))
+        A = torch.from_numpy(A + A.transpose(0, 2, 1)).to(dev)
+        one = se.eigh_plan(m, se.CLUSTER, 1)
+        w_cta = se.small_eigh_launch(A)[0]
+        w_one = se.small_eigh_launch(A, one)[0]
+        se.check_health(dev)
+        gap = float((w_cta - w_one).abs().max()) / float(w_cta.abs().max())
+        ms_cta = _time_ms(lambda: se.small_eigh_launch(A), reps=50)
+        ms_one = _time_ms(lambda: se.small_eigh_launch(A, one), reps=50)
+        print(f"jacobi: K4 (1, {m}, {m}): route cta {ms_cta:.4f} ms, route "
+              f"cluster on one CTA ({one.threads} threads, mm {one.mm}) "
+              f"{ms_one:.4f} ms ({ms_one / ms_cta:.2f}x); eigenvalue gap "
+              f"{gap:.3e} of the largest; {smi}")
+        if gap > JAC_BAR:
+            fails.append(f"K4 (1, {m}, {m}) on one cluster CTA")
+    return fails
+
+
 def phase_jacobi(dev, smi):
     """K4 and K5 against their plain versions and torch.linalg on the card
-    at the eigensolver path's shapes and (256, 256); the penalized Ritz
+    at the eigensolver path's shapes and (256, 256), and K5 on graded
+    splits (at most ``JAC_GRADED_SWEEPS`` sweeps); the penalized Ritz
     matrix; a rank-deficient boundary split (an orthonormal U where sigma
-    is zero); route gmem bitwise route smem.  Returns {kernel: {"rows":
+    is zero); two cluster sizes bitwise equal, and route gmem bitwise route
+    cluster; route gmem past a cluster's shared memory against
+    torch.linalg; K4's route cluster on one CTA against route cta at the
+    Ritz shapes.  Returns {kernel: {"rows":
     {case: row}, "max_abs_err": ...}}."""
     import numpy as np
     import torch
@@ -2157,6 +2278,16 @@ def phase_jacobi(dev, smi):
         row, f = _jacobi_case("svd", name, A, dev, smi)
         out["small_svd"]["rows"][name] = row
         fails += f
+    for name, n in JAC_GRADED:
+        A = torch.from_numpy(_graded(n, SEED + n)[None]).to(dev)
+        row, f = _jacobi_case("svd", name, A, dev, smi)
+        out["small_svd"]["rows"][name] = row
+        fails += f
+        print(f"jacobi: K5 {name} ({n}, {n}), sigma 1 .. 1e-11: "
+              f"{row['sweeps_max']} sweeps (bar {JAC_GRADED_SWEEPS}; "
+              f"one-sided Jacobi alone took up to 27 on the DMRG splits)")
+        if row["sweeps_max"] > JAC_GRADED_SWEEPS:
+            fails.append(f"K5 {name}: {row['sweeps_max']} sweeps")
     for kernel in out.values():
         kernel["max_abs_err"] = max(r["max_abs_err"]
                                     for r in kernel["rows"].values())
@@ -2192,23 +2323,49 @@ def phase_jacobi(dev, smi):
             and int(st.min()) > 0):
         fails.append("the rank-deficient split")
 
-    # route gmem runs route smem's steps in its order: bitwise equal
-    A = torch.from_numpy(rng.standard_normal((2, 24, 24))).to(dev)
-    A = A + A.transpose(1, 2)
-    same = [all(torch.equal(x, y) for x, y in zip(
-        se.small_eigh_launch(A, se.eigh_plan(24)),
-        se.small_eigh_launch(A, se.eigh_plan(24, se.GMEM))))]
-    for M in (32, 64):
-        A = torch.from_numpy(rng.standard_normal((2, M, M))).to(dev)
-        same.append(all(torch.equal(x, y) for x, y in zip(
-            se.small_svd_launch(A, se.svd_plan(M, M)),
-            se.small_svd_launch(A, se.svd_plan(M, M, se.GMEM)))))
+    # every element's arithmetic is the same whichever CTA does it: two
+    # cluster sizes of a route give the same bits
+    same = []
+    for kind, n, sizes in JAC_CLUSTER_PAIRS:
+        A = torch.from_numpy(rng.standard_normal((2, n, n))).to(dev)
+        if kind == "eigh":
+            A = A + A.transpose(1, 2)
+            a, b = (se.small_eigh_launch(A, se.eigh_plan(n, se.CLUSTER, c))
+                    for c in sizes)
+        else:
+            a, b = (se.small_svd_launch(A, se.svd_plan(n, n, c))
+                    for c in sizes)
+        same.append(all(torch.equal(x, y) for x, y in zip(a, b)))
     se.check_health(dev)
-    print(f"jacobi: route gmem bitwise route smem at K4 (2, 24, 24), K5 "
-          f"(2, 32, 32), (2, 64, 64): {same}; phase "
-          f"{time.perf_counter() - t0:.1f} s")
+    print("jacobi: cluster sizes bitwise equal: " + ", ".join(
+        f"K{4 if kind == 'eigh' else 5} (2, {n}, {n}) on {sizes[0]} and "
+        f"{sizes[1]} CTAs {ok}" for (kind, n, sizes), ok
+        in zip(JAC_CLUSTER_PAIRS, same)))
     if not all(same):
-        fails.append("route gmem differs from route smem")
+        fails.append("two cluster sizes differ")
+    # route gmem runs route cluster's steps in the same orders
+    same = []
+    for kind, n, c in JAC_GMEM_PAIRS:
+        A = torch.from_numpy(rng.standard_normal((2, n, n))).to(dev)
+        if kind == "eigh":
+            A = A + A.transpose(1, 2)
+            a, b = (se.small_eigh_launch(A, se.eigh_plan(n, r, c))
+                    for r in (se.CLUSTER, se.GMEM))
+        else:
+            a, b = (se.small_svd_launch(A, se.svd_plan(n, n, c, r))
+                    for r in (se.CLUSTER, se.GMEM))
+        same.append(all(torch.equal(x, y) for x, y in zip(a, b)))
+    se.check_health(dev)
+    print("jacobi: route gmem bitwise route cluster: " + ", ".join(
+        f"K{4 if kind == 'eigh' else 5} (2, {n}, {n}) on {c} CTA"
+        f"{'s' if c > 1 else ''} {ok}" for (kind, n, c), ok
+        in zip(JAC_GMEM_PAIRS, same)))
+    if not all(same):
+        fails.append("route gmem differs from route cluster")
+    for kind, n in JAC_PAST_SMEM:
+        fails += _jacobi_past_smem(kind, n, rng, dev, smi)
+    fails += _jacobi_one_cta(rng, dev, smi)
+    print(f"jacobi: phase {time.perf_counter() - t0:.1f} s")
     if fails:
         raise AssertionError("jacobi: " + "; ".join(fails))
     return out
@@ -3524,6 +3681,11 @@ EIG_APPLY_EXACT = 1e-10        # relative, where the target holds the product
 EIG_CARD_HOST = 1e-10          # the kit and the cascade, card vs host()
 EIG_CASCADE = (10, 32, 10)     # proteins, copies per site, Euler steps
 EIG_PHASE_S = 150.0
+# PR 15's readings on the same card (PERF.md section 6): the replayed
+# rank-16 Lanczos solve, K5's and K4's device time in one replayed
+# half-sweep, the rank-64 cell's first run
+EIG_PR15 = {"lanczos_s": (1.105, 1.356), "k5_ms": 24.60, "k4_ms": 8.79,
+            "rank64_s": 6.092}
 # ops.dmrg_kernels.dmrg_groundstate_scan by the dense local eigh (solver
 # 'eigh', eager: cuSOLVER's info read forbids a capture) on the d=6
 # Heisenberg chain at its full ranks, every half-sweep run (conv_eps 0)
@@ -3642,13 +3804,16 @@ def _timed(fn):
 
 
 def _dmrg_solve_case(xt, dev):
-    """xt.dmrg_solve on the north-star objects and on test_als.py's d=10
-    instance, on the current compute device: (residual, ranks, wall) and
-    (residual, ranks, error against the truth, wall)."""
+    """xt.dmrg_solve on the north-star objects (every one of its
+    half-sweeps: conv_eps 0, so that it runs past programs.EAGER_CALLS and
+    captures) and on test_als.py's d=10 instance, on the current compute
+    device: (residual, ranks, wall) and (residual, ranks, error against
+    the truth, wall)."""
     max_rank, half_sweeps = EIG_SOLVE
     x, A, b = _poisson_objects(xt, D, RANK, dev)
     res, wall = _timed(lambda: xt.dmrg_solve(A, x, b, max_rank=max_rank,
-                                            num_half_sweeps=half_sweeps))
+                                            num_half_sweeps=half_sweeps,
+                                            conv_eps=0.0))
     _solve_counts.last = _solve_counts()
     d, max_rank, half_sweeps = EIG_SOLVE_SMALL
     xt.set_seed(SEED)
@@ -3795,6 +3960,13 @@ def phase_eigensolver(dev, smi):
     from xerus_tpu_torch.examples import bench_round_instance
     t_phase = time.perf_counter()
     fails = []
+    laps = []          # (step, wall s): where the phase's time goes
+
+    def lap(name):
+        start = laps[-1][2] if laps else t_phase
+        now = time.perf_counter()
+        laps.append((name, now - start, now))
+        print(f"eigensolver: step {name}: {now - start:.3f} s")
 
     from xerus_tpu_torch.ops import programs
 
@@ -3814,13 +3986,16 @@ def phase_eigensolver(dev, smi):
         fails.append(f"workload 4 by the exact local eigh: E {r['E']!r}, "
                      f"eig_residual {r['res']:.6e}")
     exact_wall = r["wall"]
+    lap("workload 4 by the dense local eigh")
 
     # 2. the card's default solver (Lanczos), shift 0: the first run at
     # its shape key runs programs.EAGER_CALLS half-sweeps eagerly, captures
     # the third and replays the rest; the timed run replays every one
     warm = _workload4(xt, 16, count_syncs=True, shift=0.0)
     print(_w4_line("default solver, shift 0, first run", warm))
+    lap("Lanczos rank 16, first run (eager, capture, replays)")
     r = _workload4(xt, 16, count_syncs=True, shift=0.0)
+    lap("Lanczos rank 16, replayed")
     print(_w4_line("default solver, shift 0", r)
           + f"; JAX CPU f64 Lanczos {EIG_E_JAX_LANCZOS!r}, gap "
           f"{r['E'] - EIG_E_JAX_LANCZOS:+.3e}; wall {r['wall']:.3f} s "
@@ -3843,6 +4018,7 @@ def phase_eigensolver(dev, smi):
     pr, jac_launches = _kernel_counts(
         lambda: _workload4(xt, 16, shift=0.0), (K4_KERNEL, K5_KERNEL))
     jac_launches = tuple(jac_launches)
+    lap("Lanczos rank 16 under torch.profiler")
     print(f"eigensolver: the replayed Lanczos solve under torch.profiler "
           f"ran {jac_launches[0]} {K4_KERNEL} and {jac_launches[1]} "
           f"{K5_KERNEL} kernels on the device in {pr['half_sweeps']} "
@@ -3862,30 +4038,48 @@ def phase_eigensolver(dev, smi):
           f"runs, {prog.captures} capture, {prog.replays} replays")
     if not same:
         fails.append("a replayed half-sweep differs from its eager run")
-    # where the replayed solve's wall goes: one half-sweep replayed alone
-    # (host wall; device busy under torch.profiler) against the solve's
+    # one replayed half-sweep: its wall alone, then under torch.profiler
+    # its device busy time and every kernel name's device time (K4's and
+    # K5's summed over their names)
     one = statistics.median(_timed(lambda: prog(*args))[1]
                             for _ in range(3))
-    pw, busy, kernels, top = _device_busy(lambda: prog(*args), top=4)
+    pw, busy, kernels, ranked = _device_busy(lambda: prog(*args), top=-1)
+    (k4_s, k4_n), (k5_s, k5_n) = (
+        (sum(t for name, t, _ in ranked if k in name),
+         sum(c for name, _, c in ranked if k in name))
+        for k in (K4_KERNEL, K5_KERNEL))
+    print(f"eigensolver: one replayed rank-16 half-sweep under "
+          f"torch.profiler: K5 {k5_s * 1e3:.3f} ms of device time over "
+          f"{k5_n} launches, K4 {k4_s * 1e3:.3f} ms over {k4_n} (PR 15: "
+          f"K5 {EIG_PR15['k5_ms']} ms, K4 {EIG_PR15['k4_ms']} ms); the "
+          f"replayed rank-16 solve {r['wall']:.3f} s (PR 15: "
+          f"{EIG_PR15['lanczos_s'][0]}-{EIG_PR15['lanczos_s'][1]} s); {smi}")
+    # where the replayed solve's wall goes: the half-sweep against the
+    # solve's
     print(f"eigensolver: one replayed half-sweep {one * 1e3:.2f} ms (median "
           f"of 3); under torch.profiler {pw * 1e3:.2f} ms, device busy "
           + (f"{busy * 1e3:.2f} ms, idle {1 - busy / pw:.3f}"
              if busy is not None else "not measured")
           + f", {kernels} kernels, by device time "
           + ", ".join(f"{name[:40]} {t * 1e3:.2f} ms x{k}"
-                      for name, t, k in top)
+                      for name, t, k in ranked[:4])
           + f"; the replayed solve's {n} half-sweeps take about "
           f"{n * one:.3f} s of its {r['wall']:.3f} s, the rest is the "
           f"object layer around them (rank bump, canonicalization) and its "
           f"syncs")
+    lap("the half-sweep program: replay vs eager, profiled")
 
     # 3. the measurement cell: is 1.055e-02 the rank-16 floor?
     for rank in EIG_RANK_CELL:
         c = r if rank == 16 else _workload4(xt, rank, count_syncs=True,
                                              solver="lanczos", shift=0.0)
-        print(_w4_line(f"cell, Lanczos max_rank {rank}", c))
+        print(_w4_line(f"cell, Lanczos max_rank {rank}", c)
+              + (f"; PR 15's first run {EIG_PR15['rank64_s']} s"
+                 if rank == 64 else ""))
         if not on_kernels(c):
             fails.append(f"the rank-{rank} cell is not on K4/K5")
+        if rank != 16:
+            lap(f"cell rank {rank}, first run")
 
     # the 4-start race: one batch per half-sweep, the first start x itself
     m = _workload4(xt, 16, count_syncs=True, shift=0.0, num_starts=4)
@@ -3894,6 +4088,7 @@ def phase_eigensolver(dev, smi):
     if not (on_kernels(m) and m["E"] <= r["E"] + EIG_E_BAR
             and m["captures"] == 1):
         fails.append(f"the 4-start race: E {m['E']!r}")
+    lap("4-start race, first run")
 
     # the dense local eigh's scan runs eagerly past the third half-sweep
     # at one shape key (where a program would capture)
@@ -3913,6 +4108,7 @@ def phase_eigensolver(dev, smi):
             and sc[2] == sh[2] == 2 + sweeps and sc[3] > 0 and sc[4] > 0):
         fails.append(f"dmrg_groundstate_scan(solver='eigh'): E {sc[0]!r} "
                      f"/ {sh[0]!r}, {sc[2]} energy reads")
+    lap("dense-eigh scan, card and host()")
 
     # 4. dmrg_solve, card and host(): on the north-star objects the
     # reference's fixed 32 CG steps a site meet local systems of condition
@@ -3950,6 +4146,7 @@ def phase_eigensolver(dev, smi):
         if not (r[0] < EIG_SOLVE_BAR and r[2] < EIG_SOLVE_BAR
                 and max(r[1]) == max_rank and r[1] == small_h[1]):
             fails.append("dmrg_solve on test_als.py's instance")
+    lap("dmrg_solve, card and host()")
 
     # 5. the fused apply + round: quasi-optimal against apply_operator and
     # its svd rounding (a loose bar here, where the svd rounding itself
@@ -4015,6 +4212,7 @@ def phase_eigensolver(dev, smi):
     if not (e_exact <= EIG_APPLY_EXACT and max(Ax30.ranks()) <= target):
         fails.append("apply_operator_rounded is not exact at a "
                      "representable rank")
+    lap("apply_operator_rounded, card and host()")
 
     # 6. the Riemannian kit, decomposition_als, randomTTSVD, the cascade
     walls = {}
@@ -4036,8 +4234,10 @@ def phase_eigensolver(dev, smi):
         if not (diff <= EIG_CARD_HOST and ranks == ranks_cpu
                 and np.all(np.isfinite(v_card))):
             fails.append(f"{name}: card and host() disagree")
+    lap("kit, decomposition_als, randomTTSVD, cascade, card and host()")
     wall = time.perf_counter() - t_phase
-    print(f"eigensolver: phase {wall:.1f} s (bar {EIG_PHASE_S:g} s)")
+    print(f"eigensolver: phase {wall:.1f} s (bar {EIG_PHASE_S:g} s) by step: "
+          + ", ".join(f"{name} {t:.1f} s" for name, t, _ in laps))
     if wall > EIG_PHASE_S:
         fails.append(f"the phase took {wall:.1f} s")
     if fails:

@@ -1,7 +1,8 @@
 """K4 and K5's plain versions (xerus_tpu_torch.ops.small_eig: Jacobi
-eigh and SVD in float64, the kernels' steps in torch) held against LAPACK
-on the CPU, and the Lanczos half-sweep run on them against its LAPACK
-route.
+eigh and QR-preconditioned Jacobi SVD in float64, the kernels' steps in
+torch) held against LAPACK and jnp.linalg on the CPU, the kernels' pair
+order, slot ring and plans, and the Lanczos half-sweep run on the plain
+versions against its LAPACK route.
 
 Eigenvectors and singular vectors are compared only through gauge-free
 quantities: eigenvalues and singular values against numpy's LAPACK within
@@ -9,7 +10,8 @@ quantities: eigenvalues and singular values against numpy's LAPACK within
 ||U S Vh - A|| within 1e-13 of ||A||, ||V^T V - I|| within 1e-13 (float32
 inputs: 1e-5, after the cast back).  The half-sweep's energy agrees with
 the LAPACK route's within 1e-10 and its represented state up to a global
-sign within 1e-8.  The comparison against jnp.linalg is in the slow tier."""
+sign within 1e-8.  The graded splits and the penalized Ritz matrix are
+also held to jnp.linalg here; every case against it is in the slow tier."""
 
 import numpy as np
 import pytest
@@ -63,7 +65,8 @@ def _eigh_cases():
     return {"m=3": _sym(rng, 4, 3), "m=24": _sym(rng, 4, 24),
             "m=32": _sym(rng, 2, 32), "penalized Ritz": _ritz(rng),
             "repeated": _repeated(rng), "m=1": _sym(rng, 3, 1),
-            "diagonal": np.diag(rng.standard_normal(6))[None]}
+            "diagonal": np.diag(rng.standard_normal(6))[None],
+            "m=48, route cluster": _sym(rng, 2, 48)}
 
 
 def _svd_cases():
@@ -73,7 +76,9 @@ def _svd_cases():
             "5x3": rng.standard_normal((3, 5, 3)),
             "3x5": rng.standard_normal((3, 3, 5)),
             "zero": np.zeros((1, 6, 6)),
-            "64x64": rng.standard_normal((1, 64, 64))}
+            "64x64": rng.standard_normal((1, 64, 64)),
+            "48x40": rng.standard_normal((1, 48, 40)),
+            "34x34, padded to 36 on 2 CTAs": rng.standard_normal((1, 34, 34))}
 
 
 def _eigh_errors(A, w, V):
@@ -144,16 +149,99 @@ def test_small_svd_plain_matches_lapack(name):
 
 
 def test_small_svd_plain_completes_u_where_sigma_is_zero():
-    """The rank-4 block: sigma 5.. are exactly zero and U's columns there
-    are an orthonormal completion (the shift projector needs orthonormal
-    padded frames), not zero columns."""
+    """The rank-4 block: sigma 5.. are exactly zero; U = Q V_J is
+    orthonormal by construction (the shift projector needs orthonormal
+    padded frames), not zero columns, and Vh's rows there are the
+    orthonormal completion."""
     A = _deficient(np.random.default_rng(SEED + 4))
     U, S, Vh, _ = se.small_svd_plain(torch.from_numpy(A))
     assert torch.all(S[:, 4:] == 0) and torch.all(S[:, :4] > 0)
     K = S.shape[1]
-    assert float((U.transpose(1, 2) @ U - torch.eye(K,
-                 dtype=U.dtype)).abs().max()) <= TOL
+    eye = torch.eye(K, dtype=U.dtype)
+    assert float((U.transpose(1, 2) @ U - eye).abs().max()) <= TOL
+    assert float((Vh @ Vh.transpose(1, 2) - eye).abs().max()) <= TOL
     assert float(U[:, :, 4:].norm(dim=1).min()) > 1.0 - TOL
+
+
+def _graded(n, seed):
+    """sigma = logspace(0, -11, n) under seeded orthogonal factors: the
+    grading of the DMRG splits, where one-sided Jacobi alone took up to 27
+    sweeps."""
+    rng = np.random.default_rng(seed)
+    U = np.linalg.qr(rng.standard_normal((n, n)))[0]
+    V = np.linalg.qr(rng.standard_normal((n, n)))[0]
+    return ((U * np.logspace(0, -11, n)) @ V.T)[None]
+
+
+@pytest.mark.parametrize("n", [32, 48])
+def test_small_svd_plain_takes_at_most_12_sweeps_on_a_graded_split(n):
+    """The pivoted QR first: at most 12 sweeps (6-8 measured), sigma
+    within 1e-13 of the largest against LAPACK and jnp.linalg.svd."""
+    import jax.numpy as jnp
+    A = _graded(n, SEED + n)
+    U, S, Vh, status = se.small_svd_plain(torch.from_numpy(A))
+    assert 0 < int(status[0]) <= 12
+    _svd_check(A, U, S, Vh, TOL)
+    ref = np.asarray(jnp.linalg.svd(jnp.asarray(A), compute_uv=False))
+    assert np.abs(S.numpy() - ref).max() <= TOL * ref.max()
+    # without the QR, the same Jacobi takes far more sweeps here
+    X = torch.from_numpy(A).clone()
+    assert int(se.small_svd_plain(X)[3][0]) < _one_sided_sweeps(X[0])
+
+
+def _one_sided_sweeps(W):
+    """Sweeps of PR 15's K5 (one-sided Jacobi on W's columns with the same
+    tests and rotation, no QR) on the (R, C) W."""
+    W = W.clone()
+    R, C = W.shape
+    tol = se.svd_tol(R, C)
+    dead2 = (tol * float(W.norm())) ** 2
+    rounds = [(torch.tensor(P), torch.tensor(Q))
+              for P, Q in se.round_robin(C) if P]
+    for sweep in range(se.CAP):
+        rotated = False
+        for P, Q in rounds:
+            x, y = W[:, P], W[:, Q]
+            al, be, ga = (x * x).sum(0), (y * y).sum(0), (x * y).sum(0)
+            rot = (al > dead2) & (be > dead2) & (ga != 0) \
+                & se._off_diagonal(al, be, ga, tol)
+            c, s, _ = se._rotation(al, be, ga)
+            c, s = torch.where(rot, c, 1.0), torch.where(rot, s, 0.0)
+            W[:, P], W[:, Q] = c * x - s * y, s * x + c * y
+            rotated |= bool(rot.any())
+        if not rotated:
+            return sweep + 1
+    return se.CAP + 1
+
+
+def test_penalized_ritz_matrix_matches_jax_linalg():
+    import jax.numpy as jnp
+    T = _ritz(np.random.default_rng(SEED + 7))
+    w, V, status = se.small_eigh_plain(torch.from_numpy(T))
+    ref = np.asarray(jnp.linalg.eigh(jnp.asarray(T))[0])
+    assert int(status[0]) > 0
+    assert np.abs(w.numpy() - ref).max() <= TOL * np.abs(ref).max()
+    blk = T[0, :10, :10]
+    assert abs(float(w[0, 0]) - np.linalg.eigvalsh(blk)[0]) <= \
+        TOL * np.abs(blk).max()
+
+
+@pytest.mark.parametrize("scale", [1.0, 1e200, 1e-200])
+def test_rotation_annihilates_at_any_scale(scale):
+    """The kernels' half-angle rotation: c^2 + s^2 = 1 and J^T [[a, g],
+    [g, b]] J diagonal to rounding, t = s / c as tau's formula gives it,
+    with (d, 2g) scaled by a power of two past 1e150 or below 1e-150."""
+    rng = np.random.default_rng(SEED + 8)
+    a, b, g = (torch.from_numpy(rng.standard_normal(64) * scale)
+               for _ in range(3))
+    c, s, t = se._rotation(a, b, g)
+    assert float((c * c + s * s - 1).abs().max()) <= 4 * se.EPS
+    off = (c * c - s * s) * g + c * s * (a - b)
+    assert float((off.abs() / (a.abs() + b.abs() + g.abs())).max()) <= \
+        8 * se.EPS
+    tau = (b - a) / (2 * g)
+    ref = torch.sign(tau) / (tau.abs() + torch.sqrt(1 + tau * tau))
+    assert float(((t - ref) / ref).abs().max()) <= 8 * se.EPS
 
 
 @pytest.mark.parametrize("kind", ["eigh", "svd"])
@@ -175,27 +263,113 @@ def test_float32_inputs_are_solved_in_float64(kind):
     assert bool((status > 0).all())
 
 
-def test_round_robin_meets_every_pair_once_a_sweep():
-    for n in (1, 2, 3, 24, 31):
-        seen = [pq for P, Q in se.round_robin(n) for pq in zip(P, Q)]
-        assert sorted(seen) == [(p, q) for p in range(n)
-                                for q in range(p + 1, n)]
-        for P, Q in se.round_robin(n):
-            assert len(set(P) | set(Q)) == 2 * len(P)   # disjoint
+@pytest.mark.parametrize("n,mm", [(1, 0), (2, 0), (3, 0), (24, 0), (31, 0),
+                                  (3, 4), (5, 32), (48, 64), (31, 32)])
+def test_round_robin_meets_every_pair_once_a_sweep(n, mm):
+    rounds = se.round_robin(n, mm)
+    assert len(rounds) == (mm or n + (n & 1)) - 1
+    seen = [pq for P, Q in rounds for pq in zip(P, Q)]
+    assert sorted(seen) == [(p, q) for p in range(n)
+                            for q in range(p + 1, n)]
+    for P, Q in rounds:
+        assert len(set(P) | set(Q)) == 2 * len(P)   # disjoint
+
+
+@pytest.mark.parametrize("mm", [2, 4, 24, 32, 64, 256])
+def test_slot_ring_is_the_round_robin_and_moves_two_columns_a_cta(mm):
+    """The kernels' slot ring: slots 2 i, 2 i + 1 hold round k's pair i,
+    a column moving into slot s held slot ring_source(s)'s index, and
+    split into CTAs of consecutive slots a CTA takes in (and hands out) at
+    most two columns a round, one from each neighbour: the kernels' two
+    spare buffers."""
+    for k, (P, Q) in enumerate(se.round_robin(mm)):
+        pairs = [se.ring_pair(mm, k, i) for i in range(mm // 2)]
+        assert sorted(tuple(sorted(p)) for p in pairs) == sorted(zip(P, Q))
+        for s in range(mm):
+            assert se.ring_index(mm, k + 1, s) == \
+                se.ring_index(mm, k, se.ring_source(mm, s))
+    assert sorted(se.ring_source(mm, s) for s in range(mm)) == list(range(mm))
+    for ctas in (1, 2, 4, 8, 16):
+        if (mm // 2) % ctas:
+            continue
+        cpc = mm // ctas
+        for c in range(ctas):
+            srcs = [se.ring_source(mm, c * cpc + sl) // cpc
+                    for sl in range(cpc)]
+            incoming = [x for x in srcs if x != c]
+            assert len(incoming) <= 2 and len(set(incoming)) == len(incoming)
 
 
 def test_plans_choose_the_route_by_shared_memory():
-    assert se.eigh_plan(24).route == se.eigh_plan(3).route == se.SMEM
-    assert se.eigh_plan(256).route == se.GMEM
-    assert se.svd_plan(32, 32).route == se.svd_plan(64, 64).route == se.SMEM
-    assert se.svd_plan(60, 60).route == se.SMEM
-    assert se.svd_plan(128, 128).route == se.svd_plan(256, 256).route \
-        == se.GMEM
-    for plan in (se.eigh_plan(256), se.svd_plan(256, 256),
-                 se.svd_plan(64, 64, se.GMEM)):
+    """K4: route cta (one CTA of 4 warps, the round-robin over 4, 8, 16,
+    24 or 32 indices) up to m = 32, a cluster past it; K5: a cluster of
+    CTAs with at most 16 pairs each, one CTA up to 32 columns, 16 CTAs
+    from 128, the pairs padded to a whole number a CTA; route gmem for
+    both where the columns do not fit.  Every plan fits a CTA's shared
+    memory; one that cannot run raises."""
+    assert se.eigh_plan(24) == se.JacobiPlan(se.CTA, 24, 1, 128,
+                                             8 * (24 * 25 + 72))
+    assert se.eigh_plan(3).mm == 4 and se.eigh_plan(3).threads == 64
+    assert se.eigh_plan(33).route == se.CLUSTER and se.eigh_plan(33).mm == 64
+    big = se.eigh_plan(256)
+    assert (big.route, big.mm, big.ctas, big.threads) == (se.CLUSTER, 256,
+                                                          16, 256)
+    assert [se.eigh_plan(m).ctas for m in (96, 160, 224)] == [4, 8, 8]
+    assert [se.svd_plan(n, n).ctas for n in (32, 60, 64, 128, 256)] == \
+        [1, 2, 2, 16, 16]
+    assert [se.svd_plan(n, n).mm for n in (34, 100, 130)] == [36, 104, 160]
+    assert se.svd_plan(12, 20) == se.svd_plan(20, 12)
+    assert se.svd_plan(32, 32).threads == 512
+    assert se.svd_plan(60, 60, 4).mm == 64                # 30 pairs padded
+    assert (se.eigh_plan(512).route, se.svd_plan(384, 384).route) == \
+        (se.GMEM, se.GMEM)
+    assert se.svd_plan(128, 128, 2).route == se.GMEM     # 32 pairs a CTA
+    for plan in (big, se.svd_plan(256, 256), se.svd_plan(256, 256, 8),
+                 se.eigh_plan(256, se.CLUSTER, 8), se.svd_plan(60, 60)):
         assert plan.smem <= se.SMEM_MAX
-    with pytest.raises(ValueError):
-        se.svd_plan(128, 128, se.SMEM)
+    for bad in (lambda: se.svd_plan(128, 128, 2, se.CLUSTER),
+                lambda: se.svd_plan(60, 60, 3),
+                lambda: se.eigh_plan(48, se.CTA),
+                lambda: se.eigh_plan(64, se.CLUSTER, 32),
+                lambda: se.eigh_plan(2048, se.CLUSTER)):  # shared memory
+        with pytest.raises(ValueError):
+            bad()
+
+
+@pytest.mark.parametrize("kind", ["eigh", "svd"])
+def test_every_size_up_to_the_limit_has_a_plan(kind):
+    """Every K4 size up to m = 8,000 and every K5 size up to 1,024
+    columns (square, and with four times the rows) has a plan the kernels
+    can run: ``mm`` covers the size and splits into whole pairs a CTA, a
+    warp per pair (K5), shared memory fits a CTA, and route gmem is taken
+    exactly where route cluster's columns do not fit.  One size past the
+    limit raises."""
+    if kind == "eigh":
+        for m in range(1, 8001):
+            p = se.eigh_plan(m)
+            assert p.mm >= m and (p.mm // 2) % p.ctas == 0
+            assert p.smem <= se.SMEM_MAX
+            assert (p.route == se.CTA) == (m <= 32)
+            if m > 32:
+                fits = se._eigh_cluster_bytes(m, p.mm, p.ctas, False) \
+                    <= se.SMEM_MAX
+                assert (p.route == se.GMEM) == (not fits)
+        with pytest.raises(ValueError):
+            se.eigh_plan(8001)
+        return
+    for C in range(1, 1025):
+        for R in (C, 4 * C):
+            p = se.svd_plan(R, C)
+            assert p.mm >= C and p.mm % (2 * p.ctas) == 0
+            assert p.threads == 32 * p.mm // (2 * p.ctas)
+            assert p.threads <= (1024 if p.route == se.GMEM else 512)
+            assert p.smem <= se.SMEM_MAX
+            fits = p.threads <= 512 and \
+                se._svd_bytes(R, C, p.mm, p.ctas, False) <= se.SMEM_MAX
+            assert (p.route == se.GMEM) == (not fits)
+    for R in (1025, 4100):
+        with pytest.raises(ValueError):
+            se.svd_plan(R, 1025)
 
 
 def test_wrappers_run_the_plain_versions_on_the_cpu():

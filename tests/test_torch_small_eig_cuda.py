@@ -8,8 +8,11 @@ Imports no jax, so the file also runs on a machine without it:
 Without a card every case skips (the kernels have no CPU mode).  Kernel
 and plain version sum in different orders, so they are held to each other
 through gauge-free quantities within 1e-12 of the matrix's scale (values,
-reconstructions) and each to orthonormality within 1e-12; the gmem route
-is bitwise the smem route."""
+reconstructions) and each to orthonormality within 1e-12; two cluster
+sizes of one route, route gmem and route cluster at one plan, and two
+launches, are bitwise equal; past a cluster's shared memory (route gmem)
+they are held to torch.linalg within 1e-12 n / 128; K5 takes at most 12
+sweeps on graded blocks."""
 
 import numpy as np
 import pytest
@@ -44,7 +47,8 @@ def _orth(Q):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,m", [(1, 24), (4, 24), (1, 3), (4, 3),
-                                 (2, 32), (1, 256)])
+                                 (2, 32), (5, 7), (2, 48), (1, 96),
+                                 (1, 128), (1, 256)])
 def test_small_eigh_kernel_matches_plain(cuda, B, m):
     A = torch.from_numpy(_sym(B, m, 1000 + m)).to(cuda)
     launches = se.small_eigh_launch.launches
@@ -63,7 +67,8 @@ def test_small_eigh_kernel_matches_plain(cuda, B, m):
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,M,N", [(1, 32, 32), (4, 32, 32), (1, 64, 64),
                                    (1, 128, 128), (1, 60, 60),
-                                   (1, 256, 256), (2, 20, 12), (2, 12, 20)])
+                                   (1, 256, 256), (2, 20, 12), (2, 12, 20),
+                                   (1, 34, 34), (1, 100, 100)])
 def test_small_svd_kernel_matches_plain(cuda, B, M, N):
     A = torch.from_numpy(np.random.default_rng(M * 7 + N).standard_normal(
         (B, M, N))).to(cuda)
@@ -95,20 +100,129 @@ def test_rank_deficient_split_gets_an_orthonormal_u(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind,shape", [("eigh", (24,)), ("eigh", (32,)),
-                                        ("svd", (32, 32)), ("svd", (64, 64))])
-def test_route_gmem_is_bitwise_route_smem(cuda, kind, shape):
+@pytest.mark.parametrize("kind,n,sizes", [("eigh", 64, (1, 2)),
+                                          ("eigh", 256, (8, 16)),
+                                          ("svd", 64, (2, 4)),
+                                          ("svd", 128, (4, 8))])
+def test_cluster_sizes_are_bitwise_equal(cuda, kind, n, sizes):
+    """Every element's arithmetic is the same whichever CTA does it: two
+    cluster sizes of a route give the same bits."""
     if kind == "eigh":
-        A = torch.from_numpy(_sym(2, shape[0], 7)).to(cuda)
-        a = se.small_eigh_launch(A, se.eigh_plan(shape[0]))
-        b = se.small_eigh_launch(A, se.eigh_plan(shape[0], se.GMEM))
+        A = torch.from_numpy(_sym(2, n, 7)).to(cuda)
+        a, b = (se.small_eigh_launch(A, se.eigh_plan(n, se.CLUSTER, c))
+                for c in sizes)
     else:
         A = torch.from_numpy(np.random.default_rng(8).standard_normal(
-            (2,) + shape)).to(cuda)
-        a = se.small_svd_launch(A, se.svd_plan(*shape))
-        b = se.small_svd_launch(A, se.svd_plan(*shape, se.GMEM))
+            (2, n, n))).to(cuda)
+        a, b = (se.small_svd_launch(A, se.svd_plan(n, n, c)) for c in sizes)
+    assert bool((a[-1] > 0).all())
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,n,ctas", [("eigh", 24, 1), ("eigh", 32, 2),
+                                         ("eigh", 256, 16), ("svd", 32, 1),
+                                         ("svd", 64, 2), ("svd", 128, 16)])
+def test_route_gmem_is_bitwise_route_smem(cuda, kind, n, ctas):
+    """Route gmem runs the cluster route's steps in the same orders with
+    the columns in global memory instead of the CTAs' shared memory: the
+    same bits at the same plan."""
+    if kind == "eigh":
+        A = torch.from_numpy(_sym(2, n, 7)).to(cuda)
+        a, b = (se.small_eigh_launch(A, se.eigh_plan(n, r, ctas))
+                for r in (se.CLUSTER, se.GMEM))
+    else:
+        A = torch.from_numpy(np.random.default_rng(8).standard_normal(
+            (2, n, n))).to(cuda)
+        a, b = (se.small_svd_launch(A, se.svd_plan(n, n, ctas, r))
+                for r in (se.CLUSTER, se.GMEM))
+    assert bool((a[-1] > 0).all())
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,shape", [("eigh", (1, 512, 512)),
+                                        ("svd", (1, 384, 384)),
+                                        ("svd", (1, 520, 1040))])
+def test_past_shared_memory_matches_torch_linalg(cuda, kind, shape):
+    """Where the columns do not fit a cluster's shared memory the plans
+    take route gmem (K5 at 520 columns with 17 warps a CTA), held to
+    torch.linalg through values, orthogonality and the reconstruction."""
+    n = min(shape[1:])
+    tol = TOL * n / 128
+    rng = np.random.default_rng(n)
+    if kind == "eigh":
+        A = torch.from_numpy(_sym(1, n, n)).to(cuda)
+        assert se.eigh_plan(n).route == se.GMEM
+        w, V, status = se.small_eigh(A)
+        ref = torch.linalg.eigvalsh(A)
+        rec, factors = V @ torch.diag_embed(w) @ V.transpose(1, 2), [V]
+        vals = w
+    else:
+        A = torch.from_numpy(rng.standard_normal(shape)).to(cuda)
+        assert se.svd_plan(*shape[1:]).route == se.GMEM
+        U, S, Vh, status = se.small_svd(A)
+        ref = torch.linalg.svdvals(A)
+        rec, factors = U @ torch.diag_embed(S) @ Vh, [U, Vh.transpose(1, 2)]
+        vals = S
+    se.check_health(cuda)
+    assert bool((status > 0).all())
+    assert float((vals - ref).abs().max()) <= tol * float(ref.abs().max())
+    assert float((rec - A).norm() / A.norm()) <= tol
+    assert all(_orth(Q) <= tol for Q in factors)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,n", [("eigh", 24), ("eigh", 256),
+                                    ("svd", 32), ("svd", 128)])
+def test_two_launches_are_bitwise_equal(cuda, kind, n):
+    if kind == "eigh":
+        A = torch.from_numpy(_sym(1, n, 12)).to(cuda)
+        a, b = se.small_eigh(A), se.small_eigh(A)
+    else:
+        A = torch.from_numpy(np.random.default_rng(13).standard_normal(
+            (1, n, n))).to(cuda)
+        a, b = se.small_svd(A), se.small_svd(A)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def _graded(n, seed):
+    """sigma = logspace(0, -11, n) under seeded orthogonal factors: the
+    grading of the DMRG splits."""
+    rng = np.random.default_rng(seed)
+    U = np.linalg.qr(rng.standard_normal((n, n)))[0]
+    V = np.linalg.qr(rng.standard_normal((n, n)))[0]
+    return (U * np.logspace(0, -11, n)) @ V.T
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [32, 128])
+def test_graded_split_takes_at_most_12_sweeps(cuda, n):
+    A = torch.from_numpy(_graded(n, 21 + n)[None]).to(cuda)
+    U, S, Vh, status = se.small_svd(A)
+    assert 0 < int(status[0]) <= 12
+    ref = np.linalg.svd(A[0].cpu().numpy(), compute_uv=False)
+    assert float(np.abs(S[0].cpu().numpy() - ref).max()) <= TOL
+    assert float((U @ torch.diag_embed(S) @ Vh - A).norm() / A.norm()) <= TOL
+    assert _orth(U) <= TOL and _orth(Vh.transpose(1, 2)) <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["shared memory short", "threads"])
+def test_a_plan_the_kernel_cannot_run_raises(cuda, kind):
+    """No fallback: a launch the kernel refuses raises."""
+    A = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (1, 32, 32))).to(cuda)
+    plan = se.svd_plan(32, 32)
+    plan = (plan._replace(smem=plan.smem - 8) if kind != "threads"
+            else plan._replace(threads=plan.threads // 2))
+    launches = se.small_svd_launch.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        se.small_svd_launch(A, plan)
+    assert se.small_svd_launch.launches == launches
 
 
 @pytest.mark.cuda
