@@ -39,6 +39,17 @@ full width:
   gram_parallel, subspace_parallel and streaming roundings in f32 and
   f64, and through ``TTTensor.round_fast`` on the card and under
   ``host()``;
+- the JAX package's last compiled programs as captured programs
+  (``ops/programs.py``): the df rounding's site programs (CGS2 selected on
+  the device, each site's df_svd seeded on K4) and ``df_solve_spd_chol``'s
+  program at the end of the rounding phase, then ``phase_round_programs``:
+  the randomized cholqr1 rounding at rank 256 -> 128 and 1024 -> 512,
+  'exact' and 'bf16_frontier', and with Householder panels at rank 256,
+  the fused apply + round on slice 2's rank-256 TT, and the SPD half-sweep
+  over 10 Poisson systems in one batched program against the loop of
+  single sweeps; first-call, eager and replayed walls, idle shares, graph
+  nodes and pools, every replay bitwise its eager run, no host read in a
+  replay, K4 and K1q counted by kernel name in a replayed df rounding;
 - tensor completion: the d=10, n=4, rank-8 instance from 20,000 samples
   (measure, rank-adaptive ADF solve, test, every entry of the recovered TT
   and of the truth; the solve's iteration program replayed and its plain
@@ -1044,9 +1055,9 @@ def _ns_loops(inst, cores, lnorm):
 # f64 quality: 1e-10 from the f64 chain.  The JAX package on a CPU, its
 # df_eigh seeded by LAPACK's float32 eigh, reaches only 1.733e-08 here and
 # 2.432e-04 on the cliff below (tests/test_torch_rounding_reference.py);
-# the port's seed on the card is a float64 eigh rounded to float32
-# (round_kernels._eigh_sym), which separates the clusters that freeze the
-# reference's refinement.
+# the port's seed on the card is a float64 eigh rounded to float32 (K4,
+# as every float32 eigh on the card runs in float64), which separates the
+# clusters that freeze the reference's refinement.
 DF_ROUND_BAR = 1e-10      # log-norm vs the f64 chain
 DF_CLIFF = (96, 1e-9, 1e-7)   # signal rank, tail scale, eps
 DF_CLIFF_BAR = 1e-10      # distance to the svd-eps chain
@@ -1511,10 +1522,12 @@ def _df_round(cores64, target, eps, dev):
     return out, wall, [a - b for a, b in zip(after, before)], loops
 
 
-def _df_round_loop_fails(name, fb, k1, loops):
+def _df_round_loop_fails(name, fb, k1, loops, sites):
     """A df rounding's launch checks: no K1 (the column loops are K1c's
     and K1q's), every Cholesky block, panel and CGS2 call on a kernel (one
-    launch per wrapper call), one K1q launch per CGS2 site."""
+    launch per wrapper call), one K1q launch per orthogonalized site (both
+    branches run, the defect selects on the device) and ``sites`` of them
+    taking CGS2."""
     (q, blk, trsm), calls = loops
     fails = []
     if k1:
@@ -1522,10 +1535,92 @@ def _df_round_loop_fails(name, fb, k1, loops):
     if (q, blk, trsm) != calls:
         fails.append(f"{name}: launches {(q, blk, trsm)} for wrapper calls "
                      f"{calls}")
-    if q != fb or blk == 0 or trsm == 0:
-        fails.append(f"{name}: K1q {q} for {fb} CGS2 sites, K1c {blk} "
-                     f"blocks and {trsm} panels")
+    if q != ROUND_D - 1 or fb != sites or blk == 0 or trsm == 0:
+        fails.append(f"{name}: K1q {q} for {ROUND_D - 1} sites, {fb} CGS2 "
+                     f"sites (expected {sites}), K1c {blk} blocks and "
+                     f"{trsm} panels")
     return fails
+
+
+def _df_programs(dev, smi, cases):
+    """The df rounding's site programs (make_qr_apply, make_svd_site,
+    make_trunc_apply) on ``cases`` (name, float64 cores, target, eps, CGS2
+    sites), each rounded once already in this phase: its plain version
+    (``eager=True``), then programmed calls until one captures nothing and
+    runs no program eagerly (a replayed rounding), then one more under
+    torch.profiler counting K4 (the seed of each site's df_svd) and K1q by
+    kernel name on the device; then df_solve_spd_chol's program.  Fails
+    unless the replayed rounding is bitwise the plain one, reads one σ a
+    truncated site and the CGS2 count once, makes no eigh info check and
+    runs one K4 and one K1q a site.  Returns K4's launches in a replayed
+    df rounding."""
+    import numpy as np
+    from xerus_tpu_torch.ops import df_rounding as dr
+    from xerus_tpu_torch.ops import small_eig as se
+    from xerus_tpu_torch.ops import programs as pg
+    from xerus_tpu_torch.ops.df32 import df_from_f64
+    fails = []
+    for name, cores64, target, eps, sites in cases:
+        walls = {}
+        t0 = time.perf_counter()
+        plain = dr.tt_round_df_from_f64(cores64, target, eps, dev, eager=True)
+        walls["eager"] = time.perf_counter() - t0
+        calls = []
+        while True:
+            counts0 = (pg.Program.captures, pg.Program.eager_runs)
+            out, wall, (fb, reads, checks, k1), loops = _df_round(
+                cores64, target, eps, dev)
+            calls.append(wall)
+            if (pg.Program.captures, pg.Program.eager_runs) == counts0:
+                break
+            if len(calls) == 4:
+                fails.append(f"{name}: still capturing at call "
+                             f"{len(calls) + 1}")
+                break
+        same = all(a.shape == b.shape and (a == b).all()
+                   for a, b in zip(out, plain))
+        # each truncated site's df_svd solves the (rl, rl) Gram of its left
+        # rank on K4
+        routes = {m: se.eigh_plan(m).route for m in
+                  sorted({int(c.shape[0]) for c in cores64[1:]})}
+        _, (k4, k1q) = _kernel_counts(
+            lambda: dr.tt_round_df_from_f64(cores64, target, eps, dev),
+            (K4_KERNEL, K1Q_KERNEL))
+        print(f"programs: {name}: eager {walls['eager']:.3f} s, programmed "
+              f"calls {', '.join(f'{w:.3f}' for w in calls)} s (after this "
+              f"phase's first; the last replays every site program); "
+              f"replayed bitwise the eager rounding: {same}; per replayed "
+              f"rounding: host reads {reads} ({ROUND_D - 1} spectra and the "
+              f"CGS2 count with K4's health record), eigh info checks "
+              f"{checks}, CGS2 sites {fb} (eager loops: {sites}), K1q "
+              f"launches {loops[0][0]} (every site: both branches run), "
+              f"on the device under torch.profiler {k4} {K4_KERNEL} and "
+              f"{k1q} {K1Q_KERNEL} kernels; K4's route by Gram size "
+              f"{routes} ({smi})")
+        if not same:
+            fails.append(f"{name}: the replayed rounding differs from the "
+                         "eager one")
+        if reads != ROUND_D or checks or k4 != ROUND_D - 1 \
+                or k1q != ROUND_D - 1:
+            fails.append(f"{name}: host reads {reads}, info checks {checks},"
+                         f" K4 {k4}, K1q {k1q} on the device (expected "
+                         f"{ROUND_D}, 0, {ROUND_D - 1}, {ROUND_D - 1})")
+        fails += _df_round_loop_fails(name, fb, k1, loops, sites)
+    dc = importlib.import_module("xerus_tpu_torch.ops.df_cholesky")
+    n, kappa, steps = DF_SOLVE
+    A = _spd(n, kappa)
+    b = A @ np.random.default_rng(3).normal(size=n)
+    args = df_from_f64(A, dev) + df_from_f64(b, dev)
+    dc.make_df_solve_spd_chol.cache_clear()
+    _programmed(f"df_solve_spd_chol n={n} kappa={kappa:g} {steps} steps",
+                lambda: dc.make_df_solve_spd_chol(n, "float32", 64,
+                                                  steps)(*args),
+                lambda: dc.df_solve_spd_chol(*args, refine_iters=steps),
+                lambda: dc.make_df_solve_spd_chol(n, "float32", 64, steps),
+                smi)
+    if fails:
+        raise AssertionError("programs: " + "; ".join(fails))
+    return k4
 
 
 def _rest_method(method, cores):
@@ -1597,7 +1692,8 @@ def phase_rounding_rest(dev, smi, slice_round):
         fails.append(f"df rounding log-norm {rel:.3e}")
     if not svd32 > DF_ROUND_BAR:
         fails.append("the f32 svd rounding meets the df bar: no contrast")
-    fails += _df_round_loop_fails("df rounding", fb, k1, loops)
+    fails += _df_round_loop_fails("df rounding", fb, k1, loops,
+                                  EAGER_CGS2_SITES[0])
 
     # the cliff below f32's resolution, rounded with eps
     sig, scale, eps = DF_CLIFF
@@ -1625,7 +1721,8 @@ def phase_rounding_rest(dev, smi, slice_round):
         fails.append(f"cliff ranks {r_df} vs {r_ch}")
     if not dist <= DF_CLIFF_BAR:
         fails.append(f"cliff distance {dist:.3e}")
-    fails += _df_round_loop_fails("cliff rounding", fb, k1, loops)
+    fails += _df_round_loop_fails("cliff rounding", fb, k1, loops,
+                                  EAGER_CGS2_SITES[1])
     lap("the df roundings")
     fails += _ozaki_checks(dev)
     with rec:
@@ -1650,6 +1747,15 @@ def phase_rounding_rest(dev, smi, slice_round):
     for e in LOOP_ENTRIES:
         loop_max_abs[e] = max(loop_max_abs[e], gmem_abs[e])
     lap("K1q and K1c on their recorded inputs")
+    t0 = time.perf_counter()
+    df_k4 = _df_programs(dev, smi, [
+        (f"tt_round_df d={ROUND_D} rank {ROUND_RANK}->{ROUND_TARGET}",
+         host64, ROUND_TARGET, 0.0, EAGER_CGS2_SITES[0]),
+        (f"tt_round_df cliff to {ROUND_RANK} eps {eps:g}", cl64, ROUND_RANK,
+         eps, EAGER_CGS2_SITES[1])])
+    print(f"programs: the df programs block {time.perf_counter() - t0:.1f} "
+          "s")
+    lap("the df site programs")
 
     # the uniform, parallel and streaming roundings at core level
     e_svd = host_tt_distance(host, chain)
@@ -1744,7 +1850,7 @@ def phase_rounding_rest(dev, smi, slice_round):
           f"({smi})")
     if fails:
         raise AssertionError("rounding rest: " + "; ".join(fails))
-    return loop_rows, loop_max_abs, path_launches, gmem_rows
+    return loop_rows, loop_max_abs, path_launches, gmem_rows, df_k4
 
 
 def _k2_bond_times(cores, inputs=None):
@@ -2000,8 +2106,9 @@ def phase_k3(dev):
 # float64 at the eigensolver path's shapes: the Ritz problems (m = 24 for
 # Lanczos, 3 for LOBPCG; batch 4 for the multistart race) and the masked
 # splits (2r, 2r) at max_rank 16 / 32 / 64 and (60, 60) in dmrg_solve at
-# rank 30; then (256, 256), past the path, for the df rounding's eigh seed
-# and SVD.  Each against its plain version, torch.linalg.eigh /
+# rank 30; then (256, 256): the seed of the df rounding's df_svd at its
+# widest bonds (K4 on route cluster) and a wide SVD.  Each against its
+# plain version, torch.linalg.eigh /
 # svd(driver="gesvd") and its bound; value gaps relative to the largest
 # value, ||Q^T Q - I|| as its largest entry, reconstructions relative in
 # the Frobenius norm, all within JAC_BAR up to n = 128 and JAC_BAR n / 128
@@ -4432,21 +4539,13 @@ def phase_speed_presets(dev, smi):
     import numpy as np
     import torch
     import xerus_tpu_torch as xt
-    from xerus_tpu_torch.convert import cores_to_torch
     from xerus_tpu_torch.examples import bench_round_instance
     from xerus_tpu_torch.ops import round_kernels as rk
     t_phase = time.perf_counter()
     variants = (("exact", None, None), ("bf16_frontier", "default", "high"),
                 ("gram_default", "default", "default"))
     for d, rank, target in PRESET_CASES:
-        host = bench_round_instance(d, ROUND_N, rank, SEED)
-        cores = []
-        for c in host:
-            rl, _, rr = c.shape
-            dl = PRESET_DAMPING ** np.arange(rl)
-            dr = PRESET_DAMPING ** np.arange(rr)
-            cores.append(c * dl[:, None, None] * dr[None, None, :])
-        cores = list(cores_to_torch(cores, dev, torch.float32))
+        cores = _preset_cores(d, rank, dev)
         flops = rk.randomized_round_flops([tuple(c.shape) for c in cores],
                                           target, OVERSAMPLE)
         err = {}
@@ -4534,6 +4633,263 @@ def phase_speed_presets(dev, smi):
         if max(y.ranks()) > ROUND_TARGET or not np.isfinite(y.frob_norm()):
             raise AssertionError(f"speed presets: round_fast {speed} failed")
     print(f"speed presets: phase {time.perf_counter() - t_phase:.1f} s")
+
+
+# the randomized sweep, the fused apply + round and the batched SPD
+# half-sweep as programs (ops/programs.py): the randomized cases are
+# PRESET_CASES' damped instances, the apply + round EIG_APPLY's, and the
+# batch BATCH_B instances of the Poisson system (the reference protocol's
+# 10 solves a run, make_als_sweep_batched's docstring)
+BATCH_B = 10
+BATCH_BAR = 1e-12         # batched vs the loop of single sweeps, relative
+
+
+def _preset_cores(d, rank, dev):
+    """slice 2's instance at (d, rank) with every bond slot damped by
+    PRESET_DAMPING (the bf16 study's decaying spectrum), float32 on
+    ``dev``."""
+    import numpy as np
+    import torch
+    from xerus_tpu_torch.convert import cores_to_torch
+    from xerus_tpu_torch.examples import bench_round_instance
+    cores = []
+    for c in bench_round_instance(d, ROUND_N, rank, SEED):
+        rl, _, rr = c.shape
+        dl = PRESET_DAMPING ** np.arange(rl)
+        dr = PRESET_DAMPING ** np.arange(rr)
+        cores.append(c * dl[:, None, None] * dr[None, None, :])
+    return list(cores_to_torch(cores, dev, torch.float32))
+
+
+def _flat(tree):
+    import torch
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [t for sub in tree for t in _flat(sub)]
+
+
+def _bitwise(a, b) -> bool:
+    import torch
+    fa, fb = _flat(a), _flat(b)
+    return len(fa) == len(fb) and all(
+        x.shape == y.shape and torch.equal(x, y) for x, y in zip(fa, fb))
+
+
+def _programmed(name, run, eager_run, program, smi, top=0):
+    """``run()`` five times through a program its factory made afresh: two
+    eager calls, the capture (its eager warm-up is the result), two
+    replays; ``eager_run()`` is the function run eagerly, the plain
+    version.  Prints first-call, eager, capturing and replayed walls, the
+    graph's nodes and pool, the idle share of an eager run and of a replay
+    under torch.profiler; fails unless each replay is bitwise the plain
+    run, the program ran 2 eager calls, 1 capture and the replays, and no
+    host read happened in a replay; with ``top``, the replay's ``top``
+    kernels by device time beside.  Returns (the replay's result, its
+    best wall in s)."""
+    import torch
+    from xerus_tpu_torch.ops import round_kernels as rk
+    walls, outs, reads = [], [], []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        reads0 = rk.host_bool.reads
+        t0 = time.perf_counter()
+        outs.append(run())
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        reads.append(rk.host_bool.reads - reads0)
+    p = program()
+    plain = eager_run()
+    torch.cuda.synchronize()
+    same = [_bitwise(o, plain) for o in outs]
+    idle = []
+    for fn in (eager_run, run):
+        wall, busy, nk, *largest = _device_busy(fn, top)
+        idle.append("not measured" if busy is None
+                    else f"{1.0 - busy / wall:.3f} of {wall * 1e3:.3f} ms "
+                         f"({nk} kernels, busy {busy * 1e3:.3f} ms)")
+    if top:
+        idle[1] += "; largest: " + ", ".join(
+            f"{t * 1e3:.3f} ms {k}x {nm[:60]}" for nm, t, k in largest[0])
+    replay = min(walls[3:])
+    print(f"programs: {name}: first call {walls[0] * 1e3:.3f} ms, eager "
+          f"{walls[1] * 1e3:.3f} ms, the capture {walls[2] * 1e3:.3f} ms, "
+          f"replayed {walls[3] * 1e3:.3f} / {walls[4] * 1e3:.3f} ms; idle "
+          f"share eager {idle[0]}, replayed {idle[1]}; {p.nodes} graph "
+          f"nodes, pool {p.pool_bytes / 2 ** 20:.1f} MiB, capture and "
+          f"instantiation {p.capture_s:.3f} s; each call bitwise the plain "
+          f"run: {same}; host reads per call {reads} ({smi})")
+    if (p.eager_runs, p.captures, p.replays) != (2, 1, 3):
+        raise AssertionError(f"programs: {name}: {p.eager_runs} eager runs, "
+                             f"{p.captures} captures, {p.replays} replays "
+                             "(expected 2, 1 and 3 with the profiled one)")
+    if not all(same):
+        raise AssertionError(f"programs: {name}: calls bitwise the plain "
+                             f"run: {same}")
+    if any(reads):
+        raise AssertionError(f"programs: {name}: host reads {reads}")
+    return outs[-1], replay
+
+
+def _randomized_programs(dev, smi):
+    """The randomized rounding's programs at PRESET_CASES, 'exact' and
+    'bf16_frontier' (cholqr1, make_randomized_round_unrolled), and
+    Householder (make_randomized_round) at rank 256; the frontier's
+    truncation error within PRESET_BAR x 'exact''s on the replays."""
+    import torch
+    from xerus_tpu_torch.ops import programs as pg
+    from xerus_tpu_torch.ops import round_kernels as rk
+    for d, rank, target in PRESET_CASES:
+        cores = _preset_cores(d, rank, dev)
+        err = {}
+        for speed in ("exact", "bf16_frontier"):
+            p, g = (rk.SPEED_PRESETS[speed][k]
+                    for k in ("precision", "gram_precision"))
+            args = rk.randomized_inputs(cores, target, OVERSAMPLE, p, g)
+            rk.make_randomized_round_unrolled.cache_clear()
+            gemms0 = rk._bf16_pass.gemms
+            out, _ = _programmed(
+                f"randomized cholqr1 d={d} rank {rank}->{target} {speed}",
+                lambda p=p, g=g: rk.tt_round_randomized_unrolled(
+                    cores, target, OVERSAMPLE, p, g),
+                lambda p=p, g=g: rk.tt_round_randomized_unrolled(
+                    cores, target, OVERSAMPLE, p, g, eager=True),
+                lambda p=p, g=g, args=args: pg.program_for(
+                    rk.make_randomized_round_unrolled, args, target,
+                    OVERSAMPLE, p, g), smi)
+            gemms = (rk._bf16_pass.gemms - gemms0) // 8
+            err[speed] = _tt_distance_card(cores, out)
+            print(f"programs: randomized d={d} rank {rank}->{target} "
+                  f"{speed}: bf16 GEMMs {gemms} a rounding (counted through "
+                  f"the replays), truncation error {err[speed]:.6e}")
+            if (gemms > 0) != (speed != "exact"):
+                raise AssertionError(f"programs: {speed} ran {gemms} bf16 "
+                                     "GEMMs a rounding")
+        ratio = err["bf16_frontier"] / err["exact"]
+        print(f"programs: randomized d={d} rank {rank}->{target}: "
+              f"bf16_frontier error {ratio:.4f}x 'exact' on the replays "
+              f"(bar {PRESET_BAR:g})")
+        if not ratio <= PRESET_BAR:
+            raise AssertionError(f"programs: bf16_frontier error {ratio:.4f}"
+                                 f"x 'exact' at rank {rank}")
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction,
+             torch.get_float32_matmul_precision())
+    print(f"programs: after the captures allow_tf32 {flags[0]}, bf16 "
+          f"reduced-precision reduction {flags[1]}, float32 matmul "
+          f"precision {flags[2]}")
+    if flags != (False, False, "highest"):
+        raise AssertionError("programs: torch's precision flags moved")
+    d, rank, target = PRESET_CASES[0]
+    cores = _preset_cores(d, rank, dev)
+    args = rk.randomized_inputs(cores, target, OVERSAMPLE)
+    rk.make_randomized_round.cache_clear()
+    _programmed(f"randomized Householder d={d} rank {rank}->{target}",
+                lambda: rk.tt_round_randomized(cores, target, OVERSAMPLE),
+                lambda: rk.tt_round_randomized(cores, target, OVERSAMPLE,
+                                               eager=True),
+                lambda: pg.program_for(rk.make_randomized_round, args,
+                                       target, OVERSAMPLE), smi)
+
+
+def _apply_round_program(dev, smi):
+    """The fused apply + round's program (make_apply_round) on slice 2's
+    rank-256 TT and the d=32 Poisson operator, to EIG_APPLY's target."""
+    import torch
+    from xerus_tpu_torch.convert import cores_to_torch
+    from xerus_tpu_torch.examples import (bench_round_instance,
+                                          qtt_poisson_instance)
+    from xerus_tpu_torch.ops import apply_kernels as ak
+    from xerus_tpu_torch.ops import programs as pg
+    from xerus_tpu_torch.ops.dmrg_kernels import _pad_operator_stack
+    from xerus_tpu_torch.ops.stacking import pad_cores
+    rank, target = EIG_APPLY
+    A = list(cores_to_torch(qtt_poisson_instance(D, RANK, SEED)[1], dev,
+                            torch.float64))
+    x = list(cores_to_torch(bench_round_instance(D, ROUND_N, rank, SEED),
+                            dev, torch.float64))
+    x_stack = pad_cores(x)[0]
+    A_stack = _pad_operator_stack(A, x_stack.dtype)
+    sk = ak.draw_apply_sketches(D, A_stack.shape[2], target + OVERSAMPLE,
+                                x_stack.dtype, dev)
+    ak.make_apply_round.cache_clear()
+    _programmed(
+        f"apply + round, the d={D} Poisson operator on slice 2's rank-{rank}"
+        f" TT to {target}, float64",
+        lambda: ak.apply_operator_rounded_cores(A, x, target, OVERSAMPLE),
+        lambda: ak.apply_operator_rounded_cores(A, x, target, OVERSAMPLE,
+                                                eager=True),
+        lambda: pg.program_for(ak.make_apply_round,
+                               (A_stack, x_stack, tuple(sk)), target,
+                               OVERSAMPLE, "householder"), smi)
+
+
+def _batched_sweep_program(dev, smi):
+    """BATCH_B instances of the d=32 rank-30 Poisson system in float64
+    (x from seeds SEED + i, b scaled by i + 1), one SPD half-sweep each way
+    through make_als_sweep_batched's program against the loop of the
+    single sweep's program (make_als_sweep), BATCH_BAR relative on each
+    instance's represented tensor."""
+    import numpy as np
+    import torch
+    from xerus_tpu_torch.convert import cores_to_torch
+    from xerus_tpu_torch.examples import qtt_poisson_instance
+    from xerus_tpu_torch.ops import als_kernels as ak
+    from xerus_tpu_torch.ops import programs as pg
+    insts = [qtt_poisson_instance(D, RANK, SEED + i) for i in range(BATCH_B)]
+    A = tuple(cores_to_torch(insts[0][1], dev, torch.float64))
+    xb = tuple(torch.from_numpy(np.stack([inst[0][k] for inst in insts]))
+               .to(dev) for k in range(D))
+    bb = tuple(torch.from_numpy(np.stack([inst[2][k] * (i + 1)
+                                          for i, inst in enumerate(insts)]))
+               .to(dev) for k in range(D))
+    ak.make_als_sweep_batched.cache_clear()
+    ak.make_als_sweep.cache_clear()
+    for direction in ("lr", "rl"):
+        out, w_batch = _programmed(
+            f"batched SPD half-sweep {direction}, B={BATCH_B} d={D} rank "
+            f"{RANK} float64",
+            lambda: ak.als_half_sweep_batched(xb, A, bb, direction),
+            lambda: ak.als_half_sweep_batched(xb, A, bb, direction,
+                                              eager=True),
+            lambda: pg.program_for(ak.make_als_sweep_batched, (xb, A, bb),
+                                   direction, "pos"), smi, top=3)
+
+        def loop():
+            return [pg.call(ak.make_als_sweep, (
+                tuple(c[i] for c in xb), A, tuple(c[i] for c in bb)),
+                direction) for i in range(BATCH_B)]
+        loop()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        singles = loop()
+        torch.cuda.synchronize()
+        w_loop = time.perf_counter() - t0
+        rel = max(_tt_distance_card(s, [c[i] for c in out])
+                  for i, s in enumerate(singles))
+        print(f"programs: batched SPD half-sweep {direction}: replayed "
+              f"{w_batch * 1e3:.3f} ms against the loop of {BATCH_B} "
+              f"replayed single sweeps {w_loop * 1e3:.3f} ms; largest "
+              f"distance to the loop's {rel:.3e} relative (bar "
+              f"{BATCH_BAR:g}) ({smi})")
+        if not rel <= BATCH_BAR:
+            raise AssertionError(f"programs: the batched {direction} sweep "
+                                 f"is {rel:.3e} from the loop's")
+        xb = tuple(out)
+
+
+def phase_round_programs(dev, smi):
+    """The JAX package's remaining compiled programs on the card: the
+    randomized roundings, the fused apply + round and the batched SPD
+    half-sweep, each through its factory afresh (``_programmed``), with
+    the seconds each block took."""
+    t_phase = time.perf_counter()
+    for name, block in (("randomized roundings", _randomized_programs),
+                        ("apply + round", _apply_round_program),
+                        ("batched SPD half-sweep", _batched_sweep_program)):
+        t0 = time.perf_counter()
+        block(dev, smi)
+        print(f"programs: {name} block {time.perf_counter() - t0:.1f} s")
+    print(f"programs: phase {time.perf_counter() - t_phase:.1f} s")
 
 
 def phase_parallel(dev, smi):
@@ -4665,8 +5021,9 @@ def main():
     (k1_launches, k1q_poisson), solution, host_residual, slice_run = \
         phase_slice(dev)
     k2_launches, round_ref, ge_f32, slice_round = phase_round_slice(dev)
-    rest_rows, rest_abs, rest_launches, gmem_rows = phase_rounding_rest(
-        dev, smi, slice_round)
+    rest_rows, rest_abs, rest_launches, gmem_rows, df_k4 = \
+        phase_rounding_rest(dev, smi, slice_round)
+    phase_round_programs(dev, smi)
     k3_launches, completion = phase_completion_slice(dev)
     iht_residual = phase_iht(dev)
     phase_objects(dev, smi)
@@ -4719,10 +5076,13 @@ def main():
               k1q["max_abs_err"], k1q),
         # K4 and K5 replace no Pallas kernel: the JAX package's
         # jnp.linalg.eigh / svd inside its half-sweep programs
+        # K4 also seeds the df rounding's df_svd: its launches in a
+        # replayed df rounding beside the eigensolver's
         entry("small_eigh", "xerus_tpu_torch/csrc/jacobi.cu",
               "xerus_tpu/ops/dmrg_kernels.py:305", k4_launches,
               jacobi["small_eigh"]["max_abs_err"],
-              _jacobi_entry(jacobi["small_eigh"], "small_eigh")),
+              {**_jacobi_entry(jacobi["small_eigh"], "small_eigh"),
+               "df_round_launches": df_k4}),
         entry("small_svd", "xerus_tpu_torch/csrc/jacobi.cu",
               "xerus_tpu/ops/dmrg_kernels.py:365", k5_launches,
               jacobi["small_svd"]["max_abs_err"],

@@ -383,6 +383,15 @@ def test_batched_half_sweep_matches_jax():
     tout = tak.als_half_sweep_batched([torch.from_numpy(c) for c in xb],
                                       [torch.from_numpy(c) for c in A],
                                       [torch.from_numpy(c) for c in bb])
+    # the batched program (the sweep vmapped over the batch) against the
+    # loop of single sweeps, within 1e-12 of each core's largest entry
+    for i in range(3):
+        one = tak.als_sweep([torch.from_numpy(c[i]) for c in xb],
+                            [torch.from_numpy(c) for c in A],
+                            [torch.from_numpy(c[i]) for c in bb])
+        for o, c in zip(tout, one):
+            assert float((o[i] - c).abs().max()) <= \
+                1e-12 * float(c.abs().max())
     for i in range(3):
         def full(cores):
             t = np.ones((1, 1))

@@ -98,11 +98,12 @@ def test_named_variants_are_the_jax_packages():
 
 
 @pytest.mark.parametrize("d,max_rank", [
-    (8, 6), pytest.param(10, 12, marks=pytest.mark.slow)])
+    (6, 4), pytest.param(8, 6, marks=pytest.mark.slow),
+    pytest.param(10, 12, marks=pytest.mark.slow)])
 def test_dmrg_adaptive_rank_grows(d, max_rank):
     """From rank 2, 6 sweeps (JAX test_dmrg_adaptive_rank_grows: d=10,
-    max_rank 12; the default tier runs d=8, max_rank 6): ranks adapt
-    upward, to JAX's."""
+    max_rank 12; the default tier runs d=6, max_rank 4, the slow tier
+    also d=8, max_rank 6): ranks adapt upward, to JAX's."""
     (je, jx, jr, _), (te, tx, tr, _) = _both(
         _heisenberg_case(d, 2, sites=2, max_rank=max_rank, num_sweeps=6,
                          solver="exact"))

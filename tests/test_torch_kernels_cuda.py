@@ -444,7 +444,7 @@ def _cpu_and_card(fn, cores, cuda):
 @pytest.mark.cuda
 def test_df_rounding_card_matches_cpu(cuda):
     """tt_round_df on the card (K1c for the column loops of the df
-    Cholesky and the substitution, no K1, cuSOLVER's seed eigh, bf16 slice
+    Cholesky and the substitution, no K1, the seed eigh on K4, bf16 slice
     GEMMs) and on the CPU: both within 1e-11 of the float64 chain at d=7,
     the same ranks, and with eps=1e-7 the 1e-9 tail dropped on both."""
     from xerus_tpu_torch.examples import (bench_round_instance,

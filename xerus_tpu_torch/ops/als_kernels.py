@@ -6,10 +6,11 @@ half-sweeps ``_als_half_sweep`` / ``_als_half_sweep_rl`` (Cholesky or LU
 local solves), the matrix-free CG half-sweep, the ASD half-sweep, the
 normal-equations half-sweep for general operators, ``_tt_log_norm_qr`` and
 ``tt_residual_rel``; the plain loops ``als_sweep``, ``als_sweep_res``,
-``als_multi_sweep_res``, ``als_half_sweep_batched`` and
-``als_sweep_flops``; the factories ``make_als_sweep``,
-``make_als_sweep_res`` and ``make_als_multi_sweep_res``, which return the
-same functions as captured programs (``ops/programs.py``: a CUDA graph per
+``als_multi_sweep_res`` and ``als_sweep_flops``; the factories
+``make_als_sweep``, ``make_als_sweep_res``, ``make_als_multi_sweep_res``
+and ``make_als_sweep_batched`` (the sweep vmapped over a batch of
+systems, behind ``als_half_sweep_batched``), which return the same
+functions as captured programs (``ops/programs.py``: a CUDA graph per
 shape key on the card, eager on the CPU); and the whole solves
 ``als_run`` / ``als_run_rev``, which replay one sweep-and-residual program
 per half-sweep and read the stop flag between them.  Cores are (left
@@ -520,19 +521,54 @@ def als_run_rev(x_cores, A_cores, b_cores, conv_eps, parity0: int,
                      max_sweeps, step)
 
 
+def _batched_body(direction: str, local_assume: str):
+    """The SPD half-sweep mapped over a leading batch axis of x and b
+    (``torch.func.vmap``, in_dims (0, None, 0), the JAX package's
+    ``jax.vmap``): every einsum, Cholesky / LU solve and QR of the sweep
+    has a batching rule, so each runs once over the whole batch.  On the
+    card its batched factorizations and solves run on cuSOLVER: torch's
+    heuristics send a batched Cholesky solve to MAGMA, whose calls
+    synchronize the stream, which a captured region refuses."""
+    body = torch.func.vmap(_sweep_body(direction, True, "lapack",
+                                       local_assume), in_dims=(0, None, 0))
+
+    def run(x_batch, A_cores, b_batch):
+        if not x_batch[0].is_cuda:
+            return body(x_batch, A_cores, b_batch)
+        backend = torch.backends.cuda.preferred_linalg_library()
+        torch.backends.cuda.preferred_linalg_library("cusolver")
+        try:
+            return body(x_batch, A_cores, b_batch)
+        finally:
+            torch.backends.cuda.preferred_linalg_library(backend)
+    return run
+
+
+@factory(16)
+def make_als_sweep_batched(shapes_key, dtype_str: str, direction: str = "lr",
+                           local_assume: str = "pos") -> Program:
+    """One SPD half-sweep over a batch of systems that share the operator,
+    as one program for inputs of ``shapes_key`` (``programs.shapes_key(
+    x_batch, A, b_batch)``): (x_batch, A, b_batch) -> per-site batches (the
+    JAX package's ``make_als_sweep_batched``, xerus_tpu/ops/tt_kernels.py:
+    2646, which vmaps the sweep; the reference protocol solves 10 systems
+    of one operator per run)."""
+    return Program(_batched_body(direction, local_assume),
+                   f"als_sweep_batched[{direction}]")
+
+
 def als_half_sweep_batched(x_batch, A_cores, b_batch, direction: str = "lr",
-                           local_assume: str = "pos"):
+                           local_assume: str = "pos", eager: bool = False):
     """One SPD half-sweep over a batch of systems that share the operator:
     ``x_batch`` / ``b_batch`` are per-site tensors with a leading batch
-    axis, every instance of the same core shapes.  The JAX package vmapped
-    the sweep into one program; here the instances run one after another
-    and the results are stacked per site."""
-    B = x_batch[0].shape[0]
-    outs = [als_sweep([c[i] for c in x_batch], A_cores,
-                      [c[i] for c in b_batch], direction,
-                      local_assume=local_assume) for i in range(B)]
-    return tuple(torch.stack([o[k] for o in outs])
-                 for k in range(len(x_batch)))
+    axis, every instance of the same core shapes.  Returns the per-site
+    batches.  The sweep runs once over the batch
+    (``make_als_sweep_batched``'s program on the card, or with ``eager``
+    its function run eagerly), as the JAX package's vmapped program
+    does."""
+    return call(make_als_sweep_batched,
+                (tuple(x_batch), tuple(A_cores), tuple(b_batch)),
+                direction, local_assume, eager=eager)
 
 
 def als_sweep_flops(x_shapes, A_shapes) -> float:

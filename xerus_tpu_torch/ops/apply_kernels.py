@@ -15,7 +15,9 @@ quasi-optimal under truncation and exact on representable ranks.
 The JAX package drew its sketches from ``jax.random.PRNGKey(0)``; the
 port takes them as ``sketches`` (the tests pass JAX's own) or draws them
 from a ``torch.Generator`` seeded 0 on the cores' device, so a call is
-reproducible.
+reproducible.  The JAX package compiled the sweep
+(``make_apply_round``); here it is a captured program on the card, its
+stacks padded and its sketches drawn outside it.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from typing import List, Optional, Sequence
 import torch
 
 from .dmrg_kernels import _pad_operator_stack
+from .programs import Program, call, factory
 from .round_kernels import TINY, _cholesky, _cholqr2, _eps, _solve_lower
 from .round_kernels import res_rank
 from .stacking import pad_cores
@@ -50,15 +53,13 @@ def _apply_round_scan(A_stack: torch.Tensor, x_stack: torch.Tensor,
     dtype, dev = x_stack.dtype, x_stack.device
     l = target_rank + oversample
     if sketches is None:
-        generator = torch.Generator(device=dev).manual_seed(0)
-        sketches = [None] * (d - 1)
-        for k in range(d - 2, -1, -1):
-            sketches[k] = torch.randn((l, n, l), generator=generator,
-                                      dtype=dtype, device=dev)
+        sketches = draw_apply_sketches(d, n, l, dtype, dev)
 
     # right-to-left sketches: Ws[k] (a, r, l) pairs with site k (bond k+1)
+    # the unit entries are fills: assigning a Python float copies it from
+    # the host, which a captured region refuses
     W = x_stack.new_zeros((a, r, l))
-    W[0, 0, 0] = 1.0
+    W[0, 0, 0].fill_(1.0)
     Ws = [None] * (d - 1)
     for k in range(d - 2, -1, -1):
         Ak, xk = A_stack[k + 1], x_stack[k + 1]
@@ -71,7 +72,7 @@ def _apply_round_scan(A_stack: torch.Tensor, x_stack: torch.Tensor,
     # left-to-right orthogonalization sweep
     col_mask = (torch.arange(l, device=dev) < target_rank).to(dtype)
     C = x_stack.new_zeros((l, a, r))
-    C[0, 0, 0] = 1.0
+    C[0, 0, 0].fill_(1.0)
     logs = x_stack.new_zeros(())
     Qs = []
     for k in range(d - 1):
@@ -101,26 +102,60 @@ def _apply_round_scan(A_stack: torch.Tensor, x_stack: torch.Tensor,
     return torch.stack(Qs) * scale, Fin[:, :, 0, 0] * scale
 
 
+def draw_apply_sketches(d: int, n: int, l: int, dtype, device
+                        ) -> List[torch.Tensor]:
+    """``_apply_round_scan``'s d-1 standard-normal (l, n, l) sketches,
+    drawn from a Generator seeded 0 on ``device`` from site d-1 down to
+    site 1."""
+    generator = torch.Generator(device=device).manual_seed(0)
+    sketches = [None] * (d - 1)
+    for k in range(d - 2, -1, -1):
+        sketches[k] = torch.randn((l, n, l), generator=generator,
+                                  dtype=dtype, device=device)
+    return sketches
+
+
+@factory(32)
+def make_apply_round(shapes_key, dtype_str: str, target_rank: int,
+                     oversample: int, qr_method: str) -> Program:
+    """``_apply_round_scan`` as a program for inputs of ``shapes_key``
+    (``programs.shapes_key(A_stack, x_stack, sketches)``): (A_stack,
+    x_stack, sketches) -> (Qs, final) (the JAX package's
+    ``make_apply_round``, xerus_tpu/ops/apply_kernels.py:108, keyed by
+    both stacks' shapes, the target, the oversample, the dtype and the QR
+    method)."""
+    def fn(A_stack, x_stack, sketches):
+        return _apply_round_scan(A_stack, x_stack, target_rank, oversample,
+                                 qr_method, sketches)
+    return Program(fn, f"apply_round[{qr_method}]")
+
+
 def apply_operator_rounded_cores(A_cores: Sequence[torch.Tensor],
                                  x_cores: Sequence[torch.Tensor],
                                  target_rank: int, oversample: int = 8,
-                                 qr_method: str = "auto", sketches=None
-                                 ) -> List[torch.Tensor]:
+                                 qr_method: str = "auto", sketches=None,
+                                 eager: bool = False) -> List[torch.Tensor]:
     """Fused apply + round at core level: A (list of (al, m, c, ar) MPO
     cores), x (list of (rl, c, rr) cores) on one device -> the rounded
     product's cores at bond dimension <= target_rank.  ``qr_method``
     "auto" is Householder: the JAX package measured cholqr1's u kappa^2
     floor unsafe on structured operators (Laplace apply panels at f32:
     0.26 relative error against 9.6e-7); "cholqr1" and "cholqr" are
-    opt-in.  ``sketches`` as ``_apply_round_scan``'s."""
+    opt-in.  ``sketches`` as ``_apply_round_scan``'s, drawn here when not
+    given.  The sweep is ``make_apply_round``'s program on the padded
+    stacks, or with ``eager`` its function run eagerly."""
     if qr_method == "auto":
         qr_method = "householder"
     d = len(A_cores)
     n = A_cores[0].shape[1]
+    t, o = int(target_rank), int(oversample)
     x_stack, _ = pad_cores(x_cores)
     A_stack = _pad_operator_stack(A_cores, x_stack.dtype)
-    Qs, final = _apply_round_scan(A_stack, x_stack, int(target_rank),
-                                  int(oversample), qr_method, sketches)
+    if sketches is None:
+        sketches = draw_apply_sketches(d, A_stack.shape[2], t + o,
+                                       x_stack.dtype, x_stack.device)
+    Qs, final = call(make_apply_round, (A_stack, x_stack, tuple(sketches)),
+                     t, o, qr_method, eager=eager)
     # logical bond caps: product rank a_k r_k, physical n^k / n^(d-k)
     t = int(target_rank)
     res = []

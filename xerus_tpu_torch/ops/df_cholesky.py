@@ -24,11 +24,12 @@ from functools import partial
 
 import torch
 
-from . import df_loops
+from . import df_loops, programs
 from .df32 import df_add, df_sub
 from .df_matvec import df_matvec, df_matvec_reference
 from .mixed_precision import df_div, df_sqrt
 from .ozaki import ozaki_matmul
+from .programs import Program, factory
 
 
 def _df_chol_unblocked(Ah, Al):
@@ -62,6 +63,8 @@ def _df_trsm_rlt(Ah, Al, Lkh, Lkl):
 
 _df_chol_unblocked.calls = 0
 _df_trsm_rlt.calls = 0
+programs.counter(_df_chol_unblocked, "calls")
+programs.counter(_df_trsm_rlt, "calls")
 
 
 def _df_chol_unblocked_reference(Ah, Al):
@@ -166,8 +169,13 @@ def df_solve_spd_chol(Ah, Al, bh, bl, block: int = 64,
     return xh, xl
 
 
+@factory(16)
 def make_df_solve_spd_chol(n: int, dtype_str: str, block: int = 64,
-                           refine_iters: int = 3):
-    """The JAX package's cached jit factory; here the plain function with
-    its options bound (``n`` and ``dtype_str`` keyed the compile)."""
-    return partial(df_solve_spd_chol, block=block, refine_iters=refine_iters)
+                           refine_iters: int = 3) -> Program:
+    """``df_solve_spd_chol`` as a program for an (n, n) system (the JAX
+    package's ``make_df_solve_spd_chol``, keyed by n, the dtype, the block
+    and the refinement steps): (Ah, Al, bh, bl) -> (xh, xl).  A program
+    takes the strides of its first call's inputs on the card."""
+    return Program(partial(df_solve_spd_chol, block=block,
+                           refine_iters=refine_iters),
+                   f"df_solve_spd_chol[{n}]")

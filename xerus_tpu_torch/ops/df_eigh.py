@@ -13,37 +13,53 @@ iteration (Ogita & Aishima, JSIAM 2018) computes
 E is O(u) small, so computing it in f32 costs O(u^2) in the result.
 Clustered eigenvalues cap the accuracy at ~u_df / gap.
 
-The f32 seed comes from cuSOLVER on the card, solved in float64 and cast
-to float32 (its float32 eigh is not orthogonal to float32 accuracy,
-``round_kernels._eigh_sym``) and, on the CPU,
-from LAPACK's syevd through scipy, the routine the JAX package's CPU eigh
+The f32 seed comes on the card from kernel K4 (``small_eig.small_eigh``,
+Jacobi in float64 on the f32 matrix, cast back to float32, as the
+float32 eigh on the card runs in float64 everywhere:
+``round_kernels._eigh_sym``), with no host read, so ``df_eigh`` and
+``df_svd`` run inside captured programs (``make_df_eigh``;
+``df_rounding``'s site programs); a matrix K4 fails gives NaN, as
+jnp.linalg.eigh does, and counts in K4's device health record, which the
+df rounding reads once a call.  On the CPU the seed is
+LAPACK's syevd through scipy, the routine the JAX package's CPU eigh
 calls (bit for bit; torch's MKL syevd gives other vectors inside
 clusters, and the refinement's reach in a cluster depends on the seed).
 Card and CPU seeds differ in sign and inside clusters, so compare
 eigenvalues, singular values, reconstructions and projectors, never
-vectors.  Each seed eigh on the card reads its ``info`` to the host
-(torch has no ``eigh_ex``), counted in
-``dmrg_kernels.linalg_host_checks()``.
+vectors.
 """
 
 from __future__ import annotations
 
+from functools import partial
+
 import numpy as np
 import torch
 
+from . import small_eig
 from .df32 import df_add, df_mul, df_sub
-from .dmrg_kernels import _eigh
 from .mixed_precision import df_div, df_sqrt
 from .ozaki import ozaki_matmul
+from .programs import Program, factory
 
 
 def _seed_eigh(A: torch.Tensor):
-    """The f32 eigh that seeds the refinement (see the module docstring)."""
+    """The f32 eigh that seeds the refinement (see the module docstring):
+    ascending eigenvalues, eigenvectors in the columns."""
     if A.is_cuda:
-        return _eigh(A)
+        return _k4_seed(A)
     from scipy.linalg import eigh as scipy_eigh
     w, V = scipy_eigh(A.detach().numpy(), driver="evd")
     return torch.from_numpy(w), torch.from_numpy(V)
+
+
+def _k4_seed(A: torch.Tensor):
+    """K4 on the (m, m) matrix as a batch of one (its plain version on a
+    CPU tensor), NaN where it reports a failure."""
+    w, V, status = small_eig.small_eigh(A[None])
+    bad = status[0] <= 0
+    return (torch.where(bad, torch.full_like(w[0], float("nan")), w[0]),
+            torch.where(bad, torch.full_like(V[0], float("nan")), V[0]))
 
 
 def df_eigh(Ah: torch.Tensor, Al: torch.Tensor, iters: int = 6):
@@ -88,6 +104,15 @@ def df_eigh(Ah: torch.Tensor, Al: torch.Tensor, iters: int = 6):
         dVh, dVl = ozaki_matmul(Vh, Vl, E, torch.zeros_like(E))
         Vh, Vl = df_add(Vh, Vl, dVh * gate, dVl * gate)
     return lam_h, lam_l, Vh, Vl
+
+
+@factory(16)
+def make_df_eigh(n: int, dtype_str: str, iters: int = 6) -> Program:
+    """``df_eigh`` as a program for (n, n) df matrices (the JAX package's
+    ``make_df_eigh``, keyed by n, the dtype and the iterations): (Ah, Al)
+    -> (wh, wl, Vh, Vl).  A program takes the strides of its first call's
+    inputs on the card."""
+    return Program(partial(df_eigh, iters=iters), f"df_eigh[{n}]")
 
 
 def _unit_columns(h, l):

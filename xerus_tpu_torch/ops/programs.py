@@ -169,12 +169,17 @@ def shapes_key(*trees):
     return spec(trees)
 
 
+def program_for(factory, args, *static) -> "Program":
+    """``factory(shapes_key(*args), dtype, *static)``: the program that
+    ``call`` runs on ``args``, the first leaf's dtype as the key's."""
+    return factory(shapes_key(*args), dtype_str(_leaves(args)[0]), *static)
+
+
 def call(factory, args, *static, eager: bool = False):
-    """``factory(shapes_key(*args), dtype, *static)``'s program on
-    ``args``; with ``eager`` its function, run eagerly (the plain version,
-    by the caller's explicit request)."""
-    program = factory(shapes_key(*args), dtype_str(_leaves(args)[0]),
-                      *static)
+    """``program_for(factory, args, *static)`` on ``args``; with ``eager``
+    its function, run eagerly (the plain version, by the caller's explicit
+    request)."""
+    program = program_for(factory, args, *static)
     return program.fn(*args) if eager else program(*args)
 
 

@@ -6,7 +6,10 @@ the ``_trunc_step`` family, ``_round_sweep_segmented``,
 ``tt_round_sweep_segmented``), the randomized sweep ``_round_randomized``
 and the analytic flop counts.  The JAX package
 traced each sweep into one XLA program; here the same einsums,
-factorizations and GEMMs run eagerly on whatever device the cores are on.
+factorizations and GEMMs run on whatever device the cores are on, and the
+randomized sweep is a captured program on the card
+(``make_randomized_round``, ``make_randomized_round_unrolled``; its
+sketches are drawn outside the program and passed in).
 
 The power-of-2 buckets and the static per-bond schedule of the reference
 are kept exactly: they fix the padded shapes, the dead bond slots and the
@@ -712,6 +715,7 @@ def _bf16_pass(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 _bf16_pass.gemms = 0
+programs.counter(_bf16_pass, "gemms")
 
 
 def mm_precision(a: torch.Tensor, b: torch.Tensor, precision) -> torch.Tensor:
@@ -807,17 +811,15 @@ def _round_randomized(cores: Sequence[torch.Tensor], target_rank: int,
     l = target_rank + oversample
     dtype = cores[0].dtype
     dev = cores[0].device
-    shapes = [tuple(c.shape) for c in cores]
     if sketches is None:
-        if generator is None:
-            generator = torch.Generator(device=dev).manual_seed(0)
-        sketches = [None] * (d - 1)
-        for i in range(d - 2, -1, -1):
-            sketches[i] = torch.randn(sketch_shapes(shapes, target_rank,
-                                                    oversample)[i],
-                                      generator=generator, dtype=dtype,
-                                      device=dev)
-    sqrt_l = torch.sqrt(torch.tensor(l, dtype=dtype, device=dev))
+        sketches = draw_sketches([tuple(c.shape) for c in cores],
+                                 target_rank, oversample, dtype, dev,
+                                 generator)
+    # l filled on the device (torch.tensor(l, device=...) is a host-to-
+    # device copy, which a captured region refuses), then torch.sqrt as
+    # before; math.sqrt(l) would differ in the last bit from torch's CPU
+    # sqrt at some l (2 in float64, 267 in float32)
+    sqrt_l = torch.sqrt(torch.full((), float(l), dtype=dtype, device=dev))
 
     W = [None] * d
     W[d - 1] = torch.ones((int(cores[d - 1].shape[2]), 1), dtype=dtype,
@@ -865,9 +867,104 @@ def _round_randomized(cores: Sequence[torch.Tensor], target_rank: int,
     return tuple(c * per_core for c in out[:d - 1]) + (final * per_core,)
 
 
+def draw_sketches(shapes, target_rank: int, oversample: int, dtype,
+                  device, generator: Optional[torch.Generator] = None
+                  ) -> List[torch.Tensor]:
+    """The standard-normal sketch cores R_0 .. R_{d-2} (``sketch_shapes``)
+    of a randomized rounding, drawn from ``generator`` (default: a
+    torch.Generator seeded 0 on ``device``) in the reference's order
+    i = d-2 .. 0.  The programs take them as inputs: a generator inside a
+    captured region would be state the graph hides."""
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    sizes = sketch_shapes(shapes, target_rank, oversample)
+    out = [None] * len(sizes)
+    for i in range(len(sizes) - 1, -1, -1):
+        out[i] = torch.randn(sizes[i], generator=generator, dtype=dtype,
+                             device=device)
+    return out
+
+
+def _randomized_program(cores, sketches, **kw):
+    return _round_randomized(cores, sketches=sketches, **kw)
+
+
+@factory(64)
+def make_randomized_round(shapes_key, dtype_str: str, target_rank: int,
+                          oversample: int, qr_method: str = "householder",
+                          max_ranks: Optional[Tuple[int, ...]] = None
+                          ) -> Program:
+    """``_round_randomized`` at full precision as a program for inputs of
+    ``shapes_key`` (``programs.shapes_key(cores, sketches)``): (cores,
+    sketches) -> cores.  The JAX package's ``make_randomized_round``
+    (xerus_tpu/ops/tt_kernels.py:2090) with Householder panels, behind
+    ``tt_round_randomized``; ``qr_method`` and the bond caps
+    ``max_ranks`` serve ``tt_round_randomized_uniform``."""
+    return Program(partial(_randomized_program, target_rank=target_rank,
+                           oversample=oversample, qr_method=qr_method,
+                           max_ranks=max_ranks),
+                   f"randomized_round[{qr_method}]")
+
+
+@factory(32)
+def make_randomized_round_unrolled(shapes_key, dtype_str: str,
+                                   target_rank: int, oversample: int,
+                                   precision=None, gram_precision=None
+                                   ) -> Program:
+    """The cholqr1 sweep at ``precision`` / ``gram_precision`` as a
+    program: (cores, sketches) -> cores (the JAX package's
+    ``make_randomized_round_unrolled``, xerus_tpu/ops/tt_kernels.py:2709,
+    the bench's headline sweep and the speed presets' path).  A lowered
+    precision's float64 -> float32 cast runs inside it."""
+    return Program(partial(_randomized_program, target_rank=target_rank,
+                           oversample=oversample, qr_method="cholqr1",
+                           precision=precision,
+                           gram_precision=gram_precision),
+                   f"randomized_round_unrolled[{precision}, "
+                   f"{gram_precision}]")
+
+
+def randomized_inputs(cores: Sequence[torch.Tensor], target_rank: int,
+                      oversample: int, precision=None, gram_precision=None,
+                      generator: Optional[torch.Generator] = None):
+    """(cores, sketches), the inputs of the randomized programs: the
+    sketches drawn outside the region, in the dtype the sweep runs in
+    (float32 where a lowered precision casts float64 cores down), so the
+    program rounds with the numbers ``_round_randomized`` would draw."""
+    dtype = cores[0].dtype
+    if (dtype == torch.float64
+            and not {precision, gram_precision} <= {None, "highest"}):
+        dtype = torch.float32
+    return tuple(cores), tuple(draw_sketches(
+        [tuple(c.shape) for c in cores], target_rank, oversample, dtype,
+        cores[0].device, generator))
+
+
 def tt_round_randomized(cores: Sequence[torch.Tensor], target_rank: int,
-                        oversample: int = 8) -> Tuple[torch.Tensor, ...]:
+                        oversample: int = 8, eager: bool = False
+                        ) -> Tuple[torch.Tensor, ...]:
     """Randomized rounding with Householder panels at full precision (the
     JAX package's ``tt_round_randomized``, xerus_tpu/ops/tt_kernels.py:
-    2097, which jits ``_round_randomized`` with its default QR)."""
-    return _round_randomized(cores, int(target_rank), int(oversample))
+    2097): ``make_randomized_round``'s program, or with ``eager`` its
+    function run eagerly."""
+    t, o = int(target_rank), int(oversample)
+    return call(make_randomized_round, randomized_inputs(cores, t, o), t, o,
+                eager=eager)
+
+
+def tt_round_randomized_unrolled(cores: Sequence[torch.Tensor],
+                                 target_rank: int, oversample: int = 8,
+                                 precision=None, gram_precision=None,
+                                 generator: Optional[torch.Generator] = None,
+                                 eager: bool = False
+                                 ) -> Tuple[torch.Tensor, ...]:
+    """The randomized rounding with cholqr1 panels at the matmul
+    precisions of a ``SPEED_PRESETS`` entry, through
+    ``make_randomized_round_unrolled``'s program (``round_fast(method=
+    "randomized_unrolled")`` and ``speed=``); ``generator`` draws the
+    sketches (default seed 0), ``eager`` runs the function eagerly."""
+    t, o = int(target_rank), int(oversample)
+    return call(make_randomized_round_unrolled,
+                randomized_inputs(cores, t, o, precision, gram_precision,
+                                  generator),
+                t, o, precision, gram_precision, eager=eager)

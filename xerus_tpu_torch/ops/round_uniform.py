@@ -29,8 +29,10 @@ import numpy as np
 import torch
 
 from .dmrg_kernels import _eigh, _svd
-from .round_kernels import (TINY, _eps, _round_randomized, chol_orth_cols,
-                            host_bool, res_rank, tt_round_sweep_segmented)
+from .programs import call
+from .round_kernels import (TINY, _eps, chol_orth_cols, host_bool,
+                            make_randomized_round, randomized_inputs,
+                            res_rank, tt_round_sweep_segmented)
 from .stacking import pad_cores
 
 UNIFORM_METHODS = ("svd", "gram", "cholqr", "gram_parallel",
@@ -485,8 +487,8 @@ def tt_round_streaming_uniform(cores: Sequence[torch.Tensor],
 
 def tt_round_randomized_uniform(cores: Sequence[torch.Tensor],
                                 target_rank: int, oversample: int = 8,
-                                qr_method: str = "householder"
-                                ) -> List[torch.Tensor]:
+                                qr_method: str = "householder",
+                                eager: bool = False) -> List[torch.Tensor]:
     """Randomized rounding to ``target_rank`` with every bond at its
     logical rank min(target, n_0 ... n_i, n_{i+1} ... n_{d-1}) (the JAX
     package's entry over ``_round_randomized_scan``).  The scan pads each
@@ -494,7 +496,9 @@ def tt_round_randomized_uniform(cores: Sequence[torch.Tensor],
     slices back to the logical ranks; here the sweep runs at true shapes
     and caps each bond at its logical rank, which drops the same
     directions.  ``qr_method``: 'householder', 'cholqr' (shifted
-    CholeskyQR2) or 'cholqr1' (one shifted pass)."""
+    CholeskyQR2) or 'cholqr1' (one shifted pass).  The sweep is
+    ``round_kernels.make_randomized_round``'s program (its sketches drawn
+    outside it), or with ``eager`` its function run eagerly."""
     if qr_method not in ("householder", "cholqr", "cholqr1"):
         raise ValueError(f"unknown qr_method {qr_method!r}")
     d = len(cores)
@@ -503,8 +507,9 @@ def tt_round_randomized_uniform(cores: Sequence[torch.Tensor],
     dims = [int(c.shape[1]) for c in cores]
     caps = [min(int(target_rank), math.prod(dims[:i + 1]),
                 math.prod(dims[i + 1:])) for i in range(d - 1)]
-    return list(_round_randomized(cores, int(target_rank), int(oversample),
-                                  qr_method=qr_method, max_ranks=caps))
+    t, o = int(target_rank), int(oversample)
+    return list(call(make_randomized_round, randomized_inputs(cores, t, o),
+                     t, o, qr_method, tuple(caps), eager=eager))
 
 
 def tt_round_eps_fast(cores: Sequence[torch.Tensor], max_rank: int,

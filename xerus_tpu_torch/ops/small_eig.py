@@ -46,7 +46,7 @@ from __future__ import annotations
 
 import ctypes
 from functools import lru_cache
-from typing import Dict, NamedTuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -569,10 +569,23 @@ def check_health(dev) -> Dict[str, int]:
     """Read and reset the health record of the card ``dev`` (one host
     read; nothing when no kernel has run there) and raise if a matrix
     failed.  Returns the record by ``HEALTH``'s names."""
+    return check_health_and(dev, None)[0]
+
+
+def check_health_and(dev, extra: Optional[torch.Tensor]
+                     ) -> Tuple[Dict[str, int], List[int]]:
+    """``check_health`` with the 1-d integer tensor ``extra`` (on ``dev``,
+    or None) read in the same transfer: (the record, ``extra``'s
+    values)."""
     h = _HEALTH.get(_key(dev))
+    parts = ([] if h is None else [h]) + (
+        [] if extra is None else [extra.to(torch.int64)])
+    if not parts:
+        return {}, []
+    got = torch.cat(parts).tolist()
     if h is None:
-        return {}
-    vals = dict(zip(HEALTH, h.tolist()))
+        return {}, got
+    vals = dict(zip(HEALTH, got[:len(HEALTH)]))
     h.zero_()
     last_health.clear()
     last_health.update(vals)
@@ -581,7 +594,7 @@ def check_health(dev) -> Dict[str, int]:
             f"small_eigh / small_svd: {vals['failures']} of "
             f"{vals['matrices']} matrices did not converge in {CAP} Jacobi "
             f"sweeps or were not finite")
-    return vals
+    return vals, got[len(HEALTH):]
 
 
 def _stream(t: torch.Tensor) -> int:

@@ -706,8 +706,8 @@ class TTNetwork:
             # randomized and streaming methods act as a cheap uniform
             # preconditioner down to max(rank_vec) first
             if method == "randomized":
-                cores = list(rk._round_randomized(cores, max_rank,
-                                                  _OVERSAMPLE))
+                cores = list(rk.tt_round_randomized(cores, max_rank,
+                                                    _OVERSAMPLE))
             elif method == "streaming":
                 cores = ru.tt_round_streaming_uniform(cores, max_rank)
             seg_method = method if method in _SEGMENTED_METHODS else "svd"
@@ -719,14 +719,18 @@ class TTNetwork:
             out = ru.tt_round_eps_fast(cores, max_rank, eps)
         elif method in ("randomized", "randomized_unrolled"):
             # 'randomized' runs Householder panels at true shapes (the JAX
-            # package pads to one shape for its compile; the port has no
-            # compile to share), 'randomized_unrolled' cholqr1 panels and
-            # with eps > 0 the exact svd-eps sweep on the rounded cores
-            qr = "householder" if method == "randomized" else "cholqr1"
-            out = list(rk._round_randomized(
-                cores, max_rank, _OVERSAMPLE, qr_method=qr,
-                precision=preset["precision"],
-                gram_precision=preset["gram_precision"]))
+            # package pads to one shape for its compile; the port's
+            # programs are keyed by the true shapes), 'randomized_unrolled'
+            # cholqr1 panels at the preset's precisions and with eps > 0
+            # the exact svd-eps sweep on the rounded cores
+            if method == "randomized":
+                out = list(rk.tt_round_randomized(cores, max_rank,
+                                                  _OVERSAMPLE))
+            else:
+                out = list(rk.tt_round_randomized_unrolled(
+                    cores, max_rank, _OVERSAMPLE,
+                    precision=preset["precision"],
+                    gram_precision=preset["gram_precision"]))
             if eps > 0.0:
                 out = segmented(out, max_rank, eps=eps, method="svd")
         elif method == "streaming":
