@@ -26,6 +26,12 @@ full width:
   (gemm_exact); the gemm_exact rounding's Newton-Schulz QR sweep in
   chunks of masked steps against its per-step loop (host reads,
   iterations, outputs bit for bit);
+- TT rounding past one cluster, at the TPU kernel's reach: the d=32
+  rank-512 -> 256 and rank-1024 -> 512 instances, gemm_exact (their 15
+  and 13 trunc bonds on K2's grid route, ``csrc/gemm_exact_grid.cuh``)
+  and svd against the host f64 chain, K2's time bond by bond beside its
+  bound; a bond that does not certify must be the plain version's own
+  decision on the card (ROADMAP fault 7);
 - the rest of TT rounding on the same instance and its f64 LAPACK chain:
   double-word rounding (``tt_round_df_from_f64``: df CholeskyQR with
   CGS2 fallbacks, whose column loops are K1c (df_chol: the df Cholesky's
@@ -127,7 +133,9 @@ stands for and held against the plain loop at a size that needs it.
 Beside each kernel's time it prints its bound (bytes
 over the HBM rate or operations over the FP32/FP64 rate, whichever is
 larger; K2's operations from its flags) and, for K2, the time of
-torch.linalg.svd(driver="gesvd") on the same bond.
+torch.linalg.svd(driver="gesvd") on the same bond; K2's grid route is its
+own entry (``gemm_exact_grid``: the rank-512 rounding's launches, times
+at (512, 512) keep 256 and (1024, 1024) keep 512).
 
 Every phase raises on failure and nothing is caught, so the exit code is 0
 only if every phase passed.  Without a CUDA card, or without the package
@@ -207,6 +215,15 @@ K2_F64_RTOL = 1e-8        # f64 truncation error vs the SVD's
 K2_F64_CASE = ("generic", 40, 24, 5, 8, "float64")
 K2_GRID_CASES = [("cliff", 512, 1024, 256, 256, "float32"),
                  ("generic", 264, 200, 8, 8, "float64")]
+# the grid route at the TPU kernel's reach: the middle trunc bond of the
+# d=32 rank-512 -> 256 and rank-1024 -> 512 roundings ((512, 512) keep 256,
+# (1024, 1024) keep 512), captured from their svd roundings on the card
+K2_GRID_BONDS = [(512, 256), (1024, 512)]
+# the d=32 roundings past one cluster, all on the grid route: (rank,
+# target, K2 launches): at 512 -> 256 the trunc-mode bonds are sites
+# 9..23, each (512, 512), keep and bucket 256; at 1024 -> 512 sites
+# 10..22, each (1024, 1024), keep and bucket 512
+GRID_ROUNDINGS = [(512, 256, 15), (1024, 512, 13)]
 
 # completion: K3 against its plain version, (name, dims, ranks, M, route):
 # the slice's shape with few and many measurements (one run per site, merged
@@ -733,18 +750,22 @@ def _trunc_err(cur, vt):
     return float(((c - (c @ v.T) @ v).norm() ** 2 / c.norm() ** 2).item())
 
 
-def _k2_check(kind, B, M, keep, cap, dtype, dev, seed):
+def _k2_check(kind, B, M, keep, cap, dtype, dev, seed, cur=None):
     """One K2 case on the card against its plain version: f32 within
     K2_ERR_TOL of the plain version's truncation error, f64 both within
     K2_F64_RTOL of the SVD's; both certified, two repeat launches bitwise
     equal, and the flags' route the one gemm_exact_route chose before the
-    launch.  Returns (input, |kernel - plain| truncation error, kernel
+    launch.  ``cur``: the input on the card, else drawn by ``kind`` from
+    ``seed``.  Returns (input, |kernel - plain| truncation error, kernel
     flags)."""
     import numpy as np
     import torch
     from xerus_tpu_torch.ops import gemm_exact as ge
-    A = _k2_input(kind, B, M, keep, seed)
-    cur = torch.tensor(A, dtype=getattr(torch, dtype), device=dev)
+    if cur is None:
+        A = _k2_input(kind, B, M, keep, seed)
+        cur = torch.tensor(A, dtype=getattr(torch, dtype), device=dev)
+    else:
+        A = cur.double().cpu().numpy()
     vk, fk = _k2_run(cur, keep, cap, True)
     vp, fp = _k2_run(cur, keep, cap, False)
     ek, ep = _trunc_err(cur, vk), _trunc_err(cur, vp)
@@ -821,7 +842,8 @@ def phase_k2(dev):
                   f"{fk['cluster_ctas']} CTAs, {fk['barriers']} cluster "
                   f"barriers, {fk['outer']} outer and {fk['ns']} Newton-"
                   f"Schulz steps ({fk['ns_rows']} in the row polar); "
-                  f"{flops / 1e9:.3f} GFLOP by gemm_exact_flops, bound "
+                  f"{flops / 1e9:.3f} GFLOP by gemm_exact_flops (Grams on "
+                  f"and above the diagonal), bound "
                   f"{timing['bound_ms']:.4f} ms by {timing['bound_by']} "
                   f"(FP32 67 TFLOP/s), {timing['bound_ms'] / timing['ms']:.2%}"
                   f" of it reached, {flops / timing['ms'] / 1e9:.3f} TFLOP/s")
@@ -834,7 +856,52 @@ def phase_k2(dev):
                                  "cluster route, expected the grid route")
         if dtype == "float32":
             max_abs = max(max_abs, diff)
-    return max_abs, timing
+    return max_abs, timing, _k2_grid_bonds(dev)
+
+
+def _k2_grid_bonds(dev):
+    """The grid route at the rank-512 and rank-1024 roundings' bond shapes
+    (each instance's middle trunc bond): against its plain version, then
+    timed beside its bound and gesvd (examples/k2_grid.py).  Returns the
+    kernels line's grid entry: the (512, 512) keep-256 numbers, the
+    (1024, 1024) keep-512 ones with the suffix _1024."""
+    from xerus_tpu_torch.examples import k2_grid
+    out = {"max_abs_err": 0.0}
+    for rank, target in K2_GRID_BONDS:
+        t0 = time.perf_counter()
+        bonds = k2_grid.bond_inputs(rank, target, dev)
+        cur, keep, cap = bonds[len(bonds) // 2]
+        B, M = cur.shape
+        _cur, diff, fk = _k2_check(f"rank-{rank} middle bond", B, M, keep,
+                                   cap, "float32", dev, SEED, cur=cur)
+        if fk["cluster_ctas"]:
+            raise AssertionError(f"K2 ({B}, {M}) took the cluster route, "
+                                 "expected the grid route")
+        out["max_abs_err"] = max(out["max_abs_err"], diff)
+        t = k2_grid.time_bond(cur, keep, cap)
+        plain = _wall_ms(lambda: _k2_run(cur, keep, cap, False), reps=1)
+        f = t["flags"]
+        print(f"K2 grid route ({B}, {M}) keep {keep} cap {cap} float32: "
+              f"kernel {t['ms']:.3f} ms (CUDA events, median of 20 queued "
+              f"launches after 2 warm-ups), torch.linalg.svd(driver="
+              f"'gesvd') {t['gesvd_ms']:.3f} ms (the same), plain "
+              f"{plain:.3f} ms (host wall, synchronized); {f['outer']} outer "
+              f"and {f['ns']} Newton-Schulz steps ({f['ns_rows']} in the row "
+              f"polar), {f['barriers']} grid barriers, "
+              f"{f['barriers'] / t['ms'] * 1e-3:.3f} per us; "
+              f"{t['gflop']:.3f} GFLOP by gemm_exact_flops (Grams on and "
+              f"above the diagonal), bound "
+              f"{t['bound_ms']:.4f} ms by {t['bound_by']} (FP32 67 TFLOP/s), "
+              f"{t['reached']:.2%} of it reached, "
+              f"{t['gflop'] / t['ms']:.3f} TFLOP/s; kernel / gesvd "
+              f"{t['ms'] / t['gesvd_ms']:.3f}x "
+              f"({time.perf_counter() - t0:.1f} s for this bond)")
+        sfx = "" if rank == K2_GRID_BONDS[0][0] else f"_{rank}"
+        out.update({f"ms{sfx}": t["ms"], f"plain_ms{sfx}": plain,
+                    f"bound_ms{sfx}": t["bound_ms"],
+                    f"bound_by{sfx}": t["bound_by"],
+                    f"library_ms{sfx}": t["gesvd_ms"]})
+    return out
 
 
 def _round(method, cores):
@@ -977,6 +1044,103 @@ def phase_round_slice(dev):
     return k2_launches, refs["random"], ge_f32, {
         "host": host, "chain": chains["random"], "ref": refs["random"],
         "svd_f32_rel": f32_rel["random", "svd"]}
+
+
+def phase_round_grid(dev):
+    """The d=32 roundings at the TPU kernel's reach, rank 512 -> 256 and
+    1024 -> 512 (``GRID_ROUNDINGS``); returns K2's launches in the counted
+    rank-512 rounding."""
+    return [_round_grid(dev, *r) for r in GRID_ROUNDINGS][0]
+
+
+def _round_grid(dev, rank, target, expected):
+    """The d=32 rank-``rank`` -> ``target`` rounding, whose ``expected``
+    trunc bonds take K2's grid route: gemm_exact and svd, one rounding
+    after a warm-up each, held to the host f64 chain and to each other;
+    K2's launches, routes and SVD fallbacks counted; then K2's device time
+    bond by bond beside each bond's bound.  A bond that does not certify
+    must be the plain version's own decision on the card (fault 7).
+    Returns K2's launches in the counted gemm_exact rounding."""
+    import numpy as np
+    import torch
+    from xerus_tpu_torch.convert import cores_to_torch
+    from xerus_tpu_torch.examples import (bench_round_instance,
+                                          cpu_round_sweep, host_tt_log_norm,
+                                          k2_grid)
+    t_phase = time.perf_counter()
+    host = bench_round_instance(32, ROUND_N, rank, SEED)
+    t0 = time.perf_counter()
+    ref = host_tt_log_norm(cpu_round_sweep(host, target))
+    print(f"round rank {rank}: f64 LAPACK chain log-norm {ref:.9f} "
+          f"({time.perf_counter() - t0:.2f} s on the host)")
+    cores = list(cores_to_torch(host, dev))
+    lnorm, launches = {}, 0
+    for method in ("gemm_exact", "svd"):
+        out, wall, n_k2, cnt = k2_grid.rounding_wall(cores, target, method)
+        h = _to_host(out)
+        if not all(np.all(np.isfinite(c)) for c in h):
+            raise AssertionError(f"round rank {rank} {method}: "
+                                 "non-finite")
+        if max(c.shape[2] for c in h[:-1]) > target:
+            raise AssertionError(f"round rank {rank} {method}: rank "
+                                 f"above {target}")
+        lnorm[method] = host_tt_log_norm(h)
+        rel = abs(lnorm[method] - ref) / abs(ref)
+        print(f"round rank {rank}->{target} {method} d=32: wall "
+              f"{wall:.4f} s (one rounding after a warm-up, synchronized), "
+              f"f32-vs-f64 log-norm rel err {rel:.3e} (bar "
+              f"{ROUND_F64_BAR:g}), K2 launches {n_k2}, gemm_exact {cnt}")
+        if method == "gemm_exact":
+            launches = n_k2
+            if launches != expected:
+                raise AssertionError(f"K2 launched {launches} times in the "
+                                     f"rank-{rank} rounding, expected "
+                                     f"{expected}")
+            if cnt["cluster_bonds"]:
+                raise AssertionError(f"{cnt['cluster_bonds']} bonds of the "
+                                     f"rank-{rank} rounding took the "
+                                     "cluster route, expected the grid "
+                                     "route")
+            fallbacks = cnt["svd_fallbacks"]
+        if not rel <= ROUND_F64_BAR:
+            raise AssertionError(f"round rank {rank} {method}: log-norm"
+                                 f" rel err {rel:.3e} above {ROUND_F64_BAR:g}")
+    d_ge = abs(lnorm["gemm_exact"] - lnorm["svd"]) / abs(lnorm["svd"])
+    print(f"round rank {rank}: gemm_exact vs svd log-norm rel diff "
+          f"{d_ge:.3e} (bar {GE_VS_SVD_BAR:g})")
+    if not d_ge <= GE_VS_SVD_BAR:
+        raise AssertionError(f"round rank {rank}: gemm_exact and svd "
+                             "differ")
+    bonds = k2_grid.k2_calls(cores, target)
+    total = bound = 0.0
+    for n, (cur, keep, cap, ms, f, _out) in enumerate(bonds):
+        B, M = cur.shape
+        b_ms, _by, _flop = k2_grid.k2_bound(B, M, cap, f, torch.float32)
+        total, bound = total + ms, bound + b_ms
+        print(f"breakdown: K2 grid bond {n} ({B}, {M}) cap {cap}: {ms:.3f} "
+              f"ms, bound {b_ms:.4f} ms; outer {f['outer']}, Newton-Schulz "
+              f"{f['ns']}, grid barriers {f['barriers']}, certified "
+              f"{f['converged']}, CTAs per cluster {f['cluster_ctas']}")
+        if not f["converged"]:
+            _vp, fp = _k2_run(cur, keep, cap, False)
+            print(f"fault 7: K2 grid bond {n} did not certify in "
+                  f"{f['outer']} outer steps; the plain version on the card "
+                  f"certifies: {fp['converged']} ({fp['outer']} outer)")
+            if fp["converged"]:
+                raise AssertionError(f"K2 grid bond {n} did not certify "
+                                     "where its plain version does")
+    if sum(not f["converged"] for *_x, f, _out in bonds) != fallbacks:
+        raise AssertionError("the SVD fallbacks of the counted rounding and "
+                             "of the timed one differ")
+    if bonds:   # none on the CPU, where the plain version runs
+        times = sorted(ms for _c, _k, _cap, ms, _f, _out in bonds)
+        print(f"breakdown: K2 grid device time per rank-{rank} gemm_exact "
+              f"rounding: {total:.3f} ms over {len(bonds)} launches, per bond "
+              f"{times[0]:.3f} to {times[-1]:.3f} ms, median "
+              f"{statistics.median(times):.3f}; bound {bound:.3f} ms "
+              f"({bound / total:.2%} of it reached); phase "
+              f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 class _Forward:
@@ -1303,8 +1467,9 @@ def _loop_checks(rec, path):
     diagonal) equal column by column, any flip printed with the column's
     norm and threshold, two launches bitwise equal.  Beside each shape's
     kernel time (CUDA events, median of 20 queued calls): the plain
-    version's (host wall of one synchronized call after a warm-up: it is
-    an eager loop), the bound, the float64 library call on the same shape
+    version's (host wall of the synchronized call the check makes, with no
+    warm-up call before it, so not comparable with a warmed call's time:
+    it is an eager loop), the bound, the float64 library call on the same shape
     (torch.linalg.qr / cholesky / solve_triangular; it computes in f64,
     not in df) and, on K1q's cluster route, the floor of its cluster
     barriers.  Returns ({entry: {shape: row}}, {entry: max |kernel -
@@ -1318,6 +1483,13 @@ def _loop_checks(rec, path):
     fns = _loop_fns()
     rows, fails = {e: {} for e in LOOP_ENTRIES}, []
     max_abs = dict.fromkeys(LOOP_ENTRIES, 0.0)
+
+    def walled(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
 
     def held(name, k, p):
         ok = all(a <= DF_LOOP_FACTOR * b + DF_LOOP_FLOOR for a, b in zip(k, p))
@@ -1339,7 +1511,7 @@ def _loop_checks(rec, path):
             again = fn(ah, al, plan)
             same = all(torch.equal(x, y) for x, y in
                        zip((*kq, *kr), (*again[0], *again[1])))
-            pq, pr = mp.df_qr_reference(ah, al)
+            (pq, pr), plain_ms = walled(lambda: mp.df_qr_reference(ah, al))
             Q, R = df_to_f64(*kq), df_to_f64(*kr)
             PQ, PR = df_to_f64(*pq), df_to_f64(*pr)
             ek = dl.qr_backward_errors(Q, R, A)
@@ -1359,7 +1531,6 @@ def _loop_checks(rec, path):
                        + ("; ".join(flips) if flips else
                           "the plain version's column by column"))
             run = lambda: fn(ah, al, plan)
-            plain = lambda: mp.df_qr_reference(ah, al)
             A64 = torch.from_numpy(A).to(dev)
             lib = lambda: torch.linalg.qr(A64)
         elif entry == "df_chol_block":
@@ -1368,14 +1539,14 @@ def _loop_checks(rec, path):
             kl = fn(ah, al, plan)
             again = fn(ah, al, plan)
             same = all(torch.equal(x, y) for x, y in zip(kl, again))
-            pl = dc._df_chol_unblocked_reference(ah, al)
+            pl, plain_ms = walled(
+                lambda: dc._df_chol_unblocked_reference(ah, al))
             L, PL = df_to_f64(*kl), df_to_f64(*pl)
             ek = (dl.chol_backward_error(L, A),)
             ep = (dl.chol_backward_error(PL, A),)
             diff = np.abs(L - PL).max()
             verdict = (f"||LL^T - A||/||A|| {ek[0]:.3e} (plain {ep[0]:.3e})")
             run = lambda: fn(ah, al, plan)
-            plain = lambda: dc._df_chol_unblocked_reference(ah, al)
             A64 = torch.from_numpy(A).to(dev)
             lib = lambda: torch.linalg.cholesky(A64)
         else:
@@ -1384,7 +1555,8 @@ def _loop_checks(rec, path):
             kx = fn(ah, al, lh, ll, plan)
             again = fn(ah, al, lh, ll, plan)
             same = all(torch.equal(x, y) for x, y in zip(kx, again))
-            px = dc._df_trsm_rlt_reference(ah, al, lh, ll)
+            px, plain_ms = walled(
+                lambda: dc._df_trsm_rlt_reference(ah, al, lh, ll))
             X, PX = df_to_f64(*kx), df_to_f64(*px)
             ek = (dl.trsm_backward_error(X, L, A),)
             ep = (dl.trsm_backward_error(PX, L, A),)
@@ -1392,7 +1564,6 @@ def _loop_checks(rec, path):
             verdict = (f"||XL^T - A||/(||X|| ||L||) {ek[0]:.3e} (plain "
                        f"{ep[0]:.3e})")
             run = lambda: fn(ah, al, lh, ll, plan)
-            plain = lambda: dc._df_trsm_rlt_reference(ah, al, lh, ll)
             A64 = torch.from_numpy(A).to(dev)
             L64 = torch.from_numpy(L).to(dev)
             lib = lambda: torch.linalg.solve_triangular(L64.T, A64,
@@ -1403,7 +1574,6 @@ def _loop_checks(rec, path):
             fails.append(f"{name}: two launches differ")
         max_abs[entry] = max(max_abs[entry], float(diff))
         ms = _time_ms(run, reps=20, warmup=2)
-        plain_ms = _wall_ms(plain, reps=1)
         f64_ms = _time_ms(lib, reps=20, warmup=2)
         bound_ms, bound_by = _loop_bound(entry, shape)
         floor = ""
@@ -1854,37 +2024,18 @@ def phase_rounding_rest(dev, smi, slice_round):
 
 
 def _k2_bond_times(cores, inputs=None):
-    """K2's device time in one gemm_exact rounding: CUDA events around each
-    call of the wrapper (its output allocation and flag fill included,
-    a few us), with each bond's shape, column bucket and flags.  A list
-    ``inputs`` receives each launch's (cur, keep, keep_cap, outputs)."""
-    import torch
-    from xerus_tpu_torch.ops import gemm_exact as ge
-    kernel = ge.gemm_exact_kernel
-    bonds = []
-
-    def timed(cur, keep, cap):
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        start.record()
-        out = kernel(cur, keep, cap)
-        end.record()
-        if inputs is not None:
-            inputs.append((cur.clone(), keep, cap, out))
-        bonds.append((tuple(cur.shape), cap, start, end, out[2]))
-        return out
-
-    # the wrapper counts its launches on whatever the module's name holds
-    timed.launches = kernel.launches
-    torch.cuda.synchronize()
-    ge.gemm_exact_kernel = timed
-    try:
-        _round("gemm_exact", cores)
-    finally:
-        ge.gemm_exact_kernel = kernel
-    torch.cuda.synchronize()
-    return [((B, M), cap, start.elapsed_time(end),
-             dict(zip(ge.FLAGS, flags.tolist())))
-            for (B, M), cap, start, end, flags in bonds]
+    """K2's device time in one gemm_exact rounding to ROUND_TARGET, bond by
+    bond (``examples/k2_grid.py`` ``k2_calls``: CUDA events around each
+    call of the wrapper): each bond's shape, column bucket, ms and flags.
+    A list ``inputs`` receives each launch's (cur, keep, keep_cap,
+    outputs)."""
+    from xerus_tpu_torch.examples import k2_grid
+    calls = k2_grid.k2_calls(cores, ROUND_TARGET)
+    if inputs is not None:
+        inputs.extend((cur, keep, cap, out)
+                      for cur, keep, cap, _ms, _f, out in calls)
+    return [(tuple(cur.shape), cap, ms, f)
+            for cur, _keep, cap, ms, f, _out in calls]
 
 
 def phase_round_breakdown(dev):
@@ -5012,7 +5163,7 @@ def main():
     phase_build()
     _loop_fns()
     k1_max_abs, k1_timing = phase_kernels(dev)
-    k2_max_abs, k2_timing = phase_k2(dev)
+    k2_max_abs, k2_timing, k2g_timing = phase_k2(dev)
     k3_max_abs, k3_timing = phase_k3(dev)
     jacobi = phase_jacobi(dev, smi)
     phase_small_agreement(dev)
@@ -5021,6 +5172,7 @@ def main():
     (k1_launches, k1q_poisson), solution, host_residual, slice_run = \
         phase_slice(dev)
     k2_launches, round_ref, ge_f32, slice_round = phase_round_slice(dev)
+    k2g_launches = phase_round_grid(dev)
     rest_rows, rest_abs, rest_launches, gmem_rows, df_k4 = \
         phase_rounding_rest(dev, smi, slice_round)
     phase_round_programs(dev, smi)
@@ -5063,6 +5215,12 @@ def main():
         entry("gemm_exact", "xerus_tpu_torch/csrc/gemm_exact.cu",
               "xerus_tpu/ops/tt_kernels.py:1232", k2_launches, k2_max_abs,
               k2_timing),
+        # K2's grid route (the same wrapper and kernel library): the
+        # rank-512 rounding's launches, times at (512, 512) keep 256 and,
+        # with the suffix _1024, at (1024, 1024) keep 512
+        entry("gemm_exact_grid", "xerus_tpu_torch/csrc/gemm_exact_grid.cuh",
+              "xerus_tpu/ops/tt_kernels.py:1232", k2g_launches,
+              k2g_timing["max_abs_err"], k2g_timing),
         entry("tt_eval", "xerus_tpu_torch/csrc/tt_eval.cu",
               "xerus_tpu/ops/pallas_tt_eval.py:45", k3_launches, k3_max_abs,
               k3_timing),

@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.overrides import TorchFunctionMode
 
 from xerus_tpu.ops import tt_kernels as jtk
 from xerus_tpu_torch.ops import gemm_exact as ge
@@ -165,20 +166,51 @@ def test_svd_fallback_when_not_certified(monkeypatch):
     np.testing.assert_allclose(err, np.sum(s[4:] ** 2), rtol=1e-10)
 
 
+class _HalfGrams(TorchFunctionMode):
+    """Computes every Gram product the plain version makes (x @ x^T or
+    x^T @ x: the second operand the first's transpose) only on and above
+    the diagonal, row by row, and mirrors it."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if func in (torch.Tensor.matmul, torch.Tensor.__matmul__,
+                    torch.matmul) and not kwargs:
+            a, b = args
+            if (a.dim() == 2 and a.data_ptr() == b.data_ptr()
+                    and a.shape == b.shape[::-1]
+                    and a.stride() == b.stride()[::-1]):
+                n = a.shape[0]
+                out = torch.empty((n, n), dtype=a.dtype)
+                for i in range(n):
+                    out[i, i:] = (a[i:i + 1] @ b[:, i:])[0]
+                    out[i + 1:, i] = out[i, i + 1:]
+                return out
+        return func(*args, **(kwargs or {}))
+
+
 @pytest.mark.parametrize("dtype,B,M,keep,cap", [
-    (torch.float32, 48, 40, 6, 8), (torch.float64, 40, 56, 5, 8)])
+    (torch.float32, 48, 40, 6, 8), (torch.float64, 40, 56, 5, 8),
+    pytest.param(torch.float32, 512, 512, 256, 256, marks=pytest.mark.slow)])
 def test_flop_count_matches_flop_counter(dtype, B, M, keep, cap):
     """gemm_exact_flops, the formula chip_smoke.py and PERF.md use for K2's
     bound, is exactly what torch.utils.flop_counter counts around the plain
-    version, for the outer, polish and Newton-Schulz counts it ran (the
-    plain version's counters, as the kernel's flags count them)."""
+    version when each of its Grams (G and the Newton-Schulz Grams) is
+    computed only on and above its diagonal, for the outer, polish and
+    Newton-Schulz counts it ran (the plain version's counters, as the
+    kernel's flags count them).  At (512, 512) keep 256 the input is the
+    rank-512 rounding instance's middle bond (a Gaussian matrix's flat
+    spectrum would not certify)."""
     from torch.utils.flop_counter import FlopCounterMode
-    A = np.random.default_rng(B + M).standard_normal((B, M))
-    cur = torch.tensor(A, dtype=dtype)
+    if B == 512:
+        from xerus_tpu_torch.examples.k2_grid import bond_inputs
+        bonds = bond_inputs(512, 256, torch.device("cpu"))
+        cur = bonds[len(bonds) // 2][0].to(dtype)
+    else:
+        A = np.random.default_rng(B + M).standard_normal((B, M))
+        cur = torch.tensor(A, dtype=dtype)
     mask = (torch.arange(cap) < keep).to(dtype)
     tuning = ge._gemm_exact_tuning(dtype)
     ge.reset_counters()
-    with FlopCounterMode(display=False) as fc:
+    with FlopCounterMode(display=False) as fc, _HalfGrams():
         _vt0, _vtb, _okp, conv, outer = ge._gemm_exact_body(cur, mask,
                                                             *tuning)
     ns, ns_rows = ge._gemm_exact_body.ns_iters, ge._gemm_exact_body.ns_row_iters

@@ -141,17 +141,33 @@ def test_gemm_exact_kernel_matches_plain_f32(cuda, kind, B, M, keep, cap):
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
+def _k2_input(kind, B, M, keep, device):
+    """A K2 case in float32 on ``device``; kind "bond": the middle
+    trunc-mode bond of the d=32 rank-B -> keep rounding instance, captured
+    from its svd rounding on the card."""
+    if kind == "bond":
+        from xerus_tpu_torch.examples.k2_grid import bond_inputs
+        bonds = bond_inputs(B, keep, device)
+        cur, _keep, _cap = bonds[len(bonds) // 2]
+        assert tuple(cur.shape) == (B, M)
+        return cur
+    return torch.tensor(_k2_case(kind, B, M, keep, B + M),
+                        dtype=torch.float32, device=device)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind,B,M,keep,cap,route", [
-    ("generic", 256, 256, 128, 128, 16), ("cliff", 512, 1024, 256, 256, 0)])
+    ("generic", 256, 256, 128, 128, 16), ("cliff", 512, 1024, 256, 256, 0),
+    ("bond", 512, 512, 256, 256, 0), ("bond", 1024, 1024, 512, 512, 0)])
 def test_gemm_exact_kernel_routes(cuda, kind, B, M, keep, cap, route):
     """The rounding's (256, 256) keep-128 bond takes the 16-CTA cluster
-    route, a shape past one cluster's shared memory the grid route; the
-    route is chosen before the launch and the flags report the one that
-    ran.  Each matches its plain version within 5e-6 in truncation error,
-    and repeat launches are bitwise equal."""
-    cur = torch.tensor(_k2_case(kind, B, M, keep, B + M),
-                       dtype=torch.float32, device=cuda)
+    route, shapes past one cluster's shared memory the grid route (the
+    rank-512 and rank-1024 roundings' bonds among them); the route is
+    chosen before the launch and the flags report the one that ran.  Each
+    matches its plain version within 5e-6 in truncation error, repeat
+    launches are bitwise equal, and the flags' counts lie within the
+    tuning's caps."""
+    cur = _k2_input(kind, B, M, keep, cuda)
     assert ge.gemm_exact_route(B, M, cap, torch.float32) == route
     vk, conv_k = _k2_vt(cur, keep, cap, True)
     vp, conv_p = _k2_vt(cur, keep, cap, False)
@@ -163,6 +179,59 @@ def test_gemm_exact_kernel_routes(cuda, kind, B, M, keep, cap, route):
     flags = dict(zip(ge.FLAGS, a[2].tolist()))
     assert flags["cluster_ctas"] == route
     assert 0 < flags["ns_rows"] <= flags["ns"] and flags["barriers"] > 0
+    max_outer, max_ns, polish, _stall = ge._gemm_exact_tuning(torch.float32)
+    assert 0 < flags["outer"] <= max_outer and flags["ns_rows"] <= max_ns
+    assert flags["ns"] <= (flags["outer"] + polish + 2) * max_ns
+
+
+@pytest.mark.cuda
+def test_gemm_exact_grid_stamps_keep_the_bits(cuda):
+    """The profiling build of K2 (examples/k2_grid.py, compiled with the
+    grid route's time stamps) gives the production build's bits at the
+    rank-512 rounding's middle bond, and its stamps are consistent: the
+    parts of CTA 0's cycles lie within them."""
+    from xerus_tpu_torch.examples.k2_grid import stamped_launch
+    cur = _k2_input("bond", 512, 512, 256, cuda)
+    a = ge.gemm_exact_kernel(cur, 256, 256)
+    st = stamped_launch(cur, 256, 256)
+    assert all(torch.equal(x, y) for x, y in zip(a[:2], st["outputs"]))
+    assert st["flags"] == dict(zip(ge.FLAGS, a[2].tolist()))
+    t = st["stamps"]
+    parts = t["barrier_wait"] + t["products"] + t["folds"]
+    assert 0 < parts <= t["cycles"] and t["k_slices"] > 0
+    assert t["item_fill"] + t["k_loops"] + t["fold_epilogue"] <= t["products"]
+
+
+@pytest.mark.cuda
+def test_gemm_exact_grid_layout_matches_the_kernel(cuda):
+    """The host's mirror of the grid route's workspace layout
+    (``grid_layout``, which the CPU tests check for coverage) agrees with
+    the bytes the kernel library asks the wrapper for."""
+    lib = ge._library()
+    for B, M, K in ((512, 512, 256), (1024, 1024, 512), (264, 200, 8),
+                    (512, 1024, 256)):
+        for elt, dtype in ((4, torch.float32), (8, torch.float64)):
+            assert ge.gemm_exact_route(B, M, K, dtype) == 0
+            assert (lib.xerus_gemm_exact_workspace_bytes(B, M, K, elt)
+                    == ge.grid_layout(B, M, K)["total"] * elt)
+
+
+@pytest.mark.cuda
+def test_gemm_exact_kernel_f64_grid_matches_svd(cuda):
+    """An f64 shape past one cluster takes the grid route; its truncation
+    error equals the SVD truncation's to rtol 1e-8 (chip_smoke's
+    K2_F64_RTOL), and repeat launches are bitwise equal."""
+    A = _k2_case("generic", 264, 200, 8, 464)
+    cur = torch.tensor(A, dtype=torch.float64, device=cuda)
+    assert ge.gemm_exact_route(264, 200, 8, torch.float64) == 0
+    vt, conv = _k2_vt(cur, 8, 8, True)
+    s = np.linalg.svd(A, compute_uv=False)
+    assert conv
+    np.testing.assert_allclose(_k2_err(cur, vt),
+                               np.sum(s[8:] ** 2) / np.sum(s ** 2), rtol=1e-8)
+    a = ge.gemm_exact_kernel(cur, 8, 8)
+    b = ge.gemm_exact_kernel(cur, 8, 8)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 @pytest.mark.cuda

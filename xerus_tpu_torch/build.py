@@ -57,15 +57,19 @@ def _nvcc() -> str:
                        "are built from csrc/ on the machine with the card")
 
 
-def load_kernel_library(name: str) -> ctypes.CDLL:
-    """Compile ``csrc/<name>.cu`` with its flags (once per content of the
-    source, of the headers in ``csrc/`` and of the flags) and load it."""
-    if name in _loaded:
-        return _loaded[name]
-    src = os.path.join(CSRC, name + ".cu")
-    flags = NVCC_FLAGS + KERNEL_FLAGS[name]
+def load_kernel_library(name: str, defines: tuple = (),
+                        csrc: str = CSRC) -> ctypes.CDLL:
+    """Compile ``csrc/<name>.cu`` with its flags and the macros
+    ``defines`` (once per content of the source, of the headers in
+    ``csrc/`` and of the flags) and load it.  ``csrc``: another source
+    directory (another version's, for a comparison in one process)."""
+    key = (name, *defines, *([csrc] if csrc != CSRC else []))
+    if key in _loaded:
+        return _loaded[key]
+    src = os.path.join(csrc, name + ".cu")
+    flags = NVCC_FLAGS + KERNEL_FLAGS[name] + [f"-D{d}" for d in defines]
     h = hashlib.sha256(" ".join(flags).encode())
-    for path in [src] + sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC)
+    for path in [src] + sorted(os.path.join(csrc, f) for f in os.listdir(csrc)
                                if f.endswith(".cuh")):
         with open(path, "rb") as fh:
             h.update(fh.read())
@@ -81,10 +85,10 @@ def load_kernel_library(name: str) -> ctypes.CDLL:
             raise RuntimeError(f"nvcc failed to build {src} "
                                f"(rc {proc.returncode}):\n{proc.stderr}")
         os.replace(tmp, lib_path)
-        build_log[name] = {"seconds": time.perf_counter() - t0,
-                           "ptxas": proc.stderr.strip()}
+        build_log[" ".join(key)] = {"seconds": time.perf_counter() - t0,
+                                    "ptxas": proc.stderr.strip()}
     lib = ctypes.CDLL(lib_path)
-    _loaded[name] = lib
+    _loaded[key] = lib
     return lib
 
 

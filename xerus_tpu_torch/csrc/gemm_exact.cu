@@ -32,9 +32,9 @@
 // data-dependent small products (the largest (256, 256, 256), the most
 // frequent the (128, 128, 256) Newton-Schulz Gram and its (256, 128, 128)
 // update), each followed by a reduction that decides the next step.  So
-// latency bounds it: the grid route (gemm_exact_grid.cuh) pays a
-// grid-wide barrier per phase, an L2 round trip per 32-deep chunk and
-// keeps at most 32 of 132 blocks busy.
+// latency bounds it: at these shapes one cluster's shared memory holds
+// the whole state, and the grid route (gemm_exact_grid.cuh), which keeps
+// it in L2, would pay two grid-wide barriers a Newton-Schulz step.
 //
 // The cluster route answers that as the TPU kernel did with one core's
 // VMEM: 16 CTAs of one non-portable cluster hold the whole state in their
@@ -1655,7 +1655,7 @@ int launch(const Args<T>& a, cudaStream_t stream) {
 template <typename T>
 int run(const T* cur, int B, int M, int K, int keep, int max_outer,
         int max_ns, int polish, int stall_need, void* ws, T* vt0, T* vt_bal,
-        int* flags, void* stream) {
+        int* flags, void* stream, unsigned long long* stamps = nullptr) {
     Args<T> a;
     a.cur = cur; a.B = B; a.M = M; a.K = K;
     a.keep = keep < 0 ? 0 : (keep < K ? keep : K);
@@ -1663,8 +1663,9 @@ int run(const T* cur, int B, int M, int K, int keep, int max_outer,
     a.stall_need = stall_need;
     a.vt0 = vt0; a.vt_bal = vt_bal; a.flags = flags;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (cluster::fits<T>(B, M, K)) return cluster::launch<T>(a, s);
-    return grid::launch<T>(a, ws, s);
+    if (cluster::fits<T>(B, M, K))
+        return stamps ? (int)cudaErrorInvalidValue : cluster::launch<T>(a, s);
+    return grid::launch<T>(a, ws, s, stamps);
 }
 
 }  // namespace gemm_exact
@@ -1714,3 +1715,27 @@ extern "C" int xerus_gemm_exact_f64(const double* cur, int B, int M, int K,
                                    polish, stall_need, ws, vt0, vt_bal, flags,
                                    stream);
 }
+
+#ifdef XERUS_GRID_STAMPS
+// A profiling build (examples/k2_grid.py --stamps) also exports the grid
+// route with its time stamps: the arguments above and stamps,
+// uint64[grid::kStamps], CTA 0's clock64 cycles (grid::Stamp).  A shape
+// of the cluster route returns cudaErrorInvalidValue.
+extern "C" int xerus_gemm_exact_grid_stamped_f32(
+    const float* cur, int B, int M, int K, int keep, int max_outer,
+    int max_ns, int polish, int stall_need, void* ws, float* vt0,
+    float* vt_bal, int* flags, void* stream, unsigned long long* stamps) {
+    return gemm_exact::run<float>(cur, B, M, K, keep, max_outer, max_ns,
+                                  polish, stall_need, ws, vt0, vt_bal, flags,
+                                  stream, stamps);
+}
+
+extern "C" int xerus_gemm_exact_grid_stamped_f64(
+    const double* cur, int B, int M, int K, int keep, int max_outer,
+    int max_ns, int polish, int stall_need, void* ws, double* vt0,
+    double* vt_bal, int* flags, void* stream, unsigned long long* stamps) {
+    return gemm_exact::run<double>(cur, B, M, K, keep, max_outer, max_ns,
+                                   polish, stall_need, ws, vt0, vt_bal, flags,
+                                   stream, stamps);
+}
+#endif

@@ -17,7 +17,9 @@ The kernel has two routes, chosen from the shape before the launch
 state in shared memory where it fits (the rounding's (256, 256) and
 (256, 512) bonds in the 128 bucket, in f32 and, with exchanges in slices
 and products on the FP64 tensor cores, in f64), else the cooperative grid
-kernel.  ``gemm_exact_flops``
+kernel of ``csrc/gemm_exact_grid.cuh`` (the rank-512 and rank-1024
+roundings' bonds), whose launch plan ``grid_plan`` and workspace layout
+``grid_layout`` mirror on the host.  ``gemm_exact_flops``
 is the operation count of one truncation from its iteration counts, for
 the kernel's flags and the plain version's counters alike.
 """
@@ -206,13 +208,100 @@ def gemm_exact_flops(B: int, M: int, K: int, outer: int, ns: int,
     tau = tr(V^T G V) product and the first Newton-Schulz Gram; two Gn
     products per outer or polish step; per column Newton-Schulz iteration
     an update and a Gram; V^T cur, the row polar's first Gram and per row
-    iteration an update and a Gram."""
+    iteration an update and a Gram.  Each Gram (G and the Newton-Schulz
+    Grams, all symmetric) counts only its entries on and above the
+    diagonal, n (n + 1) L for an (n, n) Gram over L: the least the
+    function needs."""
+    def gram(n, L):
+        return n * (n + 1) * L
     steps = 1 + outer + polish
-    return (2 * B * B * M
-            + steps * (2 * B * B * K + 2 * K * K * B)
+    return (gram(B, M)
+            + steps * (2 * B * B * K + gram(K, B))
             + 2 * (outer + polish) * 2 * B * B * K
-            + (ns - ns_rows) * 4 * B * K * K
-            + 2 * K * B * M + 2 * K * K * M + ns_rows * 4 * K * K * M)
+            + (ns - ns_rows) * (2 * B * K * K + gram(K, B))
+            + 2 * K * B * M + (1 + ns_rows) * gram(K, M)
+            + ns_rows * 2 * K * K * M)
+
+
+# the grid route's tiling (csrc/gemm_exact_grid.cuh): 32 x 32 output
+# tiles, k staged 64 deep, every dimension padded to a multiple of 64;
+# at most GRID_MAX_ITEMS split-K partial tiles and GRID_MAX_SPLIT slices
+# a product; one CTA per SM up to GRID_MAX_CTAS
+GRID_TILE, GRID_STAGE_K, GRID_PAD = 32, 64, 64
+GRID_MAX_ITEMS, GRID_MAX_SPLIT, GRID_MAX_CTAS = 1024, 16, 1024
+
+
+def _pad(n: int) -> int:
+    return -(-n // GRID_PAD) * GRID_PAD
+
+
+def grid_split(tiles: int, units: int, grid: int) -> int:
+    """k slices the grid route splits a product of ``tiles`` output tiles
+    and ``units`` 64-deep slices of k into on ``grid`` CTAs: the least
+    rounds x (slices + 1) a CTA runs, in quarters, plus the fold's cost
+    (the kernel's ``split_of``)."""
+    best, best_cost = 1, None
+    for s in range(1, min(units, GRID_MAX_SPLIT) + 1):
+        if s > 1 and tiles * s > GRID_MAX_ITEMS:
+            break
+        rounds = -(-tiles * s // grid)
+        cost = 4 * rounds * (-(-units // s) + 1) + s
+        if best_cost is None or cost < best_cost:
+            best, best_cost = s, cost
+    return best
+
+
+def grid_products(B: int, M: int, K: int):
+    """The products one grid-route launch runs, at padded sizes:
+    (name, m, n, k, symmetric)."""
+    Bp, Kp, Mp = _pad(B), _pad(K), _pad(M)
+    return [("G = cur cur^T", Bp, Bp, Mp, True),
+            ("column Newton-Schulz Gram", Kp, Kp, Bp, True),
+            ("column Newton-Schulz update", Bp, Kp, Kp, False),
+            ("Gn V, G V (tau), Gn Y1", Bp, Kp, Bp, False),
+            ("V^T cur", Kp, Mp, Bp, False),
+            ("row Newton-Schulz Gram", Kp, Kp, Mp, True),
+            ("row Newton-Schulz update", Kp, Mp, Kp, False)]
+
+
+def grid_plan(B: int, M: int, K: int, grid: int):
+    """The grid route's launch plan for a (B, M) input in the column
+    bucket K on ``grid`` CTAs: per product its tiles (all, or those on and
+    above the diagonal), k splits, and each work item's (tile row, tile
+    column, k begin, k end) in the order item = tile * splits + slice;
+    CTA c takes items c, c + grid, ..."""
+    plan = []
+    for name, m, n, k, sym in grid_products(B, M, K):
+        mt, nt = m // GRID_TILE, n // GRID_TILE
+        tiles = [(i, j) for i in range(mt) for j in range(nt)
+                 if not sym or i <= j]
+        units = k // GRID_STAGE_K
+        s = grid_split(len(tiles), units, grid)
+        items = [(i, j, r * units // s * GRID_STAGE_K,
+                  (r + 1) * units // s * GRID_STAGE_K)
+                 for (i, j) in tiles for r in range(s)]
+        plan.append(dict(name=name, m=m, n=n, k=k, sym=sym,
+                         tiles=len(tiles), units=units, splits=s,
+                         items=items))
+    return plan
+
+
+def grid_layout(B: int, M: int, K: int):
+    """The grid route's workspace, in elements: each buffer's offset
+    (every one a multiple of 64) and ``total`` (the kernel's ``layout``)."""
+    Bp, Kp, Mp = _pad(B), _pad(K), _pad(M)
+    slot_n = max(Bp * Bp, Bp * Kp, Kp * Mp) // GRID_TILE ** 2
+    sizes = [("curp", Bp * Mp), ("G", Bp * Bp), ("Gn", Bp * Bp)]
+    sizes += [(name, Bp * Kp) for name in ("V", "X1", "X2", "GV", "W", "Y1")]
+    sizes += [("P", Kp * Kp), ("Ya", Kp * Mp), ("Yb", Kp * Mp),
+              ("part", GRID_MAX_ITEMS * GRID_TILE ** 2), ("slots", 2 * slot_n),
+              ("colvec", max(Bp, Kp)), ("tickets", GRID_MAX_ITEMS)]
+    out, o = {}, 0
+    for name, n in sizes:
+        out[name] = o
+        o += -(-n // 64) * 64
+    out["total"] = o
+    return out
 
 
 def _finish_gemm_exact(vt0, vt_bal, okp: bool, col_mask):
