@@ -728,11 +728,14 @@ def _k2_run(cur, keep, cap, kernel):
                                           bool(info["converged"]))
     else:
         ns0, rows0 = ge._gemm_exact_body.ns_iters, ge._gemm_exact_body.ns_row_iters
+        retries0, stops0 = ge._power_orth.retries, ge._power_orth.stops
         vt0, vt_bal, okp_t, conv_t, it = ge._gemm_exact_body(
             cur, mask, *ge._gemm_exact_tuning(cur.dtype))
         info = dict(okp=bool(okp_t), converged=bool(conv_t), outer=it,
                     ns=ge._gemm_exact_body.ns_iters - ns0,
-                    ns_rows=ge._gemm_exact_body.ns_row_iters - rows0)
+                    ns_rows=ge._gemm_exact_body.ns_row_iters - rows0,
+                    retries=ge._power_orth.retries - retries0,
+                    retry_stops=ge._power_orth.stops - stops0)
     return ge._finish_gemm_exact(vt0, vt_bal, info["okp"], mask), info
 
 
@@ -827,7 +830,8 @@ def phase_k2(dev):
                                          driver="gesvd"), reps=20, warmup=2)
             flops = ge.gemm_exact_flops(B, M, cap, fk["outer"], fk["ns"],
                                         fk["ns_rows"],
-                                        ge._gemm_exact_tuning(cur.dtype)[2])
+                                        ge._gemm_exact_tuning(cur.dtype)[2],
+                                        fk["retries"], fk["retry_stops"])
             timing["bound_ms"], timing["bound_by"] = _bound(
                 (B * M + 2 * cap * M) * 4, flops, "float32")
             print(f"K2 gemm_exact slice ({B}, {M}) time: kernel "
@@ -847,6 +851,7 @@ def phase_k2(dev):
                   f"{timing['bound_ms']:.4f} ms by {timing['bound_by']} "
                   f"(FP32 67 TFLOP/s), {timing['bound_ms'] / timing['ms']:.2%}"
                   f" of it reached, {flops / timing['ms'] / 1e9:.3f} TFLOP/s")
+    _k2_graded(dev)
     _k2_check(*K2_F64_CASE, dev, SEED)
     for kind, B, M, keep, cap, dtype in K2_GRID_CASES:
         _cur, diff, fk = _k2_check(kind, B, M, keep, cap, dtype, dev,
@@ -857,6 +862,26 @@ def phase_k2(dev):
         if dtype == "float32":
             max_abs = max(max_abs, diff)
     return max_abs, timing, _k2_grid_bonds(dev)
+
+
+def _k2_graded(dev):
+    """ROADMAP fault 7 on the cluster route: the graded (128, 128) keep-64
+    bond of tests/test_torch_k2_fault7.py (``k2_grid.graded_bond``), whose
+    power steps' one-stage Newton-Schulz ends at the cap, against its
+    plain version (``_k2_check``); both must take two-stage retries."""
+    import torch
+    from xerus_tpu_torch.examples import k2_grid
+    g = k2_grid.GRADED_BOND
+    cur = torch.tensor(k2_grid.graded_bond(**g), dtype=torch.float32,
+                       device=dev)
+    _cur, _diff, fk = _k2_check("graded (fault 7)", g["B"], g["M"],
+                                g["keep"], g["keep"], "float32", dev, SEED,
+                                cur=cur)
+    if not fk["cluster_ctas"]:
+        raise AssertionError("K2 graded bond did not take the cluster route")
+    if not fk["retries"]:
+        raise AssertionError("K2 took no two-stage retry on the graded "
+                             "bond: the cluster route's retry did not run")
 
 
 def _k2_grid_bonds(dev):
@@ -1023,6 +1048,8 @@ def phase_round_slice(dev):
                                          f"{cnt['svd_fallbacks']} K2 bonds "
                                          "did not certify and took the SVD "
                                          "fallback")
+                if cnt["retries"]:
+                    _retries_at_the_cap(inst, cores)
             if method != "randomized" and not rel <= ROUND_F64_BAR:
                 raise AssertionError(f"round {inst} {method}: log-norm rel "
                                      f"err {rel:.3e} above {ROUND_F64_BAR:g}")
@@ -1046,6 +1073,34 @@ def phase_round_slice(dev):
         "svd_f32_rel": f32_rel["random", "svd"]}
 
 
+def _retries_at_the_cap(inst, cores):
+    """A two-stage retry of K2 in the rank-256 rounding must be a property
+    of its bond, not of K2's sums: each bond K2 retried on is rerun by the
+    plain version on the host with exactly rounded products
+    (``k2_grid.plain_run``), which must end one-stage power steps at the
+    Newton-Schulz cap there too and certify (ROADMAP fault 7)."""
+    from xerus_tpu_torch.examples import k2_grid
+    t0 = time.perf_counter()
+    for n, (cur, keep, cap, _ms, f, _out) in enumerate(
+            k2_grid.k2_calls(cores, ROUND_TARGET)):
+        if not f["retries"]:
+            continue
+        r = k2_grid.plain_run(cur.cpu(), keep, cap, exact=True)
+        print(f"round {inst}: K2 bond {n} took {f['retries']} two-stage "
+              f"retries ({f['retry_stops']} stopped after the first stage; "
+              f"{f['outer']} outer steps); the plain version on the host "
+              f"with exactly rounded products: certified {r['certified']} "
+              f"in {r['outer']} outer steps, {r['orths_at_the_cap']} "
+              f"orthonormalizations at the cap, {r['retries']} retries "
+              f"({r['retry_stops']} stopped)")
+        if not (r["certified"] and r["orths_at_the_cap"]):
+            raise AssertionError(f"round {inst}: K2 retried at bond {n}, "
+                                 "whose power steps do not reach the cap "
+                                 "with exactly rounded products")
+    print(f"round {inst}: retried bonds checked on the host in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
 def phase_round_grid(dev):
     """The d=32 roundings at the TPU kernel's reach, rank 512 -> 256 and
     1024 -> 512 (``GRID_ROUNDINGS``); returns K2's launches in the counted
@@ -1059,8 +1114,9 @@ def _round_grid(dev, rank, target, expected):
     after a warm-up each, held to the host f64 chain and to each other;
     K2's launches, routes and SVD fallbacks counted; then K2's device time
     bond by bond beside each bond's bound.  A bond that does not certify
-    must be the plain version's own decision on the card (fault 7).
-    Returns K2's launches in the counted gemm_exact rounding."""
+    must be the plain version's own decision on the card, and bond 0 must
+    certify (ROADMAP fault 7, repaired by the two-stage retry).  Returns
+    K2's launches in the counted gemm_exact rounding."""
     import numpy as np
     import torch
     from xerus_tpu_torch.convert import cores_to_torch
@@ -1119,13 +1175,18 @@ def _round_grid(dev, rank, target, expected):
         total, bound = total + ms, bound + b_ms
         print(f"breakdown: K2 grid bond {n} ({B}, {M}) cap {cap}: {ms:.3f} "
               f"ms, bound {b_ms:.4f} ms; outer {f['outer']}, Newton-Schulz "
-              f"{f['ns']}, grid barriers {f['barriers']}, certified "
-              f"{f['converged']}, CTAs per cluster {f['cluster_ctas']}")
+              f"{f['ns']}, two-stage retries {f['retries']}, grid barriers "
+              f"{f['barriers']}, certified {f['converged']}, CTAs per "
+              f"cluster {f['cluster_ctas']}")
+        if n == 0 and not f["converged"]:
+            raise AssertionError(f"K2 grid bond 0 of the rank-{rank} "
+                                 "rounding did not certify (fault 7)")
         if not f["converged"]:
             _vp, fp = _k2_run(cur, keep, cap, False)
             print(f"fault 7: K2 grid bond {n} did not certify in "
-                  f"{f['outer']} outer steps; the plain version on the card "
-                  f"certifies: {fp['converged']} ({fp['outer']} outer)")
+                  f"{f['outer']} outer steps ({f['retries']} retries); the "
+                  f"plain version on the card certifies: {fp['converged']} "
+                  f"({fp['outer']} outer, {fp['retries']} retries)")
             if fp["converged"]:
                 raise AssertionError(f"K2 grid bond {n} did not certify "
                                      "where its plain version does")
@@ -2054,12 +2115,13 @@ def phase_round_breakdown(dev):
     bonds = _k2_bond_times(cores)
     for n, ((B, M), cap, ms, f) in enumerate(bonds):
         b_ms, _by = _bound((B * M + 2 * cap * M) * 4, ge.gemm_exact_flops(
-            B, M, cap, f["outer"], f["ns"], f["ns_rows"], polish), "float32")
+            B, M, cap, f["outer"], f["ns"], f["ns_rows"], polish,
+            f["retries"], f["retry_stops"]), "float32")
         total, bound = total + ms, bound + b_ms
         print(f"breakdown: K2 bond {n} ({B}, {M}) cap {cap}: {ms:.3f} ms, "
               f"bound {b_ms:.4f} ms; outer {f['outer']}, Newton-Schulz "
-              f"{f['ns']}, certified {f['converged']}, CTAs per cluster "
-              f"{f['cluster_ctas']}")
+              f"{f['ns']}, retries {f['retries']}, certified "
+              f"{f['converged']}, CTAs per cluster {f['cluster_ctas']}")
     times = sorted(ms for _s, _c, ms, _f in bonds)
     print(f"breakdown: K2 device time per gemm_exact rounding (random "
           f"instance): {total:.3f} ms over {len(bonds)} launches (CUDA "

@@ -10,6 +10,8 @@ near-degenerate cluster, where equally valid truncations keep different
 directions, so only the error is compared there.  Only gauge-invariant
 quantities are compared: US @ vt, and the row spaces."""
 
+from contextlib import nullcontext
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -18,6 +20,7 @@ import torch
 from torch.overrides import TorchFunctionMode
 
 from xerus_tpu.ops import tt_kernels as jtk
+from xerus_tpu_torch.examples.k2_grid import ExactProducts
 from xerus_tpu_torch.ops import gemm_exact as ge
 
 B, M, CAP, KEEP = 256, 512, 128, 96
@@ -189,34 +192,52 @@ class _HalfGrams(TorchFunctionMode):
 
 @pytest.mark.parametrize("dtype,B,M,keep,cap", [
     (torch.float32, 48, 40, 6, 8), (torch.float64, 40, 56, 5, 8),
+    (torch.float32, 32, 32, 16, 16), (torch.float32, 32, 40, 16, 16),
     pytest.param(torch.float32, 512, 512, 256, 256, marks=pytest.mark.slow)])
 def test_flop_count_matches_flop_counter(dtype, B, M, keep, cap):
     """gemm_exact_flops, the formula chip_smoke.py and PERF.md use for K2's
     bound, is exactly what torch.utils.flop_counter counts around the plain
     version when each of its Grams (G and the Newton-Schulz Grams) is
-    computed only on and above its diagonal, for the outer, polish and
-    Newton-Schulz counts it ran (the plain version's counters, as the
-    kernel's flags count them).  At (512, 512) keep 256 the input is the
-    rank-512 rounding instance's middle bond (a Gaussian matrix's flat
-    spectrum would not certify)."""
+    computed only on and above its diagonal, for the outer, polish,
+    two-stage retry and Newton-Schulz counts it ran (the plain version's
+    counters, as the kernel's flags count them).  At (512, 512) keep 256
+    the input is the rank-512 rounding instance's middle bond (a Gaussian
+    matrix's flat spectrum would not certify); at (32, 32) keep 16 a
+    graded bond as in tests/test_torch_k2_fault7.py, whose power steps
+    retry; at (32, 40) keep 16 a cliff inside the kept columns under
+    exactly rounded products, whose one retry stops after its first
+    stage."""
     from torch.utils.flop_counter import FlopCounterMode
     if B == 512:
         from xerus_tpu_torch.examples.k2_grid import bond_inputs
         bonds = bond_inputs(512, 256, torch.device("cpu"))
         cur = bonds[len(bonds) // 2][0].to(dtype)
+    elif B == 32:
+        from xerus_tpu_torch.examples.k2_grid import graded_bond
+        shape = ((keep, 800.0, 10.0) if M == 32 else (12, 10.0, 1e5))
+        cur = torch.tensor(graded_bond(B, M, *shape, 1), dtype=dtype)
     else:
         A = np.random.default_rng(B + M).standard_normal((B, M))
         cur = torch.tensor(A, dtype=dtype)
     mask = (torch.arange(cap) < keep).to(dtype)
     tuning = ge._gemm_exact_tuning(dtype)
     ge.reset_counters()
-    with FlopCounterMode(display=False) as fc, _HalfGrams():
-        _vt0, _vtb, _okp, conv, outer = ge._gemm_exact_body(cur, mask,
-                                                            *tuning)
+    products = ExactProducts() if (B, M) == (32, 40) else nullcontext()
+    threads = torch.get_num_threads()
+    if B == 32:   # the same sums whatever the worker's thread count
+        torch.set_num_threads(1)
+    try:
+        with FlopCounterMode(display=False) as fc, products, _HalfGrams():
+            _vt0, _vtb, _okp, conv, outer = ge._gemm_exact_body(cur, mask,
+                                                                *tuning)
+    finally:
+        torch.set_num_threads(threads)
     ns, ns_rows = ge._gemm_exact_body.ns_iters, ge._gemm_exact_body.ns_row_iters
+    retries, stops = ge._power_orth.retries, ge._power_orth.stops
     assert bool(conv) and outer > 0 and 0 < ns_rows < ns
+    assert (retries > 0) == (B == 32) and stops == ((B, M) == (32, 40))
     assert fc.get_total_flops() == ge.gemm_exact_flops(
-        B, M, cap, outer, ns, ns_rows, tuning[2])
+        B, M, cap, outer, ns, ns_rows, tuning[2], retries, stops)
 
 
 class _Captured(Exception):

@@ -181,7 +181,60 @@ def test_gemm_exact_kernel_routes(cuda, kind, B, M, keep, cap, route):
     assert 0 < flags["ns_rows"] <= flags["ns"] and flags["barriers"] > 0
     max_outer, max_ns, polish, _stall = ge._gemm_exact_tuning(torch.float32)
     assert 0 < flags["outer"] <= max_outer and flags["ns_rows"] <= max_ns
-    assert flags["ns"] <= (flags["outer"] + polish + 2) * max_ns
+    assert 0 <= flags["retries"] <= flags["outer"] + polish
+    assert flags["ns"] <= (flags["outer"] + polish + 2
+                           + 2 * flags["retries"]) * max_ns
+
+
+def _k2_retry_case(cur, keep, cap):
+    """K2 and its plain version on one float32 bond on the card: each
+    one's certificate and two-stage retries, and the truncation errors of
+    both and of the SVD truncation (float64 on the host)."""
+    vk, conv_k = _k2_vt(cur, keep, cap, True)
+    flags = dict(zip(ge.FLAGS, ge.gemm_exact_kernel(cur, keep, cap)[2]
+                     .tolist()))
+    retries0 = ge._power_orth.retries
+    vp, conv_p = _k2_vt(cur, keep, cap, False)
+    s = np.linalg.svd(cur.double().cpu().numpy(), compute_uv=False)
+    e_svd = np.sum(s[keep:] ** 2) / np.sum(s ** 2)
+    return (conv_k, flags["retries"], _k2_err(cur, vk)), \
+        (conv_p, ge._power_orth.retries - retries0, _k2_err(cur, vp)), e_svd
+
+
+@pytest.mark.cuda
+def test_gemm_exact_cluster_route_retries_on_the_graded_bond(cuda):
+    """ROADMAP fault 7 on the cluster route: the graded (128, 128) keep-64
+    bond of tests/test_torch_k2_fault7.py, whose power steps' one-stage
+    Newton-Schulz ends at the cap.  K2 and its plain version on the card
+    both take two-stage retries and certify, with truncation errors within
+    5e-6 of each other and of the SVD truncation's."""
+    from xerus_tpu_torch.examples.k2_grid import GRADED_BOND, graded_bond
+    keep = GRADED_BOND["keep"]
+    cur = torch.tensor(graded_bond(**GRADED_BOND), dtype=torch.float32,
+                       device=cuda)
+    assert ge.gemm_exact_route(128, 128, keep, torch.float32) == 16
+    (ck, rk_, ek), (cp, rp, ep), e_svd = _k2_retry_case(cur, keep, keep)
+    assert ck and cp and rk_ > 0 and rp > 0, (rk_, rp)
+    assert abs(ek - ep) < 5e-6 and abs(ek - e_svd) < 5e-6
+
+
+@pytest.mark.cuda
+def test_gemm_exact_grid_route_certifies_the_fault7_bond(cuda):
+    """ROADMAP fault 7 on the grid route: bond 0 of the d=32 rank-512 ->
+    256 rounding, which fell back to the SVD before the two-stage retry.
+    K2 and its plain version on the card both certify it, with truncation
+    errors within 5e-6 of each other; a kernel that retries does so within
+    its outer and polish steps."""
+    from xerus_tpu_torch.examples.k2_grid import bond_inputs
+    cur, keep, cap = bond_inputs(512, 256, cuda)[0]
+    assert ge.gemm_exact_route(512, 512, cap, torch.float32) == 0
+    (ck, rk_, ek), (cp, _rp, ep), _e_svd = _k2_retry_case(cur, keep, cap)
+    assert ck and cp
+    assert abs(ek - ep) < 5e-6
+    polish = ge._gemm_exact_tuning(torch.float32)[2]
+    flags = dict(zip(ge.FLAGS, ge.gemm_exact_kernel(cur, keep, cap)[2]
+                     .tolist()))
+    assert 0 <= rk_ == flags["retries"] <= flags["outer"] + polish
 
 
 @pytest.mark.cuda

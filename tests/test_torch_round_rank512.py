@@ -145,22 +145,47 @@ def test_rank512_rounding_matches_the_jax_package():
     certificates stop on f32 noise: each certified rounding keeps a valid
     subspace whose truncation error lies up to 25% above the SVD chain's,
     so the two roundings lie about a truncation error apart (0.012 of
-    ||X|| here), not 1e-4; the log-norms and the errors agree.  The first
-    bond sits on ROADMAP fault 7: its power steps' Newton-Schulz
-    orthonormalization needs the whole 48-step cap, and whether the 48th
-    step lands under 64 eps depends on the last bits of the products;
-    torch's CPU products miss it (the bond takes the exact SVD
-    truncation), the JAX package's XLA ones make it."""
+    ||X|| here), not 1e-4; the log-norms and the errors agree.
+
+    The port certifies every bond the JAX package certifies: the JAX
+    package's decision on each bond is read from its own
+    _gemm_exact_body on the port's input to that bond, with x64 off.  The
+    first bond sits on ROADMAP fault 7: its power steps' one-stage
+    Newton-Schulz orthonormalization needs the whole 48-step cap, and
+    whether the 48th step lands under 64 eps depends on the last bits of
+    the products (the JAX package's XLA products make it); the port takes
+    a step that ends at the cap again in two stages and certifies the
+    bond whatever the products' last bits."""
     host = bench_round_instance(20, 2, RANK, SEED)
     jc = [jnp.asarray(c, jnp.float32) for c in host]
     with jax.enable_x64(False):
         j = jtk.tt_round_sweep_segmented(jc, TARGET, method="gemm_exact")
         j = [np.asarray(c, np.float64) for c in j]
     ge.reset_counters()
-    t = rk.tt_round_sweep_segmented(list(cores_to_torch(host, torch.device(
-        "cpu"))), TARGET, method="gemm_exact")
+    seen = []
+    body = ge._gemm_exact_body
+
+    def capture(cur, mask, *tuning):
+        out = body(cur, mask, *tuning)
+        seen.append((cur.clone(), mask.clone(), bool(out[3])))
+        return out
+
+    capture.ns_iters = capture.ns_row_iters = 0
+    try:
+        ge._gemm_exact_body = capture
+        t = rk.tt_round_sweep_segmented(list(cores_to_torch(
+            host, torch.device("cpu"))), TARGET, method="gemm_exact")
+    finally:
+        ge._gemm_exact_body = body
     assert ge.trunc_step_gemm_exact.calls == 3
     fallbacks = ge.trunc_step_gemm_exact.svd_fallbacks
+    retries = ge.trunc_step_gemm_exact.retries
+    tuning = ge._gemm_exact_tuning(torch.float32)
+    with jax.enable_x64(False):
+        jax_ok = [bool(jtk._gemm_exact_body(
+            jnp.asarray(cur.numpy()), jnp.asarray(mask.numpy()),
+            jnp.float32, 1e-30, *tuning)[3]) for cur, mask, _ok in seen]
+    port_ok = [ok for _c, _m, ok in seen]
     t = [c.numpy().astype(np.float64) for c in t]
     lj, lt = host_tt_log_norm(j), host_tt_log_norm(t)
     chain = cpu_round_sweep(host, TARGET)
@@ -174,7 +199,10 @@ def test_rank512_rounding_matches_the_jax_package():
           f"{abs(lj - l64) / abs(l64):.3e}; truncation error port {et:.6e},"
           f" JAX {ej:.6e}, f64 SVD chain {e64:.6e}; port to JAX "
           f"{host_tt_distance(t, j) / nx:.3e}; the port's SVD fallbacks "
-          f"{fallbacks}")
+          f"{fallbacks}, two-stage retries {retries}; bonds certified by "
+          f"the port {port_ok}, by the JAX package's body {jax_ok}")
+    assert all(p or not q for p, q in zip(port_ok, jax_ok))
+    assert fallbacks == port_ok.count(False)
     assert abs(lt - lj) <= PORT_VS_JAX_BAR * abs(lj), (lt, lj)
     assert abs(lj - l64) <= ROUND_F64_BAR * abs(l64), (lj, l64)
     assert abs(lt - l64) <= ROUND_F64_BAR * abs(l64), (lt, l64)

@@ -13,6 +13,9 @@
 //   tau = tr(V^T G V), and the Aitken / noise-floor / capture-complete
 //   certificates on power steps; `polish` further power steps; then
 //   vt_raw = V^T cur, row balancing and a Newton-Schulz row polar.
+// One addition in float32 (two_stage, gemm_exact_common.cuh): a power
+// step whose re-orthonormalization ends at the Newton-Schulz cap is taken
+// again in two stages, where the reference keeps the failed one.
 // Outputs vt0 (K, M) (the polar, valid iff okp), vt_bal (K, M) (the
 // balanced rows, input of the Householder-LQ finish that the caller runs
 // on the host's decision) and the flags of gemm_exact_common.cuh.  The
@@ -742,6 +745,38 @@ __device__ void gn_times(Ctx<T>& cx, const T* src, T* dst) {
     if (cx.staged == dst) cx.staged = nullptr;
 }
 
+// orth(Gn GV) into Qb, a power step's orthonormalization, GV = Gn V in T1
+// (which ends holding the image).  With `retry` (two_stage<T>) one that
+// ends at max_ns is taken again from the same V in two stages,
+// Q1 = orth(GV), then orth(Gn Q1) (ok: the second's; ++retries).  A first
+// stage that ends at the cap too stops the retry: the step keeps its
+// one-stage Q in Qb (ok false) and `retry` is false for the rest of the
+// launch (++stops).  The retry computes GV anew into T1 (the same bits:
+// shared memory has no room for a fourth basis) and orthonormalizes it
+// in place there.  Inlined with its three orth calls: in the grid
+// route's one-call form (step_orth) this route's bonds took 1.4% longer
+// on an H100.
+template <typename T, class D>
+__device__ bool power_orth(Ctx<T>& cx, const T* Vb, T* T1, T* Qb,
+                           bool& retry, int& retries, int& stops) {
+    gn_times<T, D>(cx, T1, T1);
+    bool ok = orth<T, D>(cx, T1, Qb);
+    if constexpr (two_stage<T>) {
+        if (!ok && retry) {
+            ++retries;
+            gn_times<T, D>(cx, Vb, T1);
+            if (orth<T, D>(cx, T1, T1)) {
+                gn_times<T, D>(cx, T1, T1);
+                ok = orth<T, D>(cx, T1, Qb);
+            } else {
+                ++stops;
+                retry = false;
+            }
+        }
+    }
+    return ok;
+}
+
 template <typename T, class D>
 __global__ void __launch_bounds__(kThreads, 1)
 kernel(const __grid_constant__ Params<T> p) {
@@ -848,12 +883,13 @@ kernel(const __grid_constant__ Params<T> p) {
     // ---- outer loop: power / Chebyshev steps, certificates ----
     const T big = T(Num<T>::big);
     T I_prev = big, I_pprev = big;
-    int stall = 0, it = 0;
+    int stall = 0, it = 0, retries = 0, stops = 0;
+    bool retry = two_stage<T>;
     while (stall < a.stall_need && it < a.max_outer) {
         const bool power = (it % 2) == 0;
         gn_times<T, D>(cx, Vb, T1);                  // GV
         if (power) {
-            gn_times<T, D>(cx, T1, T1);              // W = Gn GV
+            ok = power_orth<T, D>(cx, Vb, T1, Qb, retry, retries, stops);
         } else {
             // column Rayleigh quotients of V (dead columns: +inf)
             const T* Vc = Vb;
@@ -878,8 +914,8 @@ kernel(const __grid_constant__ Params<T> p) {
             ChebT<T> ch{T1, Vb, Kp, c};
             cgemm(Kp, rb, Bp, cx.at(l.A), Kp, Gnt, rb, ch);
             cx.staged = nullptr;
+            ok = orth<T, D>(cx, T1, Qb);
         }
-        ok = orth<T, D>(cx, T1, Qb);
         T tau2 = tau_of<T, D>(cx, Qb);
         const bool better = tau2 >= tau;
         if (better) {
@@ -909,8 +945,8 @@ kernel(const __grid_constant__ Params<T> p) {
     // ---- polish: fixed power steps under the monotone safeguard ----
     for (int s = 0; s < a.polish; ++s) {
         gn_times<T, D>(cx, Vb, T1);
-        gn_times<T, D>(cx, T1, T1);
-        const bool ok2 = orth<T, D>(cx, T1, Qb);
+        const bool ok2 = power_orth<T, D>(cx, Vb, T1, Qb, retry, retries,
+                                          stops);
         const T tau2 = tau_of<T, D>(cx, Qb);
         if (ok2 && tau2 >= tau * (T(1) - stag_tol)) {
             T* t = Vb; Vb = Qb; Qb = t;
@@ -974,6 +1010,8 @@ kernel(const __grid_constant__ Params<T> p) {
         a.flags[kBarriers] = cx.syncs;
         a.flags[kClusterCtas] = kCtas;
         a.flags[kNsRows] = cx.ns_rows;
+        a.flags[kRetries] = retries;
+        a.flags[kRetryStops] = stops;
     }
 }
 
@@ -1694,7 +1732,9 @@ extern "C" int xerus_gemm_exact_unschedulable() {
 
 // One certified truncation of the contiguous (B, M) `cur` on the current
 // device, launched on `stream`: vt0 and vt_bal are (K, M), flags
-// int32[kFlags].  Allocates nothing, does not synchronize; returns the
+// int32[kFlags], zeroed by the caller (the float64 design of the
+// rounding's bonds, which takes no retry, leaves kRetries and
+// kRetryStops).  Allocates nothing, does not synchronize; returns the
 // launch's CUDA error code (0 on success).
 extern "C" int xerus_gemm_exact_f32(const float* cur, int B, int M, int K,
                                     int keep, int max_outer, int max_ns,

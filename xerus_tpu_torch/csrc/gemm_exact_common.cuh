@@ -7,6 +7,7 @@
 #include <cstddef>
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <type_traits>
 
 namespace gemm_exact {
 
@@ -71,9 +72,20 @@ __device__ __forceinline__ T start_hash(int i, int j) {
 
 // flags[kFlags]: okp, converged, outer iterations, Newton-Schulz
 // iterations in all, barriers, CTAs per cluster (0: the grid route),
-// Newton-Schulz iterations of the row polar (a part of the total)
+// Newton-Schulz iterations of the row polar (a part of the total), power
+// steps taken again in two stages (float32; two_stage below) and those of
+// them that stopped after their first stage
 enum Flag { kOkp, kConverged, kOuter, kNs, kBarriers, kClusterCtas, kNsRows,
-            kFlags };
+            kRetries, kRetryStops, kFlags };
+
+// A power step's orthonormalization that ends at max_ns without reaching
+// 64 eps is taken again from the same V in two stages, Q1 = orth(Gn V),
+// then orth(Gn Q1) (ops/gemm_exact.py _power_orth): the same subspace,
+// each stage the conditioning of one product of Gn.  A first stage that
+// ends at the cap too stops it, the step keeps its one-stage Q, and no
+// later step of the launch retries.  float32 only.
+template <typename T>
+constexpr bool two_stage = std::is_same<T, float>::value;
 
 template <typename T> struct Args {
     const T* cur;

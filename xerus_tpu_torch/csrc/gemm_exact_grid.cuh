@@ -703,6 +703,49 @@ __device__ void gn_times(Ctx<T>& cx, const T* src, T* dst) {
     cx.sync();
 }
 
+// Q = orth(W), the orthonormalization of an outer or polish step's image
+// in p.W (GV = Gn V in p.GV).  With `retry` (two_stage<T>) a power step's
+// that ends at max_ns is taken again from the same V in two stages,
+// Q1 = orth(GV), then orth(Gn Q1) (ok: the second's; ++retries).  A first
+// stage that ends at the cap too stops the retry: the step keeps its
+// one-stage Q (ok false) and `retry` is false for the rest of the launch
+// (++stops).  The first stage works in the free basis and Y1 (which only
+// Chebyshev steps use), so the one-stage Q stays; Gn Q1 reads Q1 into W
+// before the second stage writes f1 and f2.  Every stage runs through
+// the one orth call: with a second inlined copy of the Newton-Schulz loop
+// the float32 kernel spilled registers, and bonds that never retry took
+// 5-7% longer on an H100.
+template <typename T>
+__device__ __forceinline__ T* step_orth(Ctx<T>& cx, bool power, bool& retry,
+                                        T* f1, T* f2, bool& ok,
+                                        int& retries, int& stops) {
+    const Params<T>& p = cx.p;
+    const T* w = p.W;
+    T *x = f1, *y = f2, *q0 = nullptr;
+    for (int stage = 0;; ++stage) {
+        T* q = orth(cx, w, x, y, ok);
+        if (!(two_stage<T> && power && retry) || stage == 2
+            || (stage == 0 && ok))
+            return q;
+        if (stage == 0) {   // retry: Q1 = orth(GV), beside Q
+            ++retries;
+            q0 = q;
+            w = p.GV;
+            x = q == f1 ? f2 : f1;
+            y = p.Y1;
+        } else if (!ok) {   // the first stage ended at the cap too
+            ++stops;
+            retry = false;
+            return q0;
+        } else {            // then orth(Gn Q1)
+            gn_times(cx, q, p.W);
+            w = p.W;
+            x = f1;
+            y = f2;
+        }
+    }
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
 kernel(Params<T> p) {
@@ -787,7 +830,8 @@ kernel(Params<T> p) {
     // ---- outer loop: power / Chebyshev steps, certificates ----
     const T big = T(Num<T>::big);
     T I_prev = big, I_pprev = big;
-    int stall = 0, it = 0;
+    int stall = 0, it = 0, retries = 0, stops = 0;
+    bool retry = two_stage<T>;
     while (stall < a.stall_need && it < a.max_outer) {
         const bool power = (it % 2) == 0;
         gn_times(cx, V, p.GV);
@@ -825,7 +869,7 @@ kernel(Params<T> p) {
             product(cx, g);
             cx.sync();
         }
-        T* q = orth(cx, p.W, F1, F2, ok);
+        T* q = step_orth(cx, power, retry, F1, F2, ok, retries, stops);
         T tau2 = tau_of(cx, q);
         const bool better = tau2 >= tau;
         if (better) {
@@ -858,7 +902,7 @@ kernel(Params<T> p) {
         gn_times(cx, V, p.GV);
         gn_times(cx, p.GV, p.W);
         bool ok2;
-        T* q = orth(cx, p.W, F1, F2, ok2);
+        T* q = step_orth(cx, true, retry, F1, F2, ok2, retries, stops);
         const T tau2 = tau_of(cx, q);
         if (ok2 && tau2 >= tau * (T(1) - stag_tol)) {
             T* other = q == F1 ? F2 : F1;
@@ -914,6 +958,8 @@ kernel(Params<T> p) {
         a.flags[kBarriers] = cx.syncs;
         a.flags[kClusterCtas] = 0;
         a.flags[kNsRows] = cx.ns_rows;
+        a.flags[kRetries] = retries;
+        a.flags[kRetryStops] = stops;
     }
     if (kStampsBuilt && cx.rec) {
         cx.add(kCycles, c_start);

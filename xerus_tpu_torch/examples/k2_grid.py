@@ -2,7 +2,8 @@
 roundings, timed on the card beside its bound and gesvd.
 
     python3 -m xerus_tpu_torch.examples.k2_grid [--rounding] [--fault7]
-        [--stamps] [--certify N] [--before CSRC] [--out DIR]
+        [--stamps] [--certify N] [--before CSRC] [--interleave CSRC ...]
+        [--out DIR]
     python3 -m xerus_tpu_torch.examples.k2_grid --products
 
 From the root of a checkout on a machine with an NVIDIA card.  The bond
@@ -21,19 +22,22 @@ from the svd rounding on the card (the trunc-mode bonds, (512, 512) keep
 - ``torch.linalg.svd(driver="gesvd")`` on the same input, the same way.
 
 The rank-512 middle bond is also timed in float64.  ``--rounding`` adds
-the whole rank-512 -> 256 gemm_exact and svd roundings' walls (one after a
-warm-up, synchronized) and K2's device time bond by bond; ``--fault7``
-the bonds of both roundings that K2 does not certify (``fault7``);
-``--stamps`` where one launch's time goes, from a profiling build of K2
+the whole gemm_exact and svd roundings' walls of both instances (one
+after a warm-up, synchronized) and K2's device time bond by bond;
+``--fault7`` the bonds of both roundings that K2 does not certify or
+certifies only after two-stage retries (``fault7``); ``--stamps`` where one launch's time goes, from a profiling build of K2
 with the grid route's time stamps (``GRID_STAMPS``); ``--certify N`` the
-certificates under N orderings of each bond's columns (``certify_rates``).
-``--products`` runs on the CPU alone: the plain version on the bonds
-0 and 14 of the rank-512 instance with torch's float32 products and with
-exactly rounded ones (``exact_products``).
+certificates and two-stage retries under N orderings of each bond's
+columns (``certify_rates``).  ``--products`` runs on the CPU alone: the
+plain version on the bonds 0 and 14 of the rank-512 instance with torch's
+float32 products and with exactly rounded ones (``exact_products``), and
+on the small graded bond of the fault-7 tests (``graded_bond``).
 ``--before CSRC`` runs all of it a second time on K2 built from another
 version's ``xerus_tpu_torch/csrc`` (a ``git archive`` of it unpacked in
-the checkout) whose C interface is this one's.  Each line is printed and,
-with ``--out``, written as JSON to ``DIR/k2_grid.json``.
+the checkout) whose C interface is this one's; ``--interleave CSRC ...``
+times the middle bonds on this K2 and on each such version in turns
+(``interleave``).  Each line is printed and, with ``--out``, written as
+JSON to ``DIR/k2_grid.json`` with the builds' compiler output.
 ``chip_smoke.py`` takes its K2 grid-route numbers from these functions.
 """
 
@@ -41,6 +45,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import hashlib
 import json
 import os
 import statistics
@@ -54,6 +59,12 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 67e12}
 # (rank, target) of the two rounding instances whose bonds are timed
 INSTANCES = ((512, 256), (1024, 512))
+# the roundings ``--rounding`` runs: the rank-256 one's bonds take the
+# cluster route
+ROUNDINGS = ((256, 128),) + INSTANCES
+# the small bond of the fault-7 tests (``graded_bond``): (B, M), keep,
+# kept singular values from 1 down to 1 / ratio, the gap after them, seed
+GRADED_BOND = dict(B=128, M=128, keep=64, ratio=800.0, gap=10.0, seed=1)
 # the grid route's time stamps (csrc/gemm_exact_grid.cuh Stamp): CTA 0's
 # clock64 cycles in all, waiting at grid barriers, in products, in folds
 # of tile values, filling each tile's first k slice, in the k loops, in
@@ -88,6 +99,23 @@ def bond_inputs(rank: int, target: int, dev, dtype=torch.float32,
     return seen
 
 
+def graded_bond(B: int, M: int, keep: int, ratio: float, gap: float,
+                seed: int):
+    """A float64 (B, M) bond with seeded singular vectors whose ``keep``
+    leading singular values fall geometrically from 1 to 1 / ratio, the
+    rest from 1 / (ratio gap) to 1 / (ratio gap^2): a clear subspace whose
+    power-step images W = Gn^2 V are graded past float32's reach, so that
+    their one-stage Newton-Schulz orthonormalization ends at the cap of 48
+    (ROADMAP fault 7), as at the rank-512 rounding's bonds 0 and 14."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    U, _ = np.linalg.qr(rng.standard_normal((B, B)))
+    V, _ = np.linalg.qr(rng.standard_normal((M, B)))
+    head = np.geomspace(1.0, 1.0 / ratio, keep)
+    tail = np.geomspace(head[-1] / gap, head[-1] / gap ** 2, B - keep)
+    return (U * np.concatenate([head, tail])) @ V.T
+
+
 def event_ms(fn, reps: int = 20, warmup: int = 2) -> float:
     """Median of per-call CUDA-event times in ms, the calls queued back to
     back behind a device-side sleep so that each pair times device work."""
@@ -111,7 +139,8 @@ def k2_bound(B: int, M: int, cap: int, flags: dict, dtype):
     from ..ops import gemm_exact as ge
     flop = ge.gemm_exact_flops(B, M, cap, flags["outer"], flags["ns"],
                                flags["ns_rows"],
-                               ge._gemm_exact_tuning(dtype)[2])
+                               ge._gemm_exact_tuning(dtype)[2],
+                               flags["retries"], flags["retry_stops"])
     elt = torch.empty((), dtype=dtype).element_size()
     t_bytes = (B * M + 2 * cap * M) * elt / HBM_BYTES_PER_S * 1e3
     t_ops = flop / PEAK_FLOPS[dtype] * 1e3
@@ -120,10 +149,21 @@ def k2_bound(B: int, M: int, cap: int, flags: dict, dtype):
     return t_ops, "operations", flop
 
 
+def digest(outputs) -> str:
+    """A short hash of a launch's outputs (vt0, vt_bal): equal digests are
+    equal bits."""
+    h = hashlib.sha256()
+    for t in outputs[:2]:
+        h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
 def time_bond(cur, keep: int, cap: int, reps: int = 20) -> dict:
-    """K2 and gesvd on one bond input: ms, flags, bound, gesvd ms."""
+    """K2 and gesvd on one bond input: ms, flags, bound, gesvd ms, the
+    outputs' digest."""
     from ..ops import gemm_exact as ge
-    f = dict(zip(ge.FLAGS, ge.gemm_exact_kernel(cur, keep, cap)[2].tolist()))
+    first = ge.gemm_exact_kernel(cur, keep, cap)
+    f = dict(zip(ge.FLAGS, first[2].tolist()))
     ms = event_ms(lambda: ge.gemm_exact_kernel(cur, keep, cap), reps)
     gesvd = event_ms(lambda: torch.linalg.svd(cur, full_matrices=False,
                                               driver="gesvd"), reps)
@@ -132,7 +172,8 @@ def time_bond(cur, keep: int, cap: int, reps: int = 20) -> dict:
     return {"shape": [B, M], "keep": keep, "cap": cap,
             "dtype": str(cur.dtype).replace("torch.", ""), "ms": ms,
             "gesvd_ms": gesvd, "bound_ms": bound, "bound_by": by,
-            "gflop": flop / 1e9, "reached": bound / ms, "flags": f}
+            "gflop": flop / 1e9, "reached": bound / ms, "flags": f,
+            "digest": digest(first)}
 
 
 def stamped_launch(cur, keep: int, cap: int) -> dict:
@@ -241,19 +282,23 @@ def _instance(dev, rank: int):
 
 def rounding_walls(dev, rank: int = 512, target: int = 256) -> dict:
     """The rank-``rank`` gemm_exact and svd roundings: wall of one after a
-    warm-up, synchronized, and K2's device time bond by bond."""
+    warm-up, synchronized, and K2's device time, flags and outputs'
+    digest bond by bond."""
     cores = _instance(dev, rank)
     out = {}
     for method in ("gemm_exact", "svd"):
         _o, wall, launches, cnt = rounding_wall(cores, target, method)
         out[method] = {"wall_s": wall, "k2_launches": launches,
-                       "svd_fallbacks": cnt["svd_fallbacks"]}
+                       "svd_fallbacks": cnt["svd_fallbacks"],
+                       "retries": cnt["retries"],
+                       "retry_stops": cnt["retry_stops"]}
     out["bonds"] = []
-    for cur, _keep, cap, ms, f, _res in k2_calls(cores, target):
+    for cur, _keep, cap, ms, f, res in k2_calls(cores, target):
         B, M = cur.shape
         bound, _by, _flop = k2_bound(B, M, cap, f, torch.float32)
         out["bonds"].append({"shape": [B, M], "cap": cap, "ms": ms,
-                             "bound_ms": bound, "flags": f})
+                             "bound_ms": bound, "flags": f,
+                             "digest": digest(res)})
     return out
 
 
@@ -272,20 +317,24 @@ def _flags_with(cur, keep, cap, max_outer, max_ns, polish):
 
 def fault7(dev, rank: int = 512, target: int = 256) -> list:
     """ROADMAP fault 7 on the rank-``rank`` gemm_exact rounding: for each
-    bond K2 does not certify, the plain version's decision on the card,
-    the Newton-Schulz steps of each orthonormalization (from launches with
+    bond K2 does not certify or certifies only with two-stage retries, the
+    plain version's decision and retries on the card, the Newton-Schulz
+    steps of each step's orthonormalizations (from launches with
     max_outer = t and no polish, t = 0, 1, ...: the growth of the column
-    count), and the outer steps with a Newton-Schulz cap of 64."""
+    count; a retried step's count holds all three), and the outer steps
+    with a Newton-Schulz cap of 64."""
     from ..ops import gemm_exact as ge
     out = []
     for n, (cur, keep, cap, _ms, f, _r) in enumerate(
             k2_calls(_instance(dev, rank), target)):
-        if f["converged"]:
+        if f["converged"] and not f["retries"]:
             continue
         max_outer, max_ns, polish, _stall = ge._gemm_exact_tuning(cur.dtype)
         mask = (torch.arange(cap, device=dev) < keep).to(cur.dtype)
+        retries0 = ge._power_orth.retries
         plain = ge._gemm_exact_body(cur, mask,
                                     *ge._gemm_exact_tuning(cur.dtype))
+        plain_retries = ge._power_orth.retries - retries0
         per_orth, prev = [], 0
         for t in range(24):
             ft = _flags_with(cur, keep, cap, t, max_ns, 0)
@@ -294,8 +343,8 @@ def fault7(dev, rank: int = 512, target: int = 256) -> list:
         f64 = _flags_with(cur, keep, cap, max_outer, 64, polish)
         out.append({"bond": n, "flags": f,
                     "plain_certifies": bool(plain[3]), "plain_outer":
-                        int(plain[4]), "ns_per_orth": per_orth,
-                    "cap_64": f64})
+                        int(plain[4]), "plain_retries": plain_retries,
+                    "ns_per_orth": per_orth, "cap_64": f64})
     return out
 
 
@@ -308,7 +357,9 @@ def certify_rates(dev, rank: int, target: int, orders: int,
     the plain version on the card.  Reordering cur's columns leaves G = cur cur^T,
     and so every step's exact value, as it is, and changes only the order
     of G's sums: a bond whose certificate flips with it sits at the f32
-    Newton-Schulz cap.  Returns per bond the certified count of each."""
+    Newton-Schulz cap.  Returns per bond the certified count of each,
+    the outer steps and the two-stage retries of each launch, and the
+    plain version's retries in all."""
     from ..ops import gemm_exact as ge
     tuning = ge._gemm_exact_tuning(torch.float32)
     gen = torch.Generator().manual_seed(SEED)
@@ -317,7 +368,9 @@ def certify_rates(dev, rank: int, target: int, orders: int,
     perms = [None] + [torch.randperm(inputs[0][0].shape[1], generator=gen)
                       for _ in range(orders - 1)]
     for cur, keep, cap in inputs:
-        row = {"kernel": 0, "plain": 0 if plain else None, "outer": []}
+        row = {"kernel": 0, "plain": 0 if plain else None, "outer": [],
+               "retries": [], "plain_retries": 0 if plain else None,
+               "digest": digest(ge.gemm_exact_kernel(cur, keep, cap))}
         mask = (torch.arange(cap, device=dev) < keep).to(cur.dtype)
         for perm in perms:
             x = cur if perm is None else cur[:, perm.to(dev)].contiguous()
@@ -325,9 +378,12 @@ def certify_rates(dev, rank: int, target: int, orders: int,
                          .tolist()))
             row["kernel"] += f["converged"]
             row["outer"].append(f["outer"])
+            row["retries"].append(f["retries"])
             if plain:
+                retries0 = ge._power_orth.retries
                 row["plain"] += bool(ge._gemm_exact_body(x, mask,
                                                          *tuning)[3])
+                row["plain_retries"] += ge._power_orth.retries - retries0
         out["bonds"].append(row)
     return out
 
@@ -344,46 +400,62 @@ class ExactProducts(TorchFunctionMode):
         return func(*args, **(kwargs or {}))
 
 
+def plain_run(cur, keep: int, cap: int, exact: bool = False) -> dict:
+    """The plain version on one bond input, with torch's float32 products
+    or with exactly rounded ones (``ExactProducts``): whether it
+    certifies, its outer steps, the power steps taken again in two stages
+    (``retries``; ``retry_stops`` of them stopped after their first
+    stage), the column orthonormalizations that end at the
+    Newton-Schulz cap without reaching the tolerance (each retry's first
+    try among them), and the most Newton-Schulz steps of one."""
+    from ..ops import gemm_exact as ge
+    from ..ops import round_kernels as rk
+    tuning = ge._gemm_exact_tuning(cur.dtype)
+    mask = (torch.arange(cap, device=cur.device) < keep).to(cur.dtype)
+    stepwise = ge._ns_orth_cols_stepwise
+    done, failed = [], []
+
+    def orth(X, max_it, colmask=None, tol_mult=64.0):
+        n0 = rk._ns_orth_cols.iterations
+        Q, ok = stepwise(X, max_it, colmask, tol_mult)
+        (done if bool(ok) else failed).append(rk._ns_orth_cols.iterations
+                                              - n0)
+        return Q, ok
+
+    retries0, stops0 = ge._power_orth.retries, ge._power_orth.stops
+    ge._ns_orth_cols_stepwise = orth
+    t0 = time.perf_counter()
+    try:
+        if exact:
+            with ExactProducts():
+                r = ge._gemm_exact_body(cur, mask, *tuning)
+        else:
+            r = ge._gemm_exact_body(cur, mask, *tuning)
+    finally:
+        ge._ns_orth_cols_stepwise = stepwise
+    return {"certified": bool(r[3]), "outer": int(r[4]),
+            "retries": ge._power_orth.retries - retries0,
+            "retry_stops": ge._power_orth.stops - stops0,
+            "orths_at_the_cap": len(failed),
+            "ns_max_converged": max(done, default=0),
+            "seconds": time.perf_counter() - t0}
+
+
 def exact_products(bonds=(0, 14), rank: int = 512,
                    target: int = 256) -> list:
     """The plain version on the CPU on the rank-``rank`` instance's trunc
-    bonds ``bonds`` (``bond_inputs``), with torch's float32 products and
-    with exactly rounded ones (``ExactProducts``): whether each certifies,
-    its outer steps, and the orthonormalizations that end at the
-    Newton-Schulz cap (max_ns steps) without reaching the tolerance."""
-    from ..ops import gemm_exact as ge
-    from ..ops import round_kernels as rk
+    bonds ``bonds`` (``bond_inputs``) and on ``graded_bond``, with torch's
+    float32 products and with exactly rounded ones (``plain_run``)."""
     inputs = bond_inputs(rank, target, torch.device("cpu"))
-    tuning = ge._gemm_exact_tuning(torch.float32)
-    stepwise = ge._ns_orth_cols_stepwise
+    g = GRADED_BOND
+    inputs = {n: inputs[n] for n in bonds}
+    inputs["graded"] = (torch.tensor(graded_bond(**g), dtype=torch.float32),
+                        g["keep"], g["keep"])
     out = []
-    for n in bonds:
-        cur, keep, cap = inputs[n]
-        mask = (torch.arange(cap) < keep).to(cur.dtype)
+    for n, (cur, keep, cap) in inputs.items():
         for name in ("torch", "exact"):
-            failed = []
-
-            def orth(X, max_it, colmask=None, tol_mult=64.0):
-                n0 = rk._ns_orth_cols.iterations
-                Q, ok = stepwise(X, max_it, colmask, tol_mult)
-                if not bool(ok):
-                    failed.append(rk._ns_orth_cols.iterations - n0)
-                return Q, ok
-
-            ge._ns_orth_cols_stepwise = orth
-            t0 = time.perf_counter()
-            try:
-                if name == "exact":
-                    with ExactProducts():
-                        r = ge._gemm_exact_body(cur, mask, *tuning)
-                else:
-                    r = ge._gemm_exact_body(cur, mask, *tuning)
-            finally:
-                ge._ns_orth_cols_stepwise = stepwise
             out.append({"bond": n, "products": name,
-                        "certified": bool(r[3]), "outer": int(r[4]),
-                        "orths_at_the_cap": len(failed),
-                        "seconds": time.perf_counter() - t0})
+                        **plain_run(cur, keep, cap, name == "exact")})
             print("k2_grid products:", json.dumps(out[-1]), flush=True)
     return out
 
@@ -422,8 +494,11 @@ def run(args, dev, plain: bool = True) -> dict:
             res["bonds"].append(r)
             print("k2_grid:", json.dumps(r), flush=True)
     if args.rounding:
-        res["rounding"] = rounding_walls(dev)
-        print("k2_grid rounding:", json.dumps(res["rounding"]), flush=True)
+        res["rounding"] = {}
+        for rank, target in ROUNDINGS:
+            res["rounding"][rank] = rounding_walls(dev, rank, target)
+            print(f"k2_grid rounding rank {rank}:",
+                  json.dumps(res["rounding"][rank]), flush=True)
     if args.fault7:
         res["fault7"] = [fault7(dev, r, t) for r, t in INSTANCES]
         print("k2_grid fault 7:", json.dumps(res["fault7"]), flush=True)
@@ -438,6 +513,63 @@ def run(args, dev, plain: bool = True) -> dict:
     return res
 
 
+def interleave(dev, csrcs) -> list:
+    """K2 on this version and on each of ``csrcs`` (other versions'
+    ``xerus_tpu_torch/csrc`` with this C interface), timed in turns at the
+    middle trunc bond of each rounding in ``ROUNDINGS`` (float32; the
+    rank-512 one also in float64): libraries in order, then in reverse
+    (A B C C B A), each time ``event_ms``.  Returns per bond each
+    library's two times."""
+    from .. import build
+    from ..ops import gemm_exact as ge
+    own = ge._library
+    libs = [("this", own())] + [
+        (c, ge._bind(build.load_kernel_library("gemm_exact",
+                                               csrc=os.path.abspath(c))))
+        for c in csrcs]
+    out = []
+    try:
+        for rank, target in ROUNDINGS:
+            bonds = bond_inputs(rank, target, dev)
+            cur, keep, cap = bonds[len(bonds) // 2]
+            for dtype in ((torch.float32, torch.float64) if rank == 512
+                          else (torch.float32,)):
+                x = cur.to(dtype)
+                ms = {name: [] for name, _lib in libs}
+                for name, lib in libs + libs[::-1]:
+                    ge._library = lambda lib=lib: lib
+                    ms[name].append(event_ms(
+                        lambda: ge.gemm_exact_kernel(x, keep, cap)))
+                out.append({"rank": rank, "dtype": str(dtype)[6:],
+                            "ms": ms})
+                print("k2_grid interleaved:", json.dumps(out[-1]),
+                      flush=True)
+    finally:
+        ge._library = own
+    return out
+
+
+def bitwise(after: dict, before: dict) -> dict:
+    """Which launches gave the same bits on both libraries: per timed
+    bond (by instance and type) and per rounding's bond, the two digests'
+    equality beside the retries of the launch on this library.  A
+    rounding's bonds after the first that differs see other inputs; the
+    certificate rows (``certify_rates``) hold every bond's input fixed."""
+    out = {"bonds": [[a["instance"], a["dtype"], a["digest"] == b["digest"],
+                      a["flags"]["retries"]]
+                     for a, b in zip(after["bonds"], before["bonds"])]}
+    for rank, r in after.get("rounding", {}).items():
+        out[rank] = [[n, a["digest"] == b["digest"], a["flags"]["retries"]]
+                     for n, (a, b) in enumerate(zip(
+                         r["bonds"], before["rounding"][rank]["bonds"]))]
+    for rank, c in after.get("certify", {}).items():
+        out[f"certify {rank}"] = [
+            [n, a["digest"] == b["digest"], a["retries"][0]]
+            for n, (a, b) in enumerate(zip(
+                c["bonds"], before["certify"][rank]["bonds"]))]
+    return out
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--rounding", action="store_true")
@@ -445,6 +577,7 @@ def main(argv=None) -> None:
     p.add_argument("--stamps", action="store_true")
     p.add_argument("--certify", type=int, default=0, metavar="N")
     p.add_argument("--before", default=None, metavar="CSRC")
+    p.add_argument("--interleave", nargs="+", default=(), metavar="CSRC")
     p.add_argument("--products", action="store_true",
                    help="on the CPU, no card: exact_products alone")
     p.add_argument("--out", default=None)
@@ -464,6 +597,7 @@ def main(argv=None) -> None:
         builds.append((("XERUS_GRID_STAMPS",), build.CSRC))
     if args.before:
         builds.append(((), os.path.abspath(args.before)))
+    builds += [((), os.path.abspath(c)) for c in args.interleave]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builds)) as pool:   # one nvcc each
         list(pool.map(lambda b: build.load_kernel_library("gemm_exact", *b),
@@ -481,6 +615,11 @@ def main(argv=None) -> None:
             res["before"] = run(args, dev, plain=False)
         finally:
             ge._library = own
+        res["bitwise"] = bitwise(res["after"], res["before"])
+        print("k2_grid bitwise:", json.dumps(res["bitwise"]), flush=True)
+    if args.interleave:
+        res["interleaved"] = interleave(dev, args.interleave)
+    res["builds"] = build.build_log
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "k2_grid.json"), "w") as fh:

@@ -79,6 +79,36 @@ def _ns_polar_rows(Y: torch.Tensor, max_it: int, rowmask=None,
 _ns_polar_rows.iterations = 0
 
 
+def _power_orth(orth, Gn: torch.Tensor, GV: torch.Tensor, retry: bool):
+    """(Q, ok, retry): Q = orth(Gn GV), the orthonormalization of a power
+    step's image, and its ok.  With ``retry`` (float32), an image whose
+    Newton-Schulz ends at the cap without reaching the tolerance is taken
+    again from the same V in two stages, Q1 = orth(GV) and then
+    orth(Gn Q1): span(Gn Q1) = span(Gn^2 V), so the subspace is the
+    one-stage step's, while each stage sees the conditioning of one product
+    of Gn and not of two; ok is then the second stage's.  A first stage
+    that ends at the cap too means the kept block is past float32 in one
+    product already (a cliff inside the kept columns): the step keeps its
+    one-stage Q (ok False) and no later step of the truncation retries
+    (the returned retry is False).  ``_power_orth.retries`` counts the
+    steps taken again, ``_power_orth.stops`` those whose first stage
+    ended at the cap."""
+    Q, ok = orth(Gn @ GV)
+    if retry and not host_bool(ok):
+        _power_orth.retries += 1
+        Q1, ok1 = orth(GV)
+        if host_bool(ok1):
+            Q, ok = orth(Gn @ Q1)
+        else:
+            _power_orth.stops += 1
+            retry = False
+    return Q, ok, retry
+
+
+_power_orth.retries = 0
+_power_orth.stops = 0
+
+
 def _gemm_exact_body(cur: torch.Tensor, col_mask: torch.Tensor,
                      max_outer: int, max_ns: int, polish_steps: int,
                      stall_need: int):
@@ -91,17 +121,23 @@ def _gemm_exact_body(cur: torch.Tensor, col_mask: torch.Tensor,
     Certified when the Aitken deficit bound or the improvement sits at the
     f32/f64 noise floor, or the captured energy is within 16 eps of tr(G),
     on ``stall_need`` consecutive power steps.  Loop conditions are read to
-    the host; the arithmetic mirrors the reference op for op.
+    the host; the arithmetic mirrors the reference op for op, with one
+    addition in float32: a power step (outer or polish) whose
+    orthonormalization ends at the Newton-Schulz cap is taken again in two
+    stages (``_power_orth``), where the reference keeps the failed one.
 
     Counters, as the kernel's flags count: ``_gemm_exact_body.ns_iters``
     adds every Newton-Schulz iteration (the orthonormalizations and the
-    row polar), ``_gemm_exact_body.ns_row_iters`` those of the row polar."""
+    row polar), ``_gemm_exact_body.ns_row_iters`` those of the row polar,
+    ``_power_orth.retries`` and ``.stops`` the power steps taken again and
+    the retries that stopped after their first stage."""
     cols0, rows0 = _ns_orth_cols.iterations, _ns_polar_rows.iterations
     dtype = cur.dtype
     dev = cur.device
     B, _M = cur.shape
     keep_cap = col_mask.shape[0]
     eps = _eps(dtype)
+    retry = dtype == torch.float32
     G = cur @ cur.T
     trG = torch.trace(G)
     stag_tol = 8 * eps
@@ -144,7 +180,7 @@ def _gemm_exact_body(cur: torch.Tensor, col_mask: torch.Tensor,
         power = it % 2 == 0
         GV = Gn @ V
         if power:
-            W = Gn @ GV
+            V2, ok, retry = _power_orth(orth, Gn, GV, retry)
         else:
             ray = torch.sum(V * GV, dim=0) * gscale
             ray = torch.where(col_mask > 0, ray, torch.inf)
@@ -154,7 +190,7 @@ def _gemm_exact_body(cur: torch.Tensor, col_mask: torch.Tensor,
             b = torch.maximum(0.9 * torch.min(ray), b_floor)
             y1 = (2.0 * gscale / b) * GV - V
             W = 2.0 * ((2.0 * gscale / b) * (Gn @ y1) - y1) - V
-        V2, ok = orth(W)
+            V2, ok = orth(W)
         tau2 = tau_of(V2)
         better = tau2 >= tau
         V2 = torch.where(better, V2, V)
@@ -177,7 +213,7 @@ def _gemm_exact_body(cur: torch.Tensor, col_mask: torch.Tensor,
 
     # angle polish: fixed power steps under the monotone safeguard
     for _ in range(polish_steps):
-        V2, ok2 = orth(Gn @ (Gn @ V))
+        V2, ok2, retry = _power_orth(orth, Gn, Gn @ V, retry)
         tau2 = tau_of(V2)
         good = ok2 & (tau2 >= tau * (1.0 - stag_tol))
         V = torch.where(good, V2, V)
@@ -198,25 +234,31 @@ _gemm_exact_body.ns_row_iters = 0
 
 
 def gemm_exact_flops(B: int, M: int, K: int, outer: int, ns: int,
-                     ns_rows: int, polish: int) -> int:
+                     ns_rows: int, polish: int, retries: int = 0,
+                     retry_stops: int = 0) -> int:
     """Floating-point operations (a multiply-add counts 2) of one certified
     truncation of a (B, M) bond in the column bucket K, after ``outer``
-    outer steps, ``polish`` polish steps and ``ns`` Newton-Schulz
-    iterations of which ``ns_rows`` in the row polar (the kernel's flags
-    outer, ns, ns_rows; the plain version's counters).  Only the products
-    count: G = cur cur^T; per orthonormalization (1 + outer + polish) one
-    tau = tr(V^T G V) product and the first Newton-Schulz Gram; two Gn
-    products per outer or polish step; per column Newton-Schulz iteration
-    an update and a Gram; V^T cur, the row polar's first Gram and per row
-    iteration an update and a Gram.  Each Gram (G and the Newton-Schulz
-    Grams, all symmetric) counts only its entries on and above the
-    diagonal, n (n + 1) L for an (n, n) Gram over L: the least the
-    function needs."""
+    outer steps, ``polish`` polish steps, ``retries`` power steps taken
+    again in two stages (``retry_stops`` of them stopped after the first)
+    and ``ns`` Newton-Schulz iterations of which ``ns_rows`` in the row
+    polar (the kernel's flags outer, ns, ns_rows, retries, retry_stops;
+    the plain version's counters).  Only the products count:
+    G = cur cur^T; per step (1 + outer + polish) one tau = tr(V^T G V)
+    product and per orthonormalization (the step's, two more a retry, one
+    a stopped one) the first Newton-Schulz Gram; two Gn products per
+    outer or polish step, one more a retry that reaches its second stage
+    (Gn Q1); per column Newton-Schulz iteration an update and a Gram;
+    V^T cur, the row polar's first Gram and per row iteration an update
+    and a Gram.  Each Gram (G and the Newton-Schulz Grams, all
+    symmetric) counts only its entries on and above the diagonal,
+    n (n + 1) L for an (n, n) Gram over L: the least the function needs."""
     def gram(n, L):
         return n * (n + 1) * L
     steps = 1 + outer + polish
     return (gram(B, M)
             + steps * (2 * B * B * K + gram(K, B))
+            + retries * (2 * B * B * K + 2 * gram(K, B))
+            - retry_stops * (2 * B * B * K + gram(K, B))
             + 2 * (outer + polish) * 2 * B * B * K
             + (ns - ns_rows) * (2 * B * K * K + gram(K, B))
             + 2 * K * B * M + (1 + ns_rows) * gram(K, M)
@@ -343,9 +385,10 @@ def _bind(lib):
 # flags of one launch (csrc/gemm_exact_common.cuh): okp, converged, outer
 # iterations, Newton-Schulz iterations in all, barriers (cluster or grid),
 # CTAs per cluster (0: the grid route ran), row-polar Newton-Schulz
-# iterations
+# iterations, power steps taken again in two stages (float32) and those
+# of them that stopped after their first stage
 FLAGS = ("okp", "converged", "outer", "ns", "barriers", "cluster_ctas",
-         "ns_rows")
+         "ns_rows", "retries", "retry_stops")
 
 
 def gemm_exact_route(B: int, M: int, keep_cap: int, dtype) -> int:
@@ -413,16 +456,21 @@ def trunc_step_gemm_exact(cur: torch.Tensor, keep: int, keep_cap: int):
     SVD truncation instead.  On the CPU the plain body runs; on the card
     K2 does.  Counters: ``calls``, ``svd_fallbacks`` (bonds that did not
     certify), ``lq_finishes`` (polar failed, Householder LQ), and the
-    summed ``outer_iters``; on the card also the kernel's summed
+    summed ``outer_iters``, ``retries`` (float32 power steps taken again
+    in two stages) and ``retry_stops`` (retries that stopped after their
+    first stage); on the card also the kernel's summed
     ``ns_iters``, ``ns_row_iters`` and ``barriers``, and ``cluster_bonds``,
     the bonds that took the cluster route."""
     trunc_step_gemm_exact.calls += 1
     dtype = cur.dtype
     col_mask = (torch.arange(keep_cap, device=cur.device) < keep).to(dtype)
     if cur.device.type == "cpu":
+        retries0, stops0 = _power_orth.retries, _power_orth.stops
         vt0, vt_bal, okp_t, ok_t, it = _gemm_exact_body(
             cur, col_mask, *_gemm_exact_tuning(dtype))
         okp, ok = host_bool(okp_t), host_bool(ok_t)
+        trunc_step_gemm_exact.retries += _power_orth.retries - retries0
+        trunc_step_gemm_exact.retry_stops += _power_orth.stops - stops0
     elif cur.device.type == "cuda":
         vt0, vt_bal, flags = gemm_exact_kernel(cur.contiguous(), keep,
                                                keep_cap)
@@ -432,6 +480,8 @@ def trunc_step_gemm_exact(cur: torch.Tensor, keep: int, keep_cap: int):
         trunc_step_gemm_exact.ns_row_iters += f["ns_rows"]
         trunc_step_gemm_exact.barriers += f["barriers"]
         trunc_step_gemm_exact.cluster_bonds += f["cluster_ctas"] > 0
+        trunc_step_gemm_exact.retries += f["retries"]
+        trunc_step_gemm_exact.retry_stops += f["retry_stops"]
     else:
         raise RuntimeError(f"trunc_step_gemm_exact: no kernel for device "
                            f"{cur.device}")
@@ -454,10 +504,13 @@ def reset_counters() -> None:
         setattr(trunc_step_gemm_exact, name, 0)
     _gemm_exact_body.ns_iters = 0
     _gemm_exact_body.ns_row_iters = 0
+    _power_orth.retries = 0
+    _power_orth.stops = 0
 
 
-TRUNC_COUNTERS = ("calls", "svd_fallbacks", "lq_finishes", "outer_iters",
-                  "ns_iters", "ns_row_iters", "barriers", "cluster_bonds")
+TRUNC_COUNTERS = ("calls", "svd_fallbacks", "retries", "retry_stops",
+                  "lq_finishes", "outer_iters", "ns_iters", "ns_row_iters",
+                  "barriers", "cluster_bonds")
 
 
 reset_counters()
