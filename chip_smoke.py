@@ -38,7 +38,9 @@ full width:
   diagonal blocks and panel substitutions) and K1q, each held against its
   plain version on the inputs recorded there, one call per shape; the
   Gram-route df SVD) to 128 and, on a cliff of 1e-9 below f32's
-  resolution, with eps 1e-7; the
+  resolution, with eps 1e-7, each rounding's CGS2 sites listed with K1q's
+  deficiency decisions near their threshold held to the plain version's;
+  the
   Ozaki split GEMM at bench.py's 512^3 (each slice GEMM bit-exact)
   beside torch.matmul in float64; the kappa=1e10 df Cholesky solve at
   n=1800 and df_svd of one (512, 256) unfolding; the cholqr,
@@ -187,9 +189,14 @@ DF_LOOP_FACTOR, DF_LOOP_FLOOR = 2.0, 2.0 ** -46
 # defects that choose CGS2 now come from the kernels
 EAGER_CGS2_SITES = (7, 23)
 # a cluster barrier (examples/exchange_probe.py on an H100 80GB HBM3) and
-# the barriers of one K1q column on the cluster route: two per projection
-# round, one for the norm
-CLUSTER_BARRIER_US, K1Q_BARRIERS_PER_COLUMN = 0.548, 5
+# the cluster barriers of one K1q column on the cluster route: one pull
+# all-reduce per projection round, one for the norm (a deficient column
+# adds two)
+CLUSTER_BARRIER_US, K1Q_BARRIERS_PER_COLUMN = 0.548, 3
+# a K1q column's norm within this factor of its deficiency threshold, either
+# side: its decision could turn on the summation order, so the CGS2 site
+# lines hold it against the plain version's
+CGS2_NEAR = 10.0
 
 KERNELS = ("df_matvec", "df_qr", "df_chol", "gemm_exact", "tt_eval",
            "jacobi")
@@ -1773,6 +1780,70 @@ def _df_round_loop_fails(name, fb, k1, loops, sites):
     return fails
 
 
+def _cgs2_sites(name, cores64, dev, sites):
+    """tt_round_df's left-to-right orthogonalization of ``cores64`` site by
+    site on the card (its make_qr_apply step run eagerly; the target and
+    eps do not enter it): the sites whose CholeskyQR defect passes
+    CGS2_DEFECT and so take CGS2, printed beside ``sites`` (their number
+    while the df column loops ran eagerly), and at every site K1q's
+    deficiency decisions from its norms and thresholds (``stats``), held
+    against the plain version's where a column's norm lies within
+    CGS2_NEAR of its threshold.  Prints one line; returns the failures
+    (a flipped decision)."""
+    import numpy as np
+    import torch
+    from xerus_tpu_torch.ops import df_loops as dl
+    from xerus_tpu_torch.ops import df_rounding as dr
+    from xerus_tpu_torch.ops import mixed_precision as mp
+    from xerus_tpu_torch.ops.df32 import df_from_f64, df_to_f64
+    from xerus_tpu_torch.ops.ozaki import ozaki_matmul
+    pairs = [df_from_f64(c, dev) for c in cores64]
+    ch, cl = [p[0] for p in pairs], [p[1] for p in pairs]
+    taken, defects, deficient, near, flips = [], [], 0, 0, []
+    for k in range(len(ch) - 1):
+        rl, n, rr = ch[k].shape
+        mh, ml = ch[k].reshape(rl * n, rr), cl[k].reshape(rl * n, rr)
+        qh, ql, _rh, _rl = dr._df_qr_chol(mh, ml)
+        gh, gl = ozaki_matmul(qh.T, ql.T, qh, ql)
+        eye = torch.eye(rr, dtype=gh.dtype, device=dev)
+        defect = float(torch.linalg.vector_norm((gh - eye) + gl))
+        defects.append(defect)
+        stats = torch.zeros((rr, 2), device=dev)
+        dl.df_qr_launch(mh, ml, dl.df_qr_plan(rl * n, rr), stats)
+        st = stats.cpu().numpy().astype(np.float64)
+        kd = st[:, 0] <= st[:, 1]
+        deficient += int(kd.sum())
+        ratio = st[:, 0] / st[:, 1]
+        close = (ratio > 1.0 / CGS2_NEAR) & (ratio < CGS2_NEAR)
+        near += int(close.sum())
+        if close.any():
+            pd = np.diag(df_to_f64(*mp.df_qr_reference(mh, ml)[1])) == 0.0
+            flips += [f"site {k} column {j}: kernel "
+                      f"{'deficient' if kd[j] else 'kept'} (norm "
+                      f"{st[j, 0]:.6e}, threshold {st[j, 1]:.6e}), plain "
+                      f"{'deficient' if pd[j] else 'kept'}"
+                      for j in np.flatnonzero(kd != pd)]
+        qh, ql, ph, pl, took = dr._qr_apply(mh, ml, ch[k + 1].reshape(rr, -1),
+                                            cl[k + 1].reshape(rr, -1))
+        if bool(took):
+            taken.append(k)
+        ch[k], cl[k] = qh.reshape(rl, n, rr), ql.reshape(rl, n, rr)
+        ch[k + 1] = ph.reshape(ch[k + 1].shape)
+        cl[k + 1] = pl.reshape(cl[k + 1].shape)
+    border = sorted(range(len(defects)),
+                    key=lambda k: abs(np.log(defects[k] / dr.CGS2_DEFECT)))
+    print(f"df loops: {name}: CGS2 sites {taken} ({len(taken)}; eager "
+          f"loops: {sites}); the defects nearest CGS2_DEFECT "
+          f"{dr.CGS2_DEFECT:g}: "
+          + ", ".join(f"site {k} {defects[k]:.3e}" for k in border[:3])
+          + f"; K1q deficient columns {deficient} over the sites, {near} "
+          f"within {CGS2_NEAR:g}x of their threshold, held to the plain "
+          f"version: " + ("; ".join(flips) if flips else "no flipped "
+                          "decision"))
+    return [f"{name}: K1q's deficiency decisions flip: " + "; ".join(flips)
+            ] if flips else []
+
+
 def _df_programs(dev, smi, cases):
     """The df rounding's site programs (make_qr_apply, make_svd_site,
     make_trunc_apply) on ``cases`` (name, float64 cores, target, eps, CGS2
@@ -1978,6 +2049,11 @@ def phase_rounding_rest(dev, smi, slice_round):
     for e in LOOP_ENTRIES:
         loop_max_abs[e] = max(loop_max_abs[e], gmem_abs[e])
     lap("K1q and K1c on their recorded inputs")
+    fails += _cgs2_sites(f"tt_round_df d={ROUND_D} rank {ROUND_RANK}",
+                         host64, dev, EAGER_CGS2_SITES[0])
+    fails += _cgs2_sites(f"tt_round_df cliff {sig} x {scale:g}", cl64, dev,
+                         EAGER_CGS2_SITES[1])
+    lap("the CGS2 sites")
     t0 = time.perf_counter()
     df_k4 = _df_programs(dev, smi, [
         (f"tt_round_df d={ROUND_D} rank {ROUND_RANK}->{ROUND_TARGET}",

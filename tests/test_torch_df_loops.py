@@ -6,15 +6,16 @@ On the CPU the wrappers ``mixed_precision.df_qr``,
 versions bit for bit, launch nothing and build nothing.  The plans route
 the paths' shapes (the Poisson solve's (60, 30), the df rounding's
 (512, 256), the Cholesky's (64, 64) blocks and (m, 64) / (512, 256)
-panels) within one CTA's 227 KB.  ``df_qr_cluster_model``, K1q's data
-split and reduction order in torch, holds ``df_qr_reference``'s accuracy
-at (96, 48) with 16 bands, rank-deficient columns included.  The plain
-loops agree with the JAX package's outputs stored in
-tests/data/df_loops_jax.npz (``df_loops_jax``).  No JAX compile in the
-default tier: the comparison with the JAX package's loops run anew, and
-the check that the stored outputs are theirs, are in the slow tier.  The
-kernels themselves are held against the plain versions and the stored
-outputs in tests/test_torch_kernels_cuda.py, on the card."""
+panels) within one CTA's 227 KB.  The kernels' orders in torch
+(``df_qr_model``: K1q's groups of lanes, butterflies and bands;
+``df_chol_model`` and ``df_trsm_model``: K1c's right-looking steps) hold
+the plain versions' accuracy, rank-deficient columns included, and agree
+with the JAX package's outputs stored in tests/data/df_loops_jax.npz
+(``df_loops_jax``), as the plain loops do.  No JAX compile in the default
+tier: the comparison with the JAX package's loops run anew, and the check
+that the stored outputs are theirs, are in the slow tier.  The kernels
+themselves are held against the plain versions and the stored outputs in
+tests/test_torch_kernels_cuda.py, on the card."""
 
 import importlib
 
@@ -163,7 +164,7 @@ def test_df_qr_plan_routes_the_paths_shapes():
     for s in ((4096, 512), (1024, 512)):    # a rank-512 rounding's sites
         p = dl.df_qr_plan(*s)
         assert (p.route, p.ctas, p.rows) == ("gmem", 16, s[0] // 16)
-        assert p.work == 2 * 16 * (s[0] // 16 + 1) * 512
+        assert p.work == 2 * 16 * (s[0] // 16) * 512   # rows, 32-aligned
     for s in list(routes) + [(60, 30), (96, 48), (1000, 400), (4096, 512)]:
         assert dl.df_qr_plan(*s).smem <= dl.SMEM_MAX == 232_448
     with pytest.raises(ValueError, match=r"\(2097152, 8\).*232448"):
@@ -209,7 +210,7 @@ def test_gmem_plan_at_the_paths_shapes(entry, shape, route):
     assert plan.route == route and g.route == "gmem"
     assert g.ctas == (16 if entry == "df_qr" else plan.ctas)
     assert g.smem < plan.smem and g.smem <= 4 * 4 * shape[0] + 8192
-    assert g.work == (2 * 16 * (-(-shape[0] // 16) | 1) * shape[1]
+    assert g.work == (2 * 16 * max(32, -(-shape[0] // 512) * 32) * shape[1]
                       if entry == "df_qr" else 0)
     with pytest.raises(ValueError, match="no entry"):
         dl.gmem_plan("df_matvec", shape)
@@ -219,12 +220,13 @@ def test_gmem_plan_at_the_paths_shapes(entry, shape, route):
                                             (1, True)])
 def test_df_qr_cluster_model_holds_the_plain_versions_accuracy(ctas,
                                                                deficient):
-    """K1q's band split (16 bands of 6 rows) and reduction orders in
-    torch: ||QR - A|| / ||A|| and ||Q^T Q - I|| within 1e-13 as the plain
-    version's are, Q within 1e-13 of the plain version's, the same
-    deficient columns (R's diagonal zeroed)."""
+    """K1q's order in torch (``df_qr_model``) on its cluster routes' split
+    (16 bands of 6 rows, 512 threads a band) and its route cta's (one band
+    of 96 rows, 512 threads): ||QR - A|| / ||A|| and ||Q^T Q - I|| within
+    1e-13 as the plain version's are, Q within 1e-13 of the plain
+    version's, the same deficient columns (R's diagonal zeroed)."""
     a = _qr_input(96, 48, 11, deficient)
-    (qh, ql), (rh, rl), bad = dl.df_qr_cluster_model(*_pair(a), ctas=ctas)
+    (qh, ql), (rh, rl), bad = dl.df_qr_model(*_pair(a), ctas=ctas)
     Q, R = _joined((qh, ql)), _joined((rh, rl))
     PQ, PR = _joined(mp.df_qr_reference(*_pair(a))[0]), _joined(
         mp.df_qr_reference(*_pair(a))[1])
@@ -239,14 +241,76 @@ def test_df_qr_cluster_model_holds_the_plain_versions_accuracy(ctas,
 
 
 def test_lane_fold_is_the_shuffle_tree():
-    """Lane l sums terms l, l + 32, ...; then lane 0 folds 16, 8, 4, 2, 1:
-    with one-hot terms every term arrives exactly once."""
+    """K1q's lane sums and butterfly: lane g sums terms g, g + G, ... in
+    two accumulators by parity, the butterfly adds lane g + off to lane g
+    for off = G / 2, ..., 1; with one-hot terms every term arrives exactly
+    once, and the pairing is the tree's."""
     t = torch.arange(1, 71, dtype=torch.float32)
-    h, l = dl._lane_fold(t, torch.zeros_like(t))
-    assert float(h) == float(t.sum()) and float(l) == 0.0
+    for G in (1, 2, 8, 32):
+        h, l = dl._butterfly(*dl._lane_sums(t, torch.zeros_like(t), G))
+        assert float(h) == float(t.sum()) and float(l) == 0.0
     th = torch.tensor([1.0] + [2.0 ** -30] * 31)
-    h, l = dl._lane_fold(th, torch.zeros_like(th))
+    h, l = dl._butterfly(*dl._lane_sums(th, torch.zeros_like(th), 32))
     assert float(h) + float(l) == 1.0 + 31 * 2.0 ** -30
+    # lane 1 holds terms 1, 5 (a0) and 3 (a1) of six with G = 2
+    sh, sl = dl._lane_sums(torch.tensor([0.0, 1.0, 0.0, 2.0, 0.0, 4.0]),
+                           torch.zeros(6), 2)
+    assert sh.tolist() == [0.0, 7.0] and sl.tolist() == [0.0, 0.0]
+    v = torch.tensor([1.0, 2.0 ** -24, 2.0 ** -24, 2.0 ** -24])
+    h, l = dl._butterfly(v, torch.zeros_like(v))   # (1 + u) + (u + u)
+    assert float(h) + float(l) == 1.0 + 3 * 2.0 ** -24
+
+
+def test_qr_lanes_mirror_the_kernels_split():
+    """The launch split K1q computes from the shape (csrc/df_qr.cu
+    threads_for, coef_lanes, row_lanes) at the paths' shapes: 256 threads
+    for the Poisson (60, 30), 8 lanes a column and 4 a row at its last
+    step; 512 a CTA of the cluster routes, whose 32-row bands at
+    (512, 256) take 2 lanes a column and 16 a row at step 255, 32 lanes
+    a column at step 1."""
+    assert dl.qr_threads(60, 30, "cta") == 256
+    assert (dl.coef_lanes(256, 60, 29), dl.row_lanes(256, 60, 29)) == (8, 4)
+    assert dl.row_lanes(256, 60, 0) == 1
+    assert dl.qr_threads(2, 2, "cta") == 32
+    assert dl.qr_threads(128, 128, "cta") == 512
+    assert dl.qr_threads(512, 256, "cluster") == 512
+    assert dl.qr_threads(1024, 512, "gmem") == 512
+    assert (dl.coef_lanes(512, 32, 255), dl.row_lanes(512, 32, 255)) == \
+        (2, 16)
+    assert dl.coef_lanes(512, 32, 1) == 32
+    assert dl.coef_lanes(512, 3, 1) == 4      # no more lanes than rows
+    for T, rows, j in ((32, 2, 1), (256, 60, 30), (512, 64, 600)):
+        G, H = dl.coef_lanes(T, rows, j), dl.row_lanes(T, rows, j)
+        assert G & (G - 1) == 0 and H & (H - 1) == 0
+        assert 1 <= G <= 32 and 1 <= H <= 32 and T % G == T % H == 0
+
+
+@pytest.mark.parametrize("B,decades", [(64, 6), (37, 2), (2, 0)])
+def test_df_chol_model_holds_the_plain_versions_accuracy(B, decades):
+    """df_chol_block's right-looking order in torch: ||L L^T - A|| / ||A||
+    within 2x the plain version's plus 2^-46, lower-triangular, L within
+    1e-12 relative of the plain version's at condition 1e6."""
+    A = _spd(B, B, decades)
+    L = _joined(dl.df_chol_model(*_pair(A)))
+    PL = _joined(dc._df_chol_unblocked_reference(*_pair(A)))
+    assert np.array_equal(np.tril(L), L)
+    assert dl.chol_backward_error(L, A) <= \
+        2.0 * dl.chol_backward_error(PL, A) + 2.0 ** -46
+    assert np.linalg.norm(L - PL) <= 1e-12 * np.linalg.norm(PL)
+
+
+@pytest.mark.parametrize("m,B", [(192, 64), (70, 13), (5, 40)])
+def test_df_trsm_model_holds_the_plain_versions_accuracy(m, B):
+    """df_trsm_rlt's right-looking order in torch: ||X L^T - A|| /
+    (||X|| ||L||) within 2x the plain version's plus 2^-46, X within
+    1e-13 relative of the plain version's."""
+    A = np.random.default_rng(m + B).normal(size=(m, B))
+    L = _tril(B, B)
+    X = _joined(dl.df_trsm_model(*_pair(A), *_pair(L)))
+    PX = _joined(dc._df_trsm_rlt_reference(*_pair(A), *_pair(L)))
+    assert dl.trsm_backward_error(X, L, A) <= \
+        2.0 * dl.trsm_backward_error(PX, L, A) + 2.0 ** -46
+    assert np.linalg.norm(X - PX) <= 1e-13 * np.linalg.norm(PX)
 
 
 def test_backward_error_helpers():
@@ -265,7 +329,8 @@ def test_backward_error_helpers():
 def test_df_loops_match_the_jax_packages_loops():
     """The JAX package's df_qr, _df_chol_unblocked and _df_trsm_rlt on the
     same inputs as the port's wrappers (the plain loops on the CPU) and
-    K1q's cluster model: the same deficient columns, Q within 1e-13 and
+    K1q's order on its cluster split: the same deficient columns, Q within
+    1e-13 and
     the Cholesky factor (of an SPD block with kappa 1e2, so kappa(L) = 10)
     and the substitution within 1e-13 relative."""
     import jax.numpy as jnp
@@ -283,7 +348,7 @@ def test_df_loops_match_the_jax_packages_loops():
     (jq, jr) = jmp.df_qr(*jpair(a))
     JQ, JR = jjoin(jq), jjoin(jr)
     (q, r) = mp.df_qr(*_pair(a))
-    (mq, mr, _bad) = dl.df_qr_cluster_model(*_pair(a))
+    (mq, mr, _bad) = dl.df_qr_model(*_pair(a), ctas=16)
     for Q, R in ((_joined(q), _joined(r)), (_joined(mq), _joined(mr))):
         assert np.abs(Q - JQ).max() <= 1e-13
         assert np.array_equal(np.diag(R) == 0.0, np.diag(JR) == 0.0)
@@ -320,6 +385,34 @@ def test_plain_loops_match_the_jax_fixture(case):
     else:
         X = _joined(dc._df_trsm_rlt(*_pair(x[case]),
                                     *_pair(x["trsm_L_64"])))
+        JX = jax_out["trsm_192x64_X"]
+        assert np.linalg.norm(X - JX) / np.linalg.norm(JX) <= 1e-13
+
+
+@pytest.mark.parametrize("case,ctas", [("qr_60x30", 1), ("qr_1000x30", 16),
+                                       ("qr_1000x30", 1), ("chol_64", 1),
+                                       ("trsm_192x64", 1)])
+def test_kernel_order_models_match_the_jax_fixture(case, ctas):
+    """The kernels' orders in torch against the JAX package's outputs on
+    the same inputs: K1q's on route cta (one band) and on the cluster
+    routes' 16 bands, the same deficient columns, Q within 1e-13, R within
+    1e-13 of R's largest entry; K1c's right-looking block and panel, L and
+    X within 1e-13 relative."""
+    x, jax_out = df_loops_jax.inputs(), df_loops_jax.load()
+    if case.startswith("qr"):
+        q, r, bad = dl.df_qr_model(*_pair(x[case]), ctas=ctas)
+        Q, R = _joined(q), _joined(r)
+        JR = jax_out[case + "_R"]
+        assert np.abs(Q - jax_out[case + "_Q"]).max() <= 1e-13
+        assert bad == list(np.diag(JR) == 0.0) and sum(bad) == 3
+        assert np.abs(R - JR).max() <= 1e-13 * np.abs(JR).max()
+    elif case == "chol_64":
+        L = _joined(dl.df_chol_model(*_pair(x[case])))
+        JL = jax_out["chol_64_L"]
+        assert np.linalg.norm(L - JL) / np.linalg.norm(JL) <= 1e-13
+    else:
+        X = _joined(dl.df_trsm_model(*_pair(x[case]),
+                                     *_pair(x["trsm_L_64"])))
         JX = jax_out["trsm_192x64_X"]
         assert np.linalg.norm(X - JX) / np.linalg.norm(JX) <= 1e-13
 

@@ -662,16 +662,126 @@ def test_cholqr_f32_on_the_card_keeps_its_grams_orthogonal(cuda):
 # ---------------------------------------------------------------------------
 # K1q and K1c: the df column loops (ops/df_loops.py), each entry against its
 # plain version on the card at the paths' shapes: backward errors within
-# 2x the plain version's plus four units of the df format's 2^-48
-# resolution (a (2, 2) factor's ||Q^T Q - I|| is 1.068e-14 against the
-# plain version's 4.699e-15 by summation order alone), the same deficient
-# columns, and two launches bitwise equal
+# DF_LOOP_FACTOR x the plain version's plus four units of the df format's
+# 2^-48 resolution (a (2, 2) factor's ||Q^T Q - I|| is 1.068e-14 against
+# the plain version's 4.699e-15 by summation order alone), the same
+# deficient columns, and two launches bitwise equal
 
-DF_LOOP_FLOOR = 2.0 ** -46
+DF_LOOP_FACTOR, DF_LOOP_FLOOR = 2.0, 2.0 ** -46
 
 
 def _held(k, p):
-    return all(a <= 2.0 * b + DF_LOOP_FLOOR for a, b in zip(k, p))
+    return all(a <= DF_LOOP_FACTOR * b + DF_LOOP_FLOOR for a, b in zip(k, p))
+
+
+def _tt_ranks(d, rank):
+    return [1] + [min(rank, 2 ** k, 2 ** (d - k)) for k in range(1, d)] + [1]
+
+
+def _path_qr_shapes():
+    """Every df_qr shape of the paths: the d=32 rank-30 Poisson solve's df
+    half-sweeps (both directions) and the d=32 rank-256 df rounding's
+    sites."""
+    p = _tt_ranks(32, 30)
+    shapes = {(p[k] * 2, p[k + 1]) for k in range(31)}
+    shapes |= {(p[k + 1] * 2, p[k]) for k in range(31, 0, -1)}
+    q = _tt_ranks(32, 256)
+    shapes |= {(q[k] * 2, q[k + 1]) for k in range(31)}
+    return sorted(shapes)
+
+
+def _path_trsm_shapes():
+    """Every df_trsm_rlt panel of the paths: the rounding's CholeskyQR
+    (each site's (m, r) against its Gram's factor, and the Gram's own
+    block-64 panels) and df_solve_spd_chol's n = 1800 (padded to 1856)."""
+    shapes = set()
+    for m, r in _path_qr_shapes():
+        shapes.add((m, r))
+        shapes |= {(r - 64 * (k + 1), 64) for k in range(r // 64 - 1)}
+    shapes |= {(1856 - 64 * (k + 1), 64) for k in range(28)}
+    return sorted(shapes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,r", _path_qr_shapes())
+def test_df_qr_kernel_holds_the_plain_version_at_every_path_shape(cuda, m, r):
+    """K1q at each df_qr shape of the paths, with three deficient columns
+    where r >= 6: the backward errors held to the plain version's, the
+    same deficient columns, two launches bitwise equal."""
+    from xerus_tpu_torch.ops import df_loops as dl
+    from xerus_tpu_torch.ops import mixed_precision as mp
+    a = _qr_input(m, r, m + 7 * r, deficient=r >= 6)
+    ah, al = _df_pair(a, cuda)
+    plan = dl.df_qr_plan(m, r)
+    k1 = dl.df_qr_launch(ah, al, plan)
+    k2 = dl.df_qr_launch(ah, al, plan)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip((*k1[0], *k1[1]),
+                                                 (*k2[0], *k2[1])))
+    Q, R = _joined(k1[0]), _joined(k1[1])
+    pq, pr = mp.df_qr_reference(ah, al)
+    PQ, PR = _joined(pq), _joined(pr)
+    assert _held(dl.qr_backward_errors(Q, R, a),
+                 dl.qr_backward_errors(PQ, PR, a))
+    assert np.array_equal(np.diag(R) == 0.0, np.diag(PR) == 0.0)
+
+
+@pytest.mark.cuda
+def test_df_qr_threads_match_the_kernel(cuda):
+    """df_loops.qr_threads, behind the CPU model's split, is the thread
+    count K1q launches with (csrc/df_qr.cu threads_for)."""
+    from xerus_tpu_torch.ops import df_loops as dl
+    f = dl._fn("df_qr", "xerus_df_qr_threads")
+    for m, r in _path_qr_shapes() + [(1000, 400), (4096, 512), (7, 3)]:
+        route = dl.df_qr_plan(m, r).route
+        assert f(m, r, dl._QR_ROUTE[route]) == dl.qr_threads(m, r, route)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [2, 4, 8, 16, 32, 64])
+def test_df_chol_block_kernel_holds_the_plain_version_at_every_path_shape(
+        cuda, B):
+    """df_chol_block at each diagonal-block size of the paths (block
+    min(64, n)) on an SPD block of condition 1e6: L L^T - A held to the
+    plain version's, two launches bitwise equal."""
+    from xerus_tpu_torch.ops import df_loops as dl
+    dc = importlib.import_module("xerus_tpu_torch.ops.df_cholesky")
+    rng = np.random.Generator(np.random.PCG64(B + 1))
+    Qm, _ = np.linalg.qr(rng.normal(size=(B, B)))
+    A = (Qm * np.logspace(0, -6, B)) @ Qm.T
+    Ah, Al = _df_pair(A, cuda)
+    plan = dl.df_chol_block_plan(B)
+    L1 = dl.df_chol_block_launch(Ah, Al, plan)
+    L2 = dl.df_chol_block_launch(Ah, Al, plan)
+    torch.cuda.synchronize()
+    assert torch.equal(L1[0], L2[0]) and torch.equal(L1[1], L2[1])
+    L, PL = _joined(L1), _joined(dc._df_chol_unblocked_reference(Ah, Al))
+    assert np.array_equal(np.tril(L), L)
+    assert _held([dl.chol_backward_error(L, A)],
+                 [dl.chol_backward_error(PL, A)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,B", _path_trsm_shapes())
+def test_df_trsm_rlt_kernel_holds_the_plain_version_at_every_path_shape(
+        cuda, m, B):
+    """df_trsm_rlt at each panel shape of the paths: X L^T - A held to
+    the plain version's, two launches bitwise equal."""
+    from xerus_tpu_torch.ops import df_loops as dl
+    dc = importlib.import_module("xerus_tpu_torch.ops.df_cholesky")
+    rng = np.random.Generator(np.random.PCG64(m * 3 + B))
+    L = np.tril(rng.normal(size=(B, B)), -1) * 0.1 + np.diag(
+        rng.uniform(0.5, 2.0, size=B))
+    A = rng.normal(size=(m, B))
+    (Ah, Al), (Lh, Ll) = _df_pair(A, cuda), _df_pair(L, cuda)
+    plan = dl.df_trsm_plan(m, B)
+    X1 = dl.df_trsm_rlt_launch(Ah, Al, Lh, Ll, plan)
+    X2 = dl.df_trsm_rlt_launch(Ah, Al, Lh, Ll, plan)
+    torch.cuda.synchronize()
+    assert torch.equal(X1[0], X2[0]) and torch.equal(X1[1], X2[1])
+    P = dc._df_trsm_rlt_reference(Ah, Al, Lh, Ll)
+    assert _held([dl.trsm_backward_error(_joined(X1), L, A)],
+                 [dl.trsm_backward_error(_joined(P), L, A)])
 
 
 def _df_pair(x, device):
@@ -696,8 +806,15 @@ def _qr_input(m, r, seed, deficient=False):
     (60, 30, False, "cta"), (60, 30, True, "cta"), (2, 2, False, "cta"),
     (128, 64, True, "cta"), (512, 256, False, "cluster"),
     (512, 256, True, "cluster"), (500, 250, True, "cluster"),
-    (1000, 400, False, "cluster"), (1024, 512, True, "gmem")])
+    (1000, 400, False, "cluster"), (1024, 512, True, "gmem"),
+    (1000, 31, True, "cluster"), (640, 45, False, "cluster"),
+    (1600, 301, True, "gmem")])
 def test_df_qr_kernel_matches_plain(cuda, m, r, deficient, route):
+    """K1q through mixed_precision.df_qr against the plain version: the
+    backward errors held, the same deficient columns, two launches
+    bitwise equal; odd r included, whose exchange slots on the cluster
+    routes are padded to an even number of pairs for their 16-byte
+    loads."""
     from xerus_tpu_torch.ops import df_loops as dl
     from xerus_tpu_torch.ops import mixed_precision as mp
     plan = dl.df_qr_plan(m, r)
@@ -752,7 +869,8 @@ def test_df_chol_block_kernel_matches_plain(cuda, B):
                                        (1792, 64, "whole"), (13, 5, "whole"),
                                        (512, 256, "tiles"),
                                        (100, 200, "tiles"),
-                                       (64, 1536, "gmem")])
+                                       (64, 1536, "gmem"),
+                                       (8, 3700, "gmem")])
 def test_df_trsm_rlt_kernel_matches_plain(cuda, m, B, route):
     dc = importlib.import_module("xerus_tpu_torch.ops.df_cholesky")
     from xerus_tpu_torch.ops import df_loops as dl
@@ -797,7 +915,8 @@ def _loop_case(entry, shape, device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("entry,shape,route", [
     ("df_qr", (512, 256), "cluster"), ("df_qr", (1000, 400), "cluster"),
-    ("df_qr", (256, 256), "cluster"), ("df_chol_block", (64, 64), "cta"),
+    ("df_qr", (256, 256), "cluster"), ("df_qr", (1000, 31), "cluster"),
+    ("df_qr", (640, 45), "cluster"), ("df_chol_block", (64, 64), "cta"),
     ("df_chol_block", (128, 128), "cta"), ("df_trsm_rlt", (512, 256), "tiles"),
     ("df_trsm_rlt", (192, 64), "whole")])
 def test_df_loop_gmem_routes_match_the_shared_memory_routes(cuda, entry,
@@ -820,6 +939,40 @@ def test_df_loop_gmem_routes_match_the_shared_memory_routes(cuda, entry,
     flat = (lambda o: [*o[0], *o[1]]) if entry == "df_qr" else list
     for x, y in zip(flat(out), flat(gmem)):
         assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry,shape,route", [
+    ("df_qr", (60, 30), "cta"), ("df_qr", (512, 256), "cluster"),
+    ("df_qr", (1000, 31), "cluster"), ("df_chol_block", (64, 64), "cta"),
+    ("df_trsm_rlt", (192, 64), "whole"), ("df_trsm_rlt", (512, 256), "tiles")])
+def test_df_loop_kernels_follow_their_models(cuda, entry, shape, route):
+    """Each kernel gives, bit for bit, what its torch model
+    (df_loops.df_qr_model with the route's bands, df_chol_model,
+    df_trsm_model) gives on the CPU from the same inputs: the models, which
+    the CPU tests hold to the plain versions and the JAX package, are the
+    kernels' orders and arithmetic, not an approximation of them."""
+    from xerus_tpu_torch.ops import df_loops as dl
+    plan = {"df_qr": lambda s: dl.df_qr_plan(*s),
+            "df_chol_block": lambda s: dl.df_chol_block_plan(s[0]),
+            "df_trsm_rlt": lambda s: dl.df_trsm_plan(*s)}[entry](shape)
+    assert plan.route == route
+    args = _loop_case(entry, shape, cuda)
+    out = getattr(dl, entry + "_launch")(*args, plan)
+    host = [a.cpu() for a in args]
+    if entry == "df_qr":
+        q, r, _bad = dl.df_qr_model(*host, ctas=plan.ctas)
+        out, model = [*out[0], *out[1]], [*q, *r]
+    elif entry == "df_chol_block":
+        model = dl.df_chol_model(*host)
+    else:
+        model = dl.df_trsm_model(*host)
+    for name, x, y in zip("hlHL", out, model):
+        x = x.cpu()
+        diff = (x != y).sum().item()
+        assert diff == 0, (f"word {name}: {diff} of {x.numel()} entries "
+                           f"differ, by at most "
+                           f"{(x.double() - y.double()).abs().max().item()}")
 
 
 @pytest.mark.cuda

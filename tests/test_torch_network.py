@@ -19,8 +19,11 @@ import pytest
 import xerus_tpu as xe
 import xerus_tpu_torch as xt
 from xerus_tpu.network import heuristics as heur_j
+from xerus_tpu.network import native as native_j
 from xerus_tpu_torch.network import heuristics as heur_t
 from xerus_tpu_torch.network import native as native_t
+
+import native_jax
 
 SEED = 0xBAADF00D
 
@@ -29,6 +32,14 @@ SEED = 0xBAADF00D
 def _host():
     with xt.host():
         yield
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_native():
+    """The JAX package's native contraction-path search, loaded
+    (``native_jax``): a worker whose first load raced another worker's
+    make would otherwise plan the JAX side with the Python portfolio."""
+    native_jax.loaded(native_j)
 
 
 def _both(case, seed=SEED):

@@ -24,6 +24,8 @@ from xerus_tpu_torch.core import sparse_qr as sq_t
 from xerus_tpu_torch.core import factorizations as fact_t
 from xerus_tpu_torch import build
 
+import native_jax
+
 SEED = 0xBAADF00D
 PKGS = (sq_j, sq_t)
 
@@ -32,6 +34,14 @@ PKGS = (sq_j, sq_t)
 def _host():
     with xt.host():
         yield
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_native():
+    """The JAX package's native sparse QR, loaded (``native_jax``): a
+    worker whose first load raced another worker's make would otherwise
+    hold the port's native route against the JAX package's dense one."""
+    native_jax.loaded(sq_j)
 
 
 def _fact(pkg):

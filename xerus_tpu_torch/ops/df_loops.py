@@ -6,28 +6,36 @@ blocks and panel substitutions (``df_cholesky._df_chol_unblocked`` and
 products.  The JAX package runs each as one ``lax.fori_loop`` program
 (``xerus_tpu/ops/mixed_precision.py:91-153``,
 ``xerus_tpu/ops/df_cholesky.py:38-137``); run eagerly they are thousands of
-launches.  Here each is one hand-written CUDA kernel whose row products are
-K1's arithmetic (``csrc/df_arith.cuh``):
+launches.  Here each is one hand-written CUDA kernel with K1's arithmetic
+(``csrc/df_arith.cuh``), laid out so that no step's dependent chain walks
+reductions one after another:
 
 - K1q, ``csrc/df_qr.cu``: the CGS2 df QR of an (m, r) matrix, in one CTA
   (route ``cta``), in one 16-CTA cluster holding a band of rows per CTA
   (route ``cluster``), or, where a band does not fit shared memory, in the
-  same cluster with the bands in a global workspace (route ``gmem``);
-- K1c, ``csrc/df_chol.cu``: ``df_chol_block`` (one CTA, the block in shared
-  memory, or in place in the output past it) and ``df_trsm_rlt`` (a warp
-  per row of X, L staged in shared memory whole or in double-buffered row
-  tiles, or read from global memory past that).
+  same cluster with the bands in a global workspace (route ``gmem``).
+  Q^T v by a group of lanes per column, Q c by a group of lanes per row,
+  each folded by one butterfly; the cluster routes all-reduce the band
+  partials by one pull over distributed shared memory;
+- K1c, ``csrc/df_chol.cu``: ``df_chol_block`` (one CTA, right-looking: a
+  step is a df_sqrt, a df_div of the column by its owners and a rank-1
+  update of the trailing triangle by its owners, one barrier; the block in
+  shared memory, or in place in the output past it) and ``df_trsm_rlt``
+  (a warp per row of X, its lanes owning the row's columns: a step is one
+  df_div, one shuffle and a rank-1 update; L staged in shared memory
+  whole or in double-buffered column tiles, or read from global memory
+  past that).
 
 This module holds their ctypes bindings, their launch counters
 (``df_qr_launch.launches`` etc., counting kernel launches and nothing
 else), their plans (plain Python from the shapes alone, no card needed;
 the only source of each launch's shared-memory size, which the kernel
-checks covers its layout) and ``df_qr_cluster_model``, a torch model of
-K1q's data split and reduction order.  The wrappers that choose between a
-kernel and the plain version by device live where the plain versions do.
-Every shape within int32 extents has a kernel route, but for K1q and
-``df_chol_block`` at sizes whose vectors alone pass shared memory, where
-the plan raises.
+checks covers its layout) and torch models of the kernels' orders
+(``df_qr_model``, ``df_chol_model``, ``df_trsm_model``).  The wrappers
+that choose between a kernel and the plain version by device live where
+the plain versions do.  Every shape within int32 extents has a kernel
+route, but for K1q and ``df_chol_block`` at sizes whose vectors alone pass
+shared memory, where the plan raises.
 """
 
 from __future__ import annotations
@@ -41,10 +49,10 @@ import torch
 
 from .. import build
 from . import programs
-from .df32 import df_add, df_mul, df_sub
+from .df32 import df_add, df_sub, fast_two_sum
 
 SMEM_MAX = 232_448        # dynamic shared memory a block may opt in to
-QR_WARPS = 16             # warps of a K1q CTA (csrc/df_qr.cu kThreads / 32)
+QR_WARPS = 16             # warps of a K1q cluster CTA (df_qr.cu kMaxWarps)
 CLUSTER_CTAS = 16         # CTAs of K1q's cluster routes
 TRSM_WARPS = 8            # rows of X per df_trsm_rlt CTA
 CTA, CLUSTER, GMEM, WHOLE, TILES = "cta", "cluster", "gmem", "whole", "tiles"
@@ -56,7 +64,7 @@ class LoopPlan(NamedTuple):
                     # (df_chol_block), whole / tiles / gmem (df_trsm_rlt)
     ctas: int       # CTAs launched
     rows: int       # rows a CTA holds (K1q's band; rows of X per CTA)
-    tile: int       # df_trsm_rlt: rows of L staged at a time (0: gmem)
+    tile: int       # df_trsm_rlt: columns of L staged at a time (0: gmem)
     smem: int       # bytes of dynamic shared memory per CTA
     work: int = 0   # K1q route gmem: floats of the global workspace
 
@@ -66,14 +74,47 @@ class LoopPlan(NamedTuple):
 # csrc/df_chol.cu block_floats() / trsm_floats() check that it suffices)
 
 
-def _qr_floats(m: int, r: int, route: str) -> int:
-    rows = m if route == CTA else -(-m // CLUSTER_CTAS)
-    ld = rows | 1
-    slots = -(-r // CLUSTER_CTAS)
-    n = (0 if route == GMEM else 2 * ld * r) + 2 * ld + 4 * r \
-        + 3 * QR_WARPS + r
+def _pow2_floor(x: int) -> int:
+    return 1 << (max(1, x).bit_length() - 1)
+
+
+def _pow2_ceil(x: int) -> int:
+    return 1 << max(0, x - 1).bit_length()
+
+
+def qr_threads(m: int, r: int, route: str) -> int:
+    """Threads of a K1q CTA (csrc/df_qr.cu threads_for): 512 on the
+    cluster routes; on route cta the power of two at or past 2 m and 8 r,
+    within 32 and 512."""
     if route != CTA:
-        n += 2 * CLUSTER_CTAS * slots + 4 * CLUSTER_CTAS
+        return 32 * QR_WARPS
+    return min(32 * QR_WARPS, max(32, _pow2_ceil(max(2 * m, 8 * r))))
+
+
+def coef_lanes(T: int, rows: int, j: int) -> int:
+    """Lanes a column of K1q's Q^T v at step j >= 1 on T threads and a band
+    of ``rows`` rows (csrc/df_qr.cu coef_lanes)."""
+    return min(_pow2_floor(max(1, T // j)), 32, _pow2_ceil(max(rows, 1)))
+
+
+def row_lanes(T: int, rows: int, j: int) -> int:
+    """Lanes a row of K1q's Q c at step j (csrc/df_qr.cu row_lanes)."""
+    return min(_pow2_floor(max(1, T // max(rows, 1))), 32,
+               _pow2_ceil(max(j, 1)))
+
+
+def _qr_ld(m: int, route: str) -> int:
+    """K1q's column stride of a band: its rows rounded up to 32."""
+    rows = m if route == CTA else -(-m // CLUSTER_CTAS)
+    return max(32, -(-rows // 32) * 32)
+
+
+def _qr_floats(m: int, r: int, route: str) -> int:
+    ld = _qr_ld(m, route)
+    n = (0 if route == GMEM else 2 * ld * r) + 2 * ld + 4 * r \
+        + 2 * QR_WARPS + r
+    if route != CTA:     # two exchange slots of r pairs rounded up to even
+        n = -(-(n + r) // 4) * 4 + 4 * (r + (r & 1))
     return n
 
 
@@ -105,19 +146,19 @@ def df_chol_block_plan(B: int) -> LoopPlan:
 
 def _trsm_floats(B: int, tile: int) -> int:
     bufs = 2 if -(-B // tile) > 1 else 1
-    return 2 * TRSM_WARPS * B + 2 * bufs * tile * B
+    return 2 * TRSM_WARPS * B + 2 * bufs * tile * B + 2 * B
 
 
 @lru_cache(maxsize=None)
 def df_trsm_plan(m: int, B: int) -> LoopPlan:
     """df_trsm_rlt's route for an (m, B) panel: ``whole`` where L fits
-    beside the CTA's rows of X, ``tiles`` (two buffers of as many rows of L
-    as fit, at least 8) otherwise, ``gmem_plan``'s past that."""
+    beside the CTA's rows of X, ``tiles`` (two buffers of as many columns
+    of L as fit, at least 8) otherwise, ``gmem_plan``'s past that."""
     ctas = -(-m // TRSM_WARPS)
     smem = 4 * _trsm_floats(B, B)
     if smem <= SMEM_MAX:
         return LoopPlan(WHOLE, ctas, TRSM_WARPS, B, smem)
-    tile = (SMEM_MAX // 4 - 2 * TRSM_WARPS * B) // (4 * B)
+    tile = (SMEM_MAX // 4 - 2 * TRSM_WARPS * B - 2 * B) // (4 * B)
     tile = min(B - 1, tile - tile % 8)
     if tile >= 8:
         return LoopPlan(TILES, ctas, TRSM_WARPS, tile,
@@ -134,13 +175,14 @@ def gmem_plan(entry: str, shape) -> LoopPlan:
     against them on the paths' shapes.  K1q: the cluster with each band
     in a global workspace and the vectors in shared memory; df_chol_block:
     the block in place in the output, the diagonal in shared memory;
-    df_trsm_rlt: X's rows in place in the output, L read from global
-    memory.  Raises ValueError for a shape whose vectors alone pass
-    shared memory (K1q, df_chol_block)."""
+    df_trsm_rlt: L read in place from global memory, each row of X in
+    place in the output.  Raises
+    ValueError for a shape whose vectors alone pass shared memory (K1q,
+    df_chol_block)."""
     if entry == "df_qr":
         m, r = shape
         rows = -(-m // CLUSTER_CTAS)
-        band = (rows | 1) * r
+        band = _qr_ld(m, GMEM) * r
         smem = 4 * _qr_floats(m, r, GMEM)
         if smem <= SMEM_MAX and 2 * band < 2 ** 31:
             return LoopPlan(GMEM, CLUSTER_CTAS, rows, 0, smem,
@@ -168,6 +210,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
     "xerus_df_qr": [_P] * 2 + [_I] + [_P] * 6 + [ctypes.c_longlong]
     + [_I] * 4 + [_P],
+    "xerus_df_qr_threads": [_I] * 3,
     "xerus_df_chol_block": [_P] * 2 + [_I] + [_P] * 2 + [_I] * 3 + [_P],
     "xerus_df_trsm_rlt": [_P] * 2 + [_I] + [_P] * 2 + [_I] + [_P] * 2
     + [_I] * 4 + [_P],
@@ -297,110 +340,151 @@ for _launch in (df_qr_launch, df_chol_block_launch, df_trsm_rlt_launch):
 
 
 # ---------------------------------------------------------------------------
-# a torch model of K1q's data split and reduction order
+# torch models of the kernels' data splits and reduction orders: the same
+# steps in the same orders with the kernels' arithmetic (csrc/df_arith.cuh:
+# round-to-nearest f32 operations, FMA TwoProd), so on the same inputs
+# they give the kernels' bits; tests/test_torch_kernels_cuda.py holds each
+# kernel to its model on the card
 
 
-def _lane_fold(ph, pl):
-    """K1q's warp reduction of the terms along dim 0: lane l sums terms l,
-    l + 32, ... in order from zero, then the shuffle-down fold (lane l adds
-    lane l + off for off = 16, ..., 1); lane 0's result."""
+def _two_prod(a, b):
+    """FMA TwoProd: the rounded f32 product and its error, exact (an f32
+    product is exact in float64, and its rounding error is an f32)."""
+    p = a * b
+    return p, (a.double() * b.double() - p.double()).float()
+
+
+def _df_mul(xh, xl, yh, yl):
+    ph, pe = _two_prod(xh, yh)
+    return fast_two_sum(ph, pe + (xh * yl + xl * yh))
+
+
+def _df_div(xh, xl, yh, yl):
+    q1 = xh / yh
+    ph, pe = _two_prod(q1, yh)
+    rh, _rl = df_sub(xh, xl, *fast_two_sum(ph, pe + q1 * yl))
+    return fast_two_sum(q1, rh / yh)
+
+
+def _df_sqrt(xh, xl):
+    # the rounded square root by way of float64: torch's float32 sqrt on
+    # the CPU is not always the rounded one, the kernels' __fsqrt_rn is
+    s = torch.sqrt(torch.clamp_min(xh, 0.0).double()).float()
+    rh, _rl = df_sub(xh, xl, *_two_prod(s, s))
+    return fast_two_sum(s, torch.where(
+        s > 0, rh / torch.clamp_min(2.0 * s, 1e-38), torch.zeros_like(s)))
+
+
+def _lane_sums(ph, pl, lanes: int):
+    """Terms along dim 0 dealt to ``lanes`` lanes (lane g the terms g,
+    g + lanes, ...), each lane summing its even-numbered and odd-numbered
+    terms in two accumulators from zero, then the two: (lanes, ...).  A
+    lane adds only the terms it has: adding a zero term can change a df
+    sum whose low word is not the high word's rounding error."""
     n = ph.shape[0]
-    rest = tuple(ph.shape[1:])
-    ah = ph.new_zeros((32,) + rest)
-    al = ph.new_zeros((32,) + rest)
-    for s in range(0, n, 32):
-        w = min(32, n - s)
-        sh, sl = df_add(ah[:w], al[:w], ph[s:s + w], pl[s:s + w])
-        ah, al = torch.cat([sh, ah[w:]]), torch.cat([sl, al[w:]])
-    for off in (16, 8, 4, 2, 1):
-        ah, al = df_add(ah[:off], al[:off], ah[off:2 * off], al[off:2 * off])
-    return ah[0], al[0]
+    acc = ph.new_zeros((2, 2, lanes) + tuple(ph.shape[1:]))
+    for t, s in enumerate(range(0, n, lanes)):
+        c = min(lanes, n - s)
+        acc[t % 2, 0, :c], acc[t % 2, 1, :c] = df_add(
+            acc[t % 2, 0, :c], acc[t % 2, 1, :c], ph[s:s + c], pl[s:s + c])
+    return df_add(acc[0, 0], acc[0, 1], acc[1, 0], acc[1, 1])
 
 
-def _serial(ph, pl):
-    """Sum along dim 0 in order from zero (warps in order, bands in
-    order)."""
-    sh = ph.new_zeros(ph.shape[1:])
-    sl = ph.new_zeros(ph.shape[1:])
-    for k in range(ph.shape[0]):
-        sh, sl = df_add(sh, sl, ph[k], pl[k])
-    return sh, sl
+def _butterfly(ph, pl):
+    """The xor butterfly over dim 0 (a power of two of lanes): lane 0's
+    sum, ((v0 + v4) + (v2 + v6)) + ((v1 + v5) + (v3 + v7)) for eight."""
+    while ph.shape[0] > 1:
+        off = ph.shape[0] // 2
+        ph, pl = df_add(ph[:off], pl[:off], ph[off:], pl[off:])
+    return ph[0], pl[0]
 
 
-def _f32_serial(x):
-    s = x.new_zeros(x.shape[1:])
-    for k in range(x.shape[0]):
-        s = s + x[k]
-    return s
-
-
-def df_qr_cluster_model(ah, al, ctas: int = CLUSTER_CTAS):
-    """K1q's computation in torch on any device, with its data split: the
-    rows in ``ctas`` bands of ceil(m / ctas) (``ctas=1`` is route cta),
-    every df reduction in the kernel's order (``_lane_fold`` within a
-    band, the 16 warp partials of a norm and then the bands in order, the
-    reduce-scatter's band order for Q^T v; the plain f32 sums behind the
-    threshold in torch's order).  Arithmetic is ``df32``'s
-    (its masked-split TwoProd, where the kernel uses an FMA), so it follows
-    the kernel's order, not its bits.  Returns ((Qh, Ql), (Rh, Rl),
-    deficient) with ``deficient`` a list of bools."""
-    from .mixed_precision import df_div, df_sqrt
+def df_qr_model(ah, al, ctas: int = 1):
+    """K1q's computation in torch on any device, in its order: the rows in
+    ``ctas`` bands of ceil(m / ctas) (1: route cta, 16: routes cluster and
+    gmem) on ``qr_threads`` threads a band; per band and step j, Q^T v by
+    ``coef_lanes`` lanes a column (``_lane_sums``, ``_butterfly``), the
+    butterfly's tree over the bands; Q c by ``row_lanes`` lanes a row; the
+    norm from each thread's rows in order, the warp butterfly, the tree
+    over the warps and over the bands; the plain f32 sums behind the
+    threshold in torch's order.
+    Returns ((Qh, Ql), (Rh, Rl), deficient) with ``deficient`` a list of
+    bools."""
     m, r = ah.shape
+    T = qr_threads(m, r, CTA if ctas == 1 else CLUSTER)
     rows = -(-m // ctas)
-    bands = [(b * rows, min(m, (b + 1) * rows)) for b in range(ctas)]
-    bands = [(s, e) for s, e in bands if e > s] or [(0, 0)]
+    # bands of one size at a time: (size, band indices, (size, bands) rows)
+    sizes = [max(0, min(m, (b + 1) * rows) - b * rows) for b in range(ctas)]
+    groups = [(n, [b for b in range(ctas) if sizes[b] == n],
+               torch.stack([torch.arange(b * rows, b * rows + n)
+                            for b in range(ctas) if sizes[b] == n]).T)
+              for n in sorted(set(sizes)) if n > 0]
+    zero = ah.new_zeros(())
+
+    def by_band(parts_h, parts_l):
+        """(..., ctas) band partials summed by the butterfly's tree."""
+        return _butterfly(parts_h.movedim(-1, 0), parts_l.movedim(-1, 0))
 
     def coefs(qh, ql, vh, vl, j):
-        parts = [_lane_fold(*df_mul(qh[s:e, :j], ql[s:e, :j],
-                                    vh[s:e, None], vl[s:e, None]))
-                 for s, e in bands]
-        return _serial(torch.stack([p[0] for p in parts]),
-                       torch.stack([p[1] for p in parts]))
+        ph, pl = ah.new_zeros((j, ctas)), ah.new_zeros((j, ctas))
+        for n, idx, rr in groups:
+            bh, bl = _butterfly(*_lane_sums(
+                *_df_mul(qh[rr, :j], ql[rr, :j], vh[rr, None], vl[rr, None]),
+                coef_lanes(T, n, j)))                        # (bands, j)
+            ph[:, idx], pl[:, idx] = bh.T, bl.T
+        return by_band(ph, pl)
 
-    def project(qh, ql, vh, vl, j):
-        if j == 0:
+    def project_out(qh, ql, ch, cl, srch, srcl, j):
+        """v = src - Q c, and the norm of v."""
+        vh, vl = srch.clone(), srcl.clone()
+        nh, nl = ah.new_zeros(ctas), ah.new_zeros(ctas)
+        for n, idx, rr in groups:
+            H = row_lanes(T, n, j)
+            ph = pl = ah.new_zeros(rr.shape)
+            if j > 0:
+                ph, pl = _butterfly(*_lane_sums(
+                    *_df_mul(qh[rr, :j].permute(2, 0, 1),
+                            ql[rr, :j].permute(2, 0, 1),
+                            ch[:, None, None], cl[:, None, None]), H))
+            bh, bl = df_sub(srch[rr], srcl[rr], ph, pl)      # (n, bands)
+            vh[rr], vl[rr] = bh, bl
+            # thread q H holds the rows q, q + T / H, ... in order; the
+            # warp butterfly; the butterfly's tree over the warps
+            nq, nb = T // H, len(idx)
+            steps = -(-n // nq)
+            pad = ah.new_zeros((steps * nq - n, nb))
+            sh, sl = _df_mul(bh, bl, bh, bl)
+            sh = torch.cat([sh, pad]).reshape(steps, nq, nb)
+            sl = torch.cat([sl, pad]).reshape(steps, nq, nb)
+            th, tl = ah.new_zeros((nq, nb)), ah.new_zeros((nq, nb))
+            for t in range(steps):
+                th, tl = df_add(th, tl, sh[t], sl[t])
+            lh, ll = ah.new_zeros((T, nb)), ah.new_zeros((T, nb))
+            lh[::H], ll[::H] = th, tl
+            wh, wl = _butterfly(lh.reshape(-1, 32, nb).transpose(0, 1),
+                                ll.reshape(-1, 32, nb).transpose(0, 1))
+            nh[idx], nl[idx] = _butterfly(wh, wl)
+        return vh, vl, _df_sqrt(*by_band(nh, nl))
+
+    def rounds(srch, srcl, j, count, coefh, coefl):
+        for _ in range(count):
             ch = cl = ah.new_zeros((0,))
-            ph = pl = ah.new_zeros((m,))
-        else:
-            ch, cl = coefs(qh, ql, vh, vl, j)
-            ph, pl = _lane_fold(*df_mul(qh[:, :j].T, ql[:, :j].T,
-                                        ch[:, None], cl[:, None]))
-        vh, vl = df_sub(vh, vl, ph, pl)
-        return vh, vl, ch, cl
+            if j > 0:
+                ch, cl = coefs(qh, ql, srch, srcl, j)
+                if coefh is not None:
+                    coefh, coefl = df_add(coefh, coefl, ch, cl)
+            srch, srcl, n = project_out(qh, ql, ch, cl, srch, srcl, j)
+        return srch, srcl, n, coefh, coefl
 
-    def band_norm(vh, vl, s, e):
-        """thread t of 512 sums rows t, t + 512, ...; lanes fold per warp;
-        the 16 warp partials in order."""
-        n = e - s
-        pad = -(-max(n, 1) // (32 * QR_WARPS)) * 32 * QR_WARPS
-        th, tl = df_mul(vh[s:e], vl[s:e], vh[s:e], vl[s:e])
-        th = torch.cat([th, th.new_zeros(pad - n)]).reshape(-1, QR_WARPS, 32)
-        tl = torch.cat([tl, tl.new_zeros(pad - n)]).reshape(-1, QR_WARPS, 32)
-        acc_h, acc_l = _serial(th, tl)                       # (warps, 32)
-        wh, wl = _lane_fold(acc_h.T, acc_l.T)                # (warps,)
-        return _serial(wh, wl)
-
-    def norm(vh, vl):
-        parts = [band_norm(vh, vl, s, e) for s, e in bands]
-        sh, sl = _serial(torch.stack([p[0] for p in parts]),
-                         torch.stack([p[1] for p in parts]))
-        return df_sqrt(sh, sl)
-
-    colsq = torch.stack([_f32_serial((ah[s:e] * ah[s:e]).sum(0)[None])
-                         for s, e in bands])
-    mat_scale = torch.sqrt(torch.max(_f32_serial(colsq)))
+    colsq = (ah * ah).sum(0)
+    mat_scale = torch.sqrt(torch.max(colsq))
     qh, ql = ah.new_zeros((m, r)), ah.new_zeros((m, r))
     rh, rl = ah.new_zeros((r, r)), ah.new_zeros((r, r))
     deficient = []
     for j in range(r):
-        vh, vl = ah[:, j], al[:, j]
-        orig_norm = torch.sqrt(_f32_serial(torch.stack(
-            [(vh[s:e] * vh[s:e]).sum() for s, e in bands]))) + 1e-38
-        coefh, coefl = ah.new_zeros((j,)), ah.new_zeros((j,))
-        for _ in range(2):
-            vh, vl, ch, cl = project(qh, ql, vh, vl, j)
-            coefh, coefl = df_add(coefh, coefl, ch, cl)
-        nh, nl = norm(vh, vl)
+        orig_norm = torch.sqrt(colsq[j]) + 1e-38
+        vh, vl, (nh, nl), coefh, coefl = rounds(
+            ah[:, j], al[:, j], j, 2, ah.new_zeros((j,)), ah.new_zeros((j,)))
         thr = torch.maximum(1e-12 * orig_norm, 1e-13 * mat_scale) + 1e-30
         bad = bool(nh <= thr)
         deficient.append(bad)
@@ -408,15 +492,53 @@ def df_qr_cluster_model(ah, al, ctas: int = CLUSTER_CTAS):
         if bad:
             eh = ah.new_zeros((m,))
             eh[j % m] = 1.0
-            vh, vl, _, _ = project(qh, ql, eh, torch.zeros_like(eh), j)
-            n2h, n2l = norm(vh, vl)
-            nh, nl = torch.zeros_like(nh), torch.zeros_like(nl)
-        inv_h, inv_l = df_div(ah.new_ones(()), ah.new_zeros(()),
+            vh, vl, (n2h, n2l), _, _ = rounds(eh, torch.zeros_like(eh), j,
+                                              1, None, None)
+            nh, nl = zero, zero
+        inv_h, inv_l = _df_div(ah.new_ones(()), zero,
                               torch.clamp_min(n2h, 1e-20), n2l)
-        qh[:, j], ql[:, j] = df_mul(vh, vl, inv_h, inv_l)
+        qh[:, j], ql[:, j] = _df_mul(vh, vl, inv_h, inv_l)
         rh[:j, j], rl[:j, j] = coefh, coefl
         rh[j, j], rl[j, j] = nh, nl
     return (qh, ql), (rh, rl), deficient
+
+
+def df_chol_model(Ah, Al):
+    """``df_chol_block``'s right-looking order in torch: step j updates the
+    trailing block by column j - 1 (a_ik -= L_i,j-1 L_k,j-1), then
+    L_jj = df_sqrt(max(a_jj, 1e-30)) and L_ij = df_div(a_ij, L_jj).
+    Returns lower-triangular (Lh, Ll)."""
+    B = Ah.shape[0]
+    wh, wl = Ah.clone(), Al.clone()
+    Lh, Ll = Ah.new_zeros((B, B)), Ah.new_zeros((B, B))
+    for j in range(B):
+        if j > 0:
+            ch, cl = Lh[j:, j - 1], Ll[j:, j - 1]
+            uh, ul = _df_mul(ch[:, None], cl[:, None], ch[None, :],
+                            cl[None, :])
+            wh[j:, j:], wl[j:, j:] = df_sub(wh[j:, j:], wl[j:, j:], uh, ul)
+        dh, dl = _df_sqrt(torch.clamp_min(wh[j, j], 1e-30), wl[j, j])
+        Lh[j, j], Ll[j, j] = dh, dl
+        Lh[j + 1:, j], Ll[j + 1:, j] = _df_div(wh[j + 1:, j], wl[j + 1:, j],
+                                              dh, dl)
+    return Lh, Ll
+
+
+def df_trsm_model(Ah, Al, Lh, Ll):
+    """``df_trsm_rlt``'s right-looking order in torch, all rows at once:
+    step j, x_j = df_div(a_j, L_jj), then a_k -= x_j L_kj for k > j.
+    Returns (Xh, Xl)."""
+    B = Ah.shape[1]
+    xh, xl = Ah.clone(), Al.clone()
+    for j in range(B):
+        ch, cl = _df_div(xh[:, j], xl[:, j], Lh[j, j], Ll[j, j])
+        xh[:, j], xl[:, j] = ch, cl
+        if j + 1 < B:
+            ph, pl = _df_mul(ch[:, None], cl[:, None], Lh[None, j + 1:, j],
+                            Ll[None, j + 1:, j])
+            xh[:, j + 1:], xl[:, j + 1:] = df_sub(xh[:, j + 1:],
+                                                  xl[:, j + 1:], ph, pl)
+    return xh, xl
 
 
 # ---------------------------------------------------------------------------
