@@ -69,6 +69,13 @@ full width:
   planned chain, sparse x dense on the device, file round trips and the
   gesdd fixture, each object call timed beside the bare torch call, then
   rerun under ``host()`` and held against the card's results;
+- the column-pivoted Householder QR (``ops/pivoted_qr.py``, no hand
+  kernel) as a captured program at the rank-30 QTT cores' left and right
+  splits and at (256, 256), held against its plain run on the CPU and
+  each replay bitwise its eager run, timed beside the SVD route; then
+  the ``XERUS_TPU_QC_METHOD=qrp`` QC / CQ route through ``move_core`` on
+  a d=32 rank-30 TTTensor and its rank-deficient double, held against
+  the SVD route (ranks, log-norms, inner products), walls and host syncs;
 - the tensor network and the TT classes in float64 through the public
   names: the rounding instance as a ``TTTensor`` rounded by
   ``round_fast(128, "gemm_exact")`` (K2, counted), ``round_fast(128,
@@ -3298,6 +3305,177 @@ def phase_objects(dev, smi):
         raise AssertionError("objects: card and CPU disagree")
 
 
+# the column-pivoted Householder QR (phase_pivoted_qr): the left and right
+# splits of the rank-30 QTT cores and a square block, float64
+QRP_SHAPES = [(60, 30), (30, 60), (256, 256)]
+QRP_REL = 1e-12            # sign-fixed factors vs the CPU, contract checks
+QRP_TT = (32, 30)          # d, rank of the object route's TTTensor
+QRP_TT_REL = 1e-12         # log-norms and inner products vs the SVD route
+
+
+def _qrp_signs(r):
+    import torch
+    s = torch.sign(torch.diagonal(r))
+    return torch.where(s == 0, torch.ones_like(s), s)
+
+
+def _qrp_program_case(shape, dev, smi):
+    """householder_qrp as a program at ``shape`` on the card: two eager
+    calls, the capture, two replays; held against the plain version on
+    the CPU (pivots over the numerical rank, sign-fixed factors, contract)
+    and each replay bitwise the eager run; times by CUDA events beside the
+    SVD route's."""
+    import numpy as np
+    import torch
+    from xerus_tpu_torch.core import factorizations as fact
+    from xerus_tpu_torch.ops import pivoted_qr as pq
+    from xerus_tpu_torch.ops.programs import Program
+    m, n = shape
+    host = torch.from_numpy(np.random.default_rng([SEED, m, n]).normal(
+        size=shape))
+    a = host.to(dev)
+    prog = Program(pq.householder_qrp, f"qrp[{m}x{n}]")
+    walls, outs = [], []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(prog(a))
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    eager = pq.householder_qrp(a)
+    same = [_bitwise(o, eager) for o in outs]
+    q0, r0, p0 = pq.householder_qrp(host)
+    q, r, p = (t.cpu() for t in outs[-1])
+    diag = torch.diagonal(r0).abs()
+    rank = int((diag >= 16 * np.finfo(np.float64).eps * diag[0]).sum())
+    pivots = bool(torch.equal(p[:rank], p0[:rank]))
+    s, s0 = _qrp_signs(r), _qrp_signs(r0)
+    gap_q = float((q * s - q0 * s0).abs().max() / q0.abs().max())
+    gap_r = float((s[:, None] * r - s0[:, None] * r0).abs().max()
+                  / r0.abs().max())
+    k = min(m, n)
+    contract = float((host[:, p.long()] - q @ r).abs().max()
+                     / host.abs().max())
+    orth = float((q.T @ q - torch.eye(k, dtype=q.dtype)).abs().max())
+    d = torch.diagonal(r).abs()
+    monotone = bool((d[:-1] >= d[1:] - QRP_REL * d[0]).all())
+    reps, warmup = 20, 2
+    t_replay = _time_ms(lambda: prog(a), reps=reps, warmup=warmup)
+    t_eager = _time_ms(lambda: pq.householder_qrp(a), reps=5, warmup=1)
+    t_svd = _time_ms(lambda: fact._svd_robust(a), reps=5, warmup=1)
+    print(f"qrp: ({m}, {n}) float64: replay {t_replay:.4f} ms, eager "
+          f"{t_eager:.4f} ms (CUDA events), capture and instantiation "
+          f"{prog.capture_s:.3f} s, {prog.nodes} graph nodes, pool "
+          f"{prog.pool_bytes / 2 ** 20:.1f} MiB; SVD route (_svd_robust, "
+          f"gesvd) {t_svd:.4f} ms; call walls "
+          f"{', '.join(f'{w:.3f}' for w in walls)} ms (eager, eager, "
+          f"capture, replay, replay); rank {rank}, pivots over it equal to "
+          f"the CPU's {pivots}, sign-fixed Q / R vs the CPU {gap_q:.2e} / "
+          f"{gap_r:.2e}, |a[:, perm] - q r| {contract:.2e}, |q^T q - I| "
+          f"{orth:.2e}, |diag R| non-increasing {monotone}, each call "
+          f"bitwise the eager run {same} ({smi})")
+    fails = []
+    if (prog.eager_runs, prog.captures, prog.replays) != (
+            2, 1, 2 + reps + warmup):
+        fails.append(f"{prog.eager_runs} eager runs, {prog.captures} "
+                     f"captures, {prog.replays} replays")
+    if not all(same):
+        fails.append(f"calls bitwise the eager run: {same}")
+    if not pivots:
+        fails.append("pivots differ from the CPU's over the rank")
+    if not max(gap_q, gap_r, contract, orth) <= QRP_REL or not monotone:
+        fails.append(f"factors {gap_q:.2e} / {gap_r:.2e}, contract "
+                     f"{contract:.2e}, orthonormality {orth:.2e}, "
+                     f"monotone {monotone}")
+    if fails:
+        raise AssertionError(f"qrp: ({m}, {n}): {'; '.join(fails)}")
+
+
+def _qrp_move_core(tt, method):
+    """tt's core moved to the end and back on the ``method`` QC route:
+    (the TT, wall in s, syncs torch's sync debug mode reports)."""
+    import torch
+    from xerus_tpu_torch.core import factorizations as fact
+    z = tt.copy()
+    saved = fact._QC_METHOD
+    fact._QC_METHOD = method
+    torch.cuda.synchronize()
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            t0 = time.perf_counter()
+            try:
+                z.move_core(tt.num_components() - 1)
+                z.move_core(0)
+                torch.cuda.synchronize()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            wall = time.perf_counter() - t0
+    finally:
+        fact._QC_METHOD = saved
+    return z, wall, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def phase_pivoted_qr(dev, smi):
+    """The column-pivoted Householder QR (ops/pivoted_qr.py) as a captured
+    program at the QTT splits' shapes and (256, 256), held against the CPU,
+    then the QC / CQ route XERUS_TPU_QC_METHOD=qrp through move_core on a
+    d=32 rank-30 TTTensor and on its rank-deficient double x + x, held
+    against the SVD route (ranks, log-norms, inner products)."""
+    import math
+    import xerus_tpu_torch as xt
+    from xerus_tpu_torch.ops import pivoted_qr as pq
+    from xerus_tpu_torch.ops.programs import Program
+    t0 = time.perf_counter()
+    for shape in QRP_SHAPES:
+        _qrp_program_case(shape, dev, smi)
+    t_programs = time.perf_counter() - t0
+    d, rank = QRP_TT
+    xt.set_seed(SEED)
+    x = xt.TTTensor.random([2] * d, rank)
+    double = x.copy()
+    double.canonicalized = False
+    double = double + double
+    for name, tt in ((f"rank-{rank}", x), ("x + x", double)):
+        runs = {}
+        for method in ("svd", "qrp", "svd", "qrp", "qrp", "qrp"):
+            counts0 = (Program.eager_runs, Program.captures, Program.replays)
+            z, wall, syncs = _qrp_move_core(tt, method)
+            counts = [b - a for a, b in zip(counts0, (
+                Program.eager_runs, Program.captures, Program.replays))]
+            runs.setdefault(method, []).append((z, wall, syncs, counts))
+        (zs, *_), (zq, *_) = runs["svd"][-1], runs["qrp"][-1]
+        ns, nq = zs.frob_norm(), zq.frob_norm()
+        log_gap = abs(math.log(nq) - math.log(ns)) / abs(math.log(ns))
+        inner_gap = abs(xt.tt.inner(zq, zs) - ns * ns) / (ns * ns)
+        print(f"qrp: move_core 0 -> {d - 1} -> 0, d={d} {name} (ranks in "
+              f"{max(tt.ranks())}, out {max(zq.ranks())}): walls qrp "
+              f"{' / '.join(f'{r[1]:.3f}' for r in runs['qrp'])} s "
+              f"(programs eager / captured / replayed "
+              f"{', '.join(str(r[3]) for r in runs['qrp'])}), svd "
+              f"{' / '.join(f'{r[1]:.3f}' for r in runs['svd'])} s; host "
+              f"syncs qrp {runs['qrp'][-1][2]}, svd {runs['svd'][-1][2]}; "
+              f"ranks equal {zq.ranks() == zs.ranks()}, log-norm gap "
+              f"{log_gap:.2e}, <qrp, svd> / |svd|^2 - 1 {inner_gap:.2e} "
+              f"({smi})")
+        if zq.ranks() != zs.ranks():
+            raise AssertionError(f"qrp: {name}: ranks {zq.ranks()} against "
+                                 f"the SVD route's {zs.ranks()}")
+        if not max(log_gap, inner_gap) <= QRP_TT_REL:
+            raise AssertionError(f"qrp: {name}: log-norm gap {log_gap:.2e}, "
+                                 f"inner product gap {inner_gap:.2e}")
+        # a shape met once a pass runs eagerly in the first two passes, is
+        # captured in the third and replayed from the fourth on
+        if sum(runs["qrp"][-1][3][:2]) or not runs["qrp"][-1][3][2]:
+            raise AssertionError(f"qrp: {name}: the fourth qrp pass ran "
+                                 f"{runs['qrp'][-1][3]} programs eager / "
+                                 "captured / replayed")
+    print(f"qrp: phase {time.perf_counter() - t0:.1f} s (programs "
+          f"{t_programs:.1f} s), {pq.make_qrp.cache_info().currsize} "
+          f"cached programs")
+
+
 # the tensor network and TT classes (phase_tt_objects): the full-width
 # instances of the first three slices through the public names, in
 # float64, and the same at d=12 on the card and under host()
@@ -5317,6 +5495,7 @@ def main():
     k3_launches, completion = phase_completion_slice(dev)
     iht_residual = phase_iht(dev)
     phase_objects(dev, smi)
+    phase_pivoted_qr(dev, smi)
     k2_tt, k2_f64 = phase_tt_objects(dev, smi, solution, host_residual,
                                      round_ref, ge_f32)
     k2_launches += k2_tt

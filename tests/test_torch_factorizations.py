@@ -3,7 +3,8 @@ held against xerus_tpu's on the CPU.
 
 Every case of tests/test_factorizations.py runs in both packages from the
 same ``set_seed`` and keeps that file's oracles, but the optional
-pivoted-QR route's, which the port leaves out.  QR and SVD signs differ
+pivoted-QR route's, which tests/test_torch_pivoted_qr.py holds against
+the JAX package's.  QR and SVD signs differ
 between jnp and torch, so only gauge-free results are compared:
 reconstructions, singular values, orthogonality, ranks, dimensions and
 solutions (to 1e-12 of the largest entry in float64; ranks, dimensions and

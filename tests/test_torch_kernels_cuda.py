@@ -1029,3 +1029,37 @@ def test_df_qr_kernel_stats_give_the_deficiency_threshold(cuda):
     diag = rh.diagonal().cpu().numpy()
     assert np.array_equal(s[:, 0] <= s[:, 1], diag == 0.0)
     assert (diag == 0.0).sum() == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_pivoted_qr_program_replays_its_eager_run(cuda, dtype):
+    """householder_qrp captured as a program at (60, 30): each replay
+    bitwise the eager run and the factors those of the CPU's plain run;
+    an input with a zero column (the beta guard) gives finite factors with
+    that column pivoted last."""
+    from xerus_tpu_torch.ops import pivoted_qr as pq
+    from xerus_tpu_torch.ops.programs import Program
+    host = torch.from_numpy(np.random.default_rng(60).normal(
+        size=(60, 30))).to(dtype)
+    host[:, 7] = 0.0
+    a = host.to(cuda)
+    prog = Program(pq.householder_qrp, "qrp[60x30]")
+    outs = [prog(a) for _ in range(5)]
+    assert (prog.eager_runs, prog.captures, prog.replays) == (2, 1, 2)
+    eager = pq.householder_qrp(a)
+    for out in outs:
+        assert all(torch.equal(x, y) for x, y in zip(out, eager))
+    q, r, perm = (t.cpu() for t in outs[-1])
+    assert perm.dtype == torch.int32 and int(perm[-1]) == 7
+    assert bool(torch.isfinite(q).all()) and bool(torch.isfinite(r).all())
+    eps = torch.finfo(dtype).eps
+    assert float((host[:, perm.long()] - q @ r).abs().max()) <= \
+        100 * eps * float(host.abs().max())
+    assert float((q.T @ q - torch.eye(30, dtype=dtype)).abs().max()) <= \
+        100 * eps
+    q0, r0, perm0 = pq.householder_qrp(host)
+    assert torch.equal(perm[:29], perm0[:29])
+    s, s0 = torch.sign(r.diagonal()[:29]), torch.sign(r0.diagonal()[:29])
+    assert float((s[:, None] * r[:29] - s0[:, None] * r0[:29]).abs().max()) \
+        <= 100 * eps * float(r0.abs().max())
