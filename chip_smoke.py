@@ -129,7 +129,14 @@ full width:
   still off, walls and TFLOP/s, and ``TTTensor.round_fast(speed=...)``;
 - the parallel layer in a one-rank NCCL group: every parallel entry and
   both ``mesh=`` arguments against the serial path
-  (``examples/parallel_checks.py``), each wall beside the serial one.
+  (``examples/parallel_checks.py``), each wall beside the serial one;
+- ``xt.warmup`` last, after every phase whose launches the kernels line
+  counts (its calls move the counters): the Poisson family (the f32
+  half-sweeps in each ALS solver's call form, the df rounding to 15),
+  the rank-256 rounding family (gram, svd, randomized), workload 4's Lanczos
+  half-sweep and the d=10 ADF iteration; each entry's cold first call,
+  the first call after warmup (a replay with no capture, bitwise the
+  steady calls, within 1.2x of their wall) and the programs' held bytes.
 
 It checks the host-f64 residual of the solve, the f32-vs-f64 log-norm
 of every rounding and the completion's residuals against the JAX
@@ -5400,6 +5407,179 @@ def phase_parallel(dev, smi):
         raise AssertionError(f"parallel: {bad}")
 
 
+# phase_warmup's families: (d, rank) of the Poisson family, whose als and
+# df_round kinds round to rank // 2; workload 4's d and max rank (dmrg)
+WARM_POISSON = (D, RANK)
+WARM_DMRG = (EIG_D, 16)
+# the first replaying call after warmup over the steady calls' median
+# wall; an entry that reaches no program (gram, svd) runs eagerly at every
+# call, its wall spread by the host by more than the bar, so its ratio is
+# printed, not held
+WARM_BAR = 1.2
+# steady calls, their median wall the yardstick; a short replay's wall
+# (the ADF iteration's) spreads with the host's launches around the graph,
+# so a first call inside the steady calls' own range passes too
+WARM_STEADY = 5
+# entries whose graphs' first launch after the capture phase_warmup times
+# beside the next two (cheap ones: it captures them once more)
+WARM_PROBE = ("round_randomized", "adf_iteration")
+
+
+def _warm_families(dev):
+    """phase_warmup's families: (label, warmup's positional and keyword
+    arguments, the cores of the entries, their entries): the Poisson
+    family's f32 half-sweeps and df rounding to rank // 2 (warmup's op
+    rank 2, the rank of examples.laplace_operator's MPO), the rounding
+    family at rank ROUND_RANK -> ROUND_TARGET (gram, svd, randomized), the
+    Lanczos half-sweep at workload 4's shapes and the ADF iteration on
+    the completion instance's truth and samples."""
+    import torch
+    import xerus_tpu_torch as xt
+    from xerus_tpu_torch.convert import cores_to_torch
+    from xerus_tpu_torch.examples import (bench_round_instance,
+                                          completion_instance,
+                                          qtt_poisson_instance)
+    from xerus_tpu_torch.examples.warm_entries import kind_entries
+    from xerus_tpu_torch.ops import dmrg_kernels as dk
+    from xerus_tpu_torch.ops.adf_kernels import build_onehots
+    d, rank = WARM_POISSON
+    xs, A, b = qtt_poisson_instance(d, rank, SEED)
+    x, A, b = (cores_to_torch(t, dev) for t in (xs, A, b))
+    yield (f"Poisson d={d} rank {rank}", ([2] * d, rank),
+           dict(op_rank=2, kinds=("als", "df_round")), x,
+           kind_entries(("als", "df_round"), x, rank // 2, A=A, b=b))
+    x = cores_to_torch(bench_round_instance(ROUND_D, ROUND_N, ROUND_RANK),
+                       dev)
+    yield (f"rounding d={ROUND_D} rank {ROUND_RANK} -> {ROUND_TARGET}",
+           ([ROUND_N] * ROUND_D, ROUND_RANK),
+           dict(target_rank=ROUND_TARGET, kinds=("round", "randomized")), x,
+           kind_entries(("round", "randomized"), x, ROUND_TARGET))
+    d, rank = WARM_DMRG
+    xt.set_seed(SEED + 4)
+    H = [c._torch() for c in xt.examples.heisenberg_mpo(d).components]
+    x = [c._torch() for c in xt.TTTensor.random([2] * d, rank).components]
+    H = dk._pad_operator_stack(H, torch.float64)
+    yield (f"workload 4 d={d} rank {rank}", ([2] * d, rank),
+           dict(dtype="float64", op_rank=H.shape[1], kinds=("dmrg",)), x,
+           kind_entries(("dmrg",), x, rank // 2, H=H))
+    inst = completion_instance()
+    ms = inst.measurements
+    x = cores_to_torch(inst.truth, dev, torch.float64)
+    dims = [c.shape[1] for c in x]
+    adf = (build_onehots(torch.from_numpy(ms.positions).to(dev), dims,
+                         torch.float64),
+           torch.from_numpy(ms.measuredValues).to(dev))
+    yield (f"completion d={len(dims)} rank {x[1].shape[2]}, "
+           f"{len(ms.measuredValues)} samples", (dims, int(x[1].shape[2])),
+           dict(dtype="float64", num_measurements=len(ms.measuredValues),
+                kinds=()), x,
+           kind_entries(("adf_iteration",), x, 1, adf=adf))
+
+
+def _walled(fn):
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_warmup(dev, smi):
+    """``xt.warmup`` on the families of ``_warm_families``: for each, after
+    ``programs.clear()`` the cold first call of each entry, then
+    ``clear()`` again, the warmup (its dict printed), the first call after
+    it and WARM_STEADY steady calls; for the entries of WARM_PROBE, after
+    ``clear()``, the calls up to the capture, then three timed replays.
+    Fails unless, for every entry, the
+    first call after warmup runs no program eagerly and captures none,
+    replays where its cold call ran programs, builds no kernel and is
+    bitwise the steady calls' result, and unless a replaying call takes
+    at most WARM_BAR times their median wall or no longer than the
+    slowest of them.  Runs after the phases the kernels line counts:
+    warmup's own calls move the launch counters."""
+    import xerus_tpu_torch as xt
+    from xerus_tpu_torch import build
+    from xerus_tpu_torch.ops import programs as pg
+    from xerus_tpu_torch.warmup import _tt_shapes
+    P = pg.Program
+
+    def counts():
+        return (P.eager_runs, P.captures, P.replays)
+
+    t_phase = time.perf_counter()
+    fails = []
+    for label, args, kw, x, entries in _warm_families(dev):
+        if [tuple(c.shape) for c in x] != _tt_shapes(*args):
+            raise AssertionError(f"warmup: {label}: cores "
+                                 f"{[tuple(c.shape) for c in x]} are not "
+                                 "the family's shapes")
+        t_family = time.perf_counter()
+        pg.clear()
+        cold = {}
+        for name, entry in entries.items():
+            c0, b0 = counts(), dict(build.build_log)
+            _, cold[name] = _walled(lambda: entry(False))
+            cold[name] = (cold[name], counts()[0] - c0[0], ", ".join(
+                f"built {k} in {v['seconds']:.2f} s"
+                for k, v in build.build_log.items() if k not in b0))
+        pg.clear()
+        times, wall = _walled(lambda: xt.warmup(*args, **kw))
+        builds = dict(build.build_log)
+        print(f"warmup: {label}: xt.warmup in {wall:.3f} s: "
+              f"{json.dumps({k: round(v, 4) for k, v in times.items()})}; "
+              f"programs hold {pg.held_bytes() / 2 ** 20:.1f} MiB ({smi})")
+        for name, entry in entries.items():
+            c0 = counts()
+            out, warm = _walled(lambda: entry(False))
+            dc = [b - a for a, b in zip(c0, counts())]
+            steady = [_walled(lambda: entry(False))
+                      for _ in range(WARM_STEADY)]
+            walls = [w for _, w in steady]
+            ref = statistics.median(walls)
+            same = all(_bitwise(out, o) for o, _ in steady)
+            cold_s, cold_eager, built = cold[name]
+            print(f"warmup: {label}: {name}: cold first call "
+                  f"{cold_s * 1e3:.3f} ms ({cold_eager} eager program runs"
+                  f"{'; ' + built if built else ''}), "
+                  f"first call after warmup {warm * 1e3:.3f} ms ({dc[0]} "
+                  f"eager runs, {dc[1]} captures, {dc[2]} replays), steady "
+                  f"{ref * 1e3:.3f} ms (median of {WARM_STEADY}, "
+                  f"{min(walls) * 1e3:.3f}-{max(walls) * 1e3:.3f}), warm / "
+                  f"steady {warm / ref:.3f}, cold / steady "
+                  f"{cold_s / ref:.3f}; bitwise the steady calls: {same}; "
+                  f"programs hold {pg.held_bytes() / 2 ** 20:.1f} MiB "
+                  f"({smi})")
+            if dc[0] or dc[1]:
+                fails.append(f"{label}: {name}: {dc[0]} eager runs, {dc[1]} "
+                             "captures after warmup")
+            if cold_eager and not dc[2]:
+                fails.append(f"{label}: {name}: no replay after warmup")
+            if not same:
+                fails.append(f"{label}: {name}: not bitwise the steady calls")
+            if cold_eager and warm > max(WARM_BAR * ref, max(walls)):
+                fails.append(f"{label}: {name}: {warm / ref:.3f}x the steady "
+                             f"call (bar {WARM_BAR})")
+        if build.build_log != builds:
+            fails.append(f"{label}: built {set(build.build_log) - set(builds)}"
+                         " after warmup")
+        for name in (n for n in WARM_PROBE if n in entries):
+            pg.clear()
+            for _ in range(pg.EAGER_CALLS + 1):
+                entries[name](False)
+            walls = [_walled(lambda: entries[name](False))[1] * 1e3
+                     for _ in range(3)]
+            print(f"warmup: {label}: {name}: the graphs' first launch after "
+                  f"the capture {walls[0]:.3f} ms, the next two "
+                  f"{walls[1]:.3f} / {walls[2]:.3f} ms ({smi})")
+        print(f"warmup: {label}: {time.perf_counter() - t_family:.1f} s "
+              "for the family")
+    pg.clear()
+    print(f"warmup: phase {time.perf_counter() - t_phase:.1f} s ({smi})")
+    if fails:
+        raise AssertionError("warmup: " + "; ".join(fails))
+
+
 def _loop_entries(k1q_poisson, poisson_rows, poisson_abs, rest_rows,
                   rest_abs, rest_launches, gmem_rows):
     """The JSON entries of K1c and K1q.  K1q: launches in the solve and
@@ -5510,6 +5690,7 @@ def main():
     phase_round_breakdown(dev)
     k1c, k1q = _loop_entries(k1q_poisson, poisson_rows, poisson_abs,
                              rest_rows, rest_abs, rest_launches, gmem_rows)
+    phase_warmup(dev, smi)
 
     def entry(name, source, replaces, launches, max_abs, timing):
         # beside the main shape's numbers: K2's in float64 on the object

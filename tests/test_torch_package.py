@@ -236,7 +236,7 @@ def test_missing_top_level_names_are_roadmaps_list():
                  "TTRetractionII", "TTVectorTransport",
                  "SteepestDescentVariant", "SteepestDescent",
                  "GeometricCGVariant", "GeometricCG", "decomposition_als",
-                 "randomTTSVD"):
+                 "randomTTSVD", "warmup"):
         assert hasattr(xerus_tpu_torch, name), name
     # xerus_tpu.ops and xerus_tpu.parallel: every name but the by-design
     # ones (ROADMAP Queue 1 items 11 and 9)

@@ -24,9 +24,11 @@ measurements run K3; ``PerformanceData``; the eigensolver
 descent and geometric CG; ``decomposition_als``, ``randomTTSVD``; the
 fused apply + round ``ops.apply_operator_rounded``), with the problem
 generators and the cascade example (``examples``) and ``models``, under
-the JAX package's top-level names (all but ``warmup``); the sparse QR of
-sparse Tensors (``core.sparse_qr``), the rounding speed presets
-(``TTTensor.round_fast(speed=...)``) and the parallel layer over
+the JAX package's top-level names, ``warmup`` among them (it builds a
+problem family's hand kernels and captures its programs before timed
+work); the sparse QR of sparse Tensors (``core.sparse_qr``), the
+rounding speed presets (``TTTensor.round_fast(speed=...)``) and the
+parallel layer over
 torch.distributed (``parallel``, with ``mesh=`` on ADF and UQ-ADF).
 Object computations run on the card unless the caller enters ``host()``.
 """
@@ -78,6 +80,7 @@ from .algorithms import (PerformanceData, NoPerfData, DataPoint, ALSVariant,
                          smallest_eigenvalue, als_spd_mixed, als_spd_fused,
                          randomTTSVD)
 from .ops.dmrg_kernels import dmrg_solve
+from .warmup import warmup
 from . import algorithms, convert, examples, models, ops
 
 

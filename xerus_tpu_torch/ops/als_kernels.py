@@ -474,6 +474,33 @@ def _run_loop(x_cores, conv_eps, parity0: int, remaining: int, last0: float,
     return cores, hist, i
 
 
+def spd_step(A_cores, b_cores, local_assume: str = "pos",
+             eager: bool = False):
+    """``als_run``'s half-sweep: (even, cores) -> (cores, relative
+    residual), lr when ``even``, a call of ``make_als_sweep_res``'s
+    program in the form the solve makes (``warmup`` warms it so)."""
+    def step(even, cs):
+        return call(make_als_sweep_res, (cs, A_cores, b_cores),
+                    "lr" if even else "rl", True, "lapack", local_assume,
+                    eager=eager)
+    return step
+
+
+def rev_step(A_cores, b_cores, solver: str = "nonspd", eager: bool = False):
+    """``als_run_rev``'s half-sweep, as ``spd_step``: the lr sweep when
+    ``even``, else the lr sweep of the site-reversed system."""
+    spd = solver != "nonspd"
+    lr_solver = solver if solver in ("asd", "cg") else "lapack"
+
+    def step(even, cs):
+        args = (cs, A_cores, b_cores)
+        if even:
+            return call(make_als_sweep_res, args, "lr", spd, lr_solver,
+                        eager=eager)
+        return call(_make_rev_sweep_res, args, solver, eager=eager)
+    return step
+
+
 def als_run(x_cores, A_cores, b_cores, conv_eps, parity0: int,
             remaining: int, last0: float, last20: float, max_sweeps: int,
             local_assume: str = "pos", eager: bool = False):
@@ -490,12 +517,9 @@ def als_run(x_cores, A_cores, b_cores, conv_eps, parity0: int,
     of ``make_als_sweep_res``'s program (on the card; ``eager`` runs its
     function eagerly instead); one boolean is read to the host per
     half-sweep."""
-    def step(even, cs):
-        return call(make_als_sweep_res, (cs, A_cores, b_cores),
-                    "lr" if even else "rl", True, "lapack", local_assume,
-                    eager=eager)
     return _run_loop(x_cores, conv_eps, parity0, remaining, last0, last20,
-                     max_sweeps, step)
+                     max_sweeps, spd_step(A_cores, b_cores, local_assume,
+                                          eager))
 
 
 def als_run_rev(x_cores, A_cores, b_cores, conv_eps, parity0: int,
@@ -508,17 +532,8 @@ def als_run_rev(x_cores, A_cores, b_cores, conv_eps, parity0: int,
     enter canonicalized at site 0 and leave with the core at d-1 after an
     even executed count (parity0 + count), at 0 after an odd one.  Same
     carry protocol, programs and host reads as ``als_run``."""
-    spd = solver != "nonspd"
-    lr_solver = solver if solver in ("asd", "cg") else "lapack"
-
-    def step(even, cs):
-        args = (cs, A_cores, b_cores)
-        if even:
-            return call(make_als_sweep_res, args, "lr", spd, lr_solver,
-                        eager=eager)
-        return call(_make_rev_sweep_res, args, solver, eager=eager)
     return _run_loop(x_cores, conv_eps, parity0, remaining, last0, last20,
-                     max_sweeps, step)
+                     max_sweeps, rev_step(A_cores, b_cores, solver, eager))
 
 
 def _batched_body(direction: str, local_assume: str):

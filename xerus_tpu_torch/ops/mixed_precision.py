@@ -338,6 +338,14 @@ def df_join(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
 # The whole mixed-precision solve
 # ---------------------------------------------------------------------------
 
+def f32_half_sweep(cores, A32, b32, even: bool, eager: bool = False):
+    """One f32 half-sweep of ``als_f32_df_run`` and the relative residual
+    after it, lr when ``even``: a call of ``make_als_sweep_res``'s program
+    in the form the solve makes (``warmup`` warms it so)."""
+    return call(make_als_sweep_res, (tuple(cores), tuple(A32), tuple(b32)),
+                "lr" if even else "rl", eager=eager)
+
+
 def als_f32_df_run(x32: Sequence[torch.Tensor], A32: Sequence[torch.Tensor],
                    b32: Sequence[torch.Tensor], A_df: Sequence[DF],
                    b_df: Sequence[DF], max_f32_sweeps: int, df_sweeps: int,
@@ -367,8 +375,7 @@ def als_f32_df_run(x32: Sequence[torch.Tensor], A32: Sequence[torch.Tensor],
     r_prev = r_prev2 = ref.new_full((), float("inf"))
     i = 0
     while i < max_even:
-        cores, res = call(make_als_sweep_res, (cores, tuple(A32), tuple(b32)),
-                          "lr" if i % 2 == 0 else "rl", eager=eager)
+        cores, res = f32_half_sweep(cores, A32, b32, i % 2 == 0, eager)
         hist[i] = res
         stop = i % 2 == 1 and bool(res > 0.3 * r_prev2)
         r_prev2, r_prev = r_prev, res

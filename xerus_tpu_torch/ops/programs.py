@@ -18,7 +18,10 @@ function eagerly: the caller asked for the CPU.  On the card:
   so a hidden host read in the region raises at capture instead of
   slipping into a wrong graph;
 - every later call copies the inputs into the static buffers and replays
-  the graph.
+  the graph.  The copies in and out go by ``torch._foreach_copy_``, one
+  multi-tensor launch for the dense tensors of a dtype: the card waits
+  while the host launches them, so one launch a tensor would add the
+  host's launch time to every replay.
 
 Outputs are never views of the graph's memory: each call returns fresh
 tensors (copies of the static outputs with their strides), which the next
@@ -256,8 +259,7 @@ class Program:
         return self._capture(args, leaves)
 
     def _load(self, leaves) -> None:
-        for s, t in zip(self._static_in, leaves):
-            s.copy_(t)
+        torch._foreach_copy_(self._static_in, leaves)
 
     def _capture(self, args, leaves):
         dev = leaves[0].device
@@ -311,6 +313,5 @@ class Program:
         Program.replays += 1
         outs = _leaves(self._static_out)
         copies = [_fresh(t) for t in outs]
-        for c, t in zip(copies, outs):
-            c.copy_(t)
+        torch._foreach_copy_(copies, outs)
         return _rebuild(self._static_out, iter(copies))
